@@ -1,0 +1,147 @@
+"""Demand model for privacy-budget scheduling (paper §IV, Defs 5-6).
+
+Shapes (padded, fixed per round): M data analysts, N pipelines per analyst,
+K data blocks.  ``demand [M, N, K]`` is the raw privacy demand (epsilon)
+pipeline j of analyst i places on block k; ``capacity [K]`` the remaining
+budget of each block; gamma = demand / the block's total budget.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..fp import seq_dot, seq_sum
+from . import hotpath
+
+_EPS = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class DemandView:
+    """The monolithic demand view (``repro``'s ``mint_tick=None``): ``base``
+    is already the current demand tensor.  The service plane's two-ring
+    view is not ported yet."""
+
+    base: torch.Tensor                    # [M, N, K]
+
+    def masked(self, active: torch.Tensor) -> torch.Tensor:
+        """``base`` with inactive pipelines zeroed."""
+        return self.base * active[..., None].to(self.base.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundInputs:
+    """Everything the scheduler sees for one allocation round.
+
+    ``weight`` is the optional per-analyst tier weight (it multiplies
+    ``a_i``); ``lam`` the previous round's SP1 duals for a warm start."""
+
+    demand: torch.Tensor        # [M, N, K] raw epsilon demand
+    active: torch.Tensor        # [M, N] bool -- pipeline exists and is pending
+    arrival: torch.Tensor       # [M, N] arrival time (seconds)
+    loss: torch.Tensor          # [M, N] matching degree l_ij in (0, 1]
+    capacity: torch.Tensor      # [K] remaining budget of each block
+    budget_total: torch.Tensor  # [K] the block's total budget
+    now: torch.Tensor           # scalar current time (seconds)
+    weight: Optional[torch.Tensor] = None  # [M] tier weight (or None)
+    lam: Optional[torch.Tensor] = None     # [K] warm-start duals (or None)
+
+    @property
+    def shape(self):
+        return self.demand.shape
+
+    @classmethod
+    def from_numpy(cls, demand, active, arrival, loss, capacity,
+                   budget_total, now, weight=None, lam=None, *,
+                   device="cuda") -> "RoundInputs":
+        """Build from numpy arrays (or scalars) on ``device``; bool for
+        ``active``, float32 for the rest.  Raises ``RuntimeError`` when
+        ``device`` is CUDA and CUDA is unavailable."""
+        dev = resolve_device(device)
+
+        def f32(a):
+            return None if a is None else torch.tensor(
+                np.asarray(a, np.float32), device=dev)
+
+        return cls(demand=f32(demand),
+                   active=torch.tensor(np.asarray(active, bool),
+                                       device=dev),
+                   arrival=f32(arrival), loss=f32(loss),
+                   capacity=f32(capacity), budget_total=f32(budget_total),
+                   now=f32(now), weight=f32(weight), lam=f32(lam))
+
+
+def normalized_demand(demand, budget_total):
+    """gamma_ij^<k> = demand / total block budget (Def 5).  [M, N, K]."""
+    return demand / torch.clamp(budget_total, min=_EPS)[None, None, :]
+
+
+def pipeline_max_share(gamma):
+    """mu_ij = max_k gamma_ij^<k> (Eq 3).  [M, N]."""
+    return torch.amax(gamma, dim=-1)
+
+
+def infeasible_pipelines(gamma, cap_frac, slack: float = 1e-6):
+    """Pipelines whose demand exceeds remaining capacity on any block (they
+    cannot satisfy one-or-more this round).  [M, N] bool."""
+    return torch.any(gamma > cap_frac[None, None, :] + slack, dim=-1)
+
+
+def analyst_demand(gamma, active):
+    """gamma_i^<k> = sum_j gamma_ij^<k> over active pipelines.  [M, K]."""
+    return seq_sum(gamma * active[..., None].to(gamma.dtype), 1)
+
+
+def analyst_max_share(gamma_i):
+    """mu_i = max_k gamma_i^<k> (Eq 4), through the row-max kernel.  [M]."""
+    return hotpath.rowmax(gamma_i)
+
+
+def waiting_coefficient(arrival, now, tau: float):
+    """T(t) = exp(-t / tau) of the waiting time (Def 8)."""
+    wait = torch.clamp(now - arrival, min=0.0)
+    return torch.exp(-wait / tau)
+
+
+def analyst_waiting(arrival, active, now):
+    """Average delay t_i over an analyst's pending pipelines (Def 10)."""
+    act = active.to(arrival.dtype)
+    wait = torch.clamp(now - arrival, min=0.0) * act
+    denom = torch.clamp(seq_sum(act, 1), min=1.0)
+    return seq_sum(wait, 1) / denom
+
+
+def analyst_loss(loss, mu_ij, active):
+    """l_i: mu-weighted average of the analyst's matching degrees."""
+    w = mu_ij * active.to(mu_ij.dtype)
+    denom = torch.clamp(seq_sum(w, 1), min=_EPS)
+    return seq_dot(w, loss, 1) / denom
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalystView:
+    """Per-analyst aggregates consumed by the SP1 water-filling solver."""
+
+    gamma_i: torch.Tensor   # [M, K] assembled normalized demand
+    mu_i: torch.Tensor      # [M] analyst dominant-share coefficient
+    a_i: torch.Tensor       # [M] T(t_i) * l_i weight
+    mask: torch.Tensor      # [M] analyst has any active demand
+
+    @classmethod
+    def build(cls, rnd: RoundInputs, tau: float) -> "AnalystView":
+        gamma = normalized_demand(rnd.demand, rnd.budget_total)
+        mu_ij = pipeline_max_share(gamma)
+        g_i = analyst_demand(gamma, rnd.active)
+        mu_i = analyst_max_share(g_i)
+        t_i = analyst_waiting(rnd.arrival, rnd.active, rnd.now)
+        T_i = torch.exp(-t_i / tau)
+        l_i = analyst_loss(rnd.loss, mu_ij, rnd.active)
+        a_i = T_i * l_i
+        if rnd.weight is not None:
+            a_i = a_i * rnd.weight
+        mask = torch.sum(rnd.active, dim=1) > 0
+        return cls(gamma_i=g_i, mu_i=mu_i, a_i=a_i, mask=mask)

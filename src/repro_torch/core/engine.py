@@ -1,0 +1,210 @@
+"""Multi-round episodes: generation and the round-by-round loop.
+
+1. :func:`generate_episode` pre-generates a whole episode as static-shape
+   arrays from a seed, replaying ``repro``'s numpy RNG call order draw for
+   draw, so its arrays equal ``repro.core.engine.generate_episode``'s.
+2. :func:`run_episode` applies :func:`~repro_torch.core.scheduler.
+   schedule_round` round after round on the episode's device, carrying
+   ``(capacity, done[, lam])`` -- ``repro``'s ``lax.scan`` body written as
+   a Python loop.
+
+Static-shape convention: every pipeline (i, j) has a fixed slot for the
+whole episode.  Fleets, diagnostics and the baseline schedulers are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import utility as ut
+from .demand import DemandView, RoundInputs
+from .scheduler import SchedulerConfig, schedule_round
+
+ROUND_SECONDS = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Episode:
+    """One pre-generated episode as static-shape tensors: M analysts x N
+    pipelines x K blocks (every block the episode will create), R rounds."""
+
+    demand: torch.Tensor        # [M, N, K] each pipeline's fixed demand
+    loss: torch.Tensor          # [M, N] matching degree l_ij
+    arrival: torch.Tensor       # [M, N] arrival time (seconds)
+    spawn_round: torch.Tensor   # [M] round the analyst's batch arrives; R = never
+    block_budget: torch.Tensor  # [K] total budget of each block
+    block_round: torch.Tensor   # [K] round each block is created
+    n_rounds: int = 10
+
+    @property
+    def shape(self):
+        return self.demand.shape
+
+    @classmethod
+    def from_numpy(cls, demand, loss, arrival, spawn_round, block_budget,
+                   block_round, n_rounds: int, *,
+                   device="cuda") -> "Episode":
+        """Episode on ``device`` from numpy arrays (float32 / int32).
+        Raises ``RuntimeError`` when ``device`` is CUDA and CUDA is
+        unavailable."""
+        dev = resolve_device(device)
+
+        def put(a, dtype):
+            return torch.tensor(np.asarray(a, dtype), device=dev)
+
+        return cls(demand=put(demand, np.float32), loss=put(loss, np.float32),
+                   arrival=put(arrival, np.float32),
+                   spawn_round=put(spawn_round, np.int32),
+                   block_budget=put(block_budget, np.float32),
+                   block_round=put(block_round, np.int32),
+                   n_rounds=int(n_rounds))
+
+
+def generate_episode(cfg, device="cuda") -> Episode:
+    """Pre-generate an episode from ``SimConfig`` ``cfg`` on ``device``.
+
+    Replays the legacy simulator's RNG call order draw for draw (device
+    budgets -> per-round Poisson arrivals -> per-analyst device subsets ->
+    per-pipeline mice/depth/demand/loss)."""
+    resolve_device(device)          # fail before the host work
+    rng = np.random.default_rng(cfg.seed)
+    M, N, R = cfg.n_analysts, cfg.pipelines_per_analyst, cfg.n_rounds
+    bpd = cfg.blocks_per_round_per_device
+    bpr = cfg.n_devices * bpd                     # blocks created per round
+    K = bpr * R
+
+    device_budget = rng.uniform(*cfg.budget_range, cfg.n_devices)
+    # block bid (created round rr, device dev, slot s) = rr*bpr + dev*bpd + s
+    block_round = np.repeat(np.arange(R, dtype=np.int32), bpr)
+    block_device = np.tile(np.repeat(np.arange(cfg.n_devices), bpd), R)
+    block_budget = device_budget[block_device].astype(np.float32)
+
+    demand = np.zeros((M, N, K), np.float32)
+    loss = np.ones((M, N), np.float32)
+    arrival = np.zeros((M, N), np.float32)
+    spawn_round = np.full(M, R, np.int32)         # R = never arrives
+
+    arrival_rate = getattr(cfg, "arrival_rate", 1.0)
+    arrived = 0
+    for r in range(R):
+        T = (r + 1) * bpd              # blocks each device has so far
+        n_new = min(rng.poisson(arrival_rate), M - arrived)
+        for _ in range(max(n_new, 1 if arrived == 0 else 0)):
+            if arrived >= M:
+                break
+            aid = arrived
+            arrived += 1
+            spawn_round[aid] = r
+            arrival[aid, :] = r * ROUND_SECONDS
+            subset = rng.random() < cfg.p_subset_devices
+            n_dev = max(1, int(cfg.subset_frac * cfg.n_devices)) if subset \
+                else cfg.n_devices
+            devices = rng.choice(cfg.n_devices, size=n_dev, replace=False)
+            for j in range(N):
+                mice = rng.random() < cfg.mice_frac
+                lo, hi = cfg.mice_eps if mice else cfg.elephant_eps
+                depth = 10 if rng.random() < cfg.p_ten_blocks else 1
+                # latest `depth` blocks of each targeted device; one vector
+                # draw consumes the PCG64 stream like per-block scalar draws
+                ts = np.arange(max(0, T - depth), T)
+                base = (ts // bpd) * bpr + (ts % bpd)
+                bids = (devices[:, None] * bpd + base[None, :]).reshape(-1)
+                demand[aid, j, bids] = rng.uniform(lo, hi, bids.size)
+                loss[aid, j] = rng.uniform(0.5, 1.0)
+
+    return Episode.from_numpy(demand, loss, arrival, spawn_round,
+                              block_budget, block_round, R, device=device)
+
+
+def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
+                scheduler: str = "dpbalance", *, diagnostics: bool = False,
+                validate: bool = True) -> Dict[str, torch.Tensor]:
+    """Run one episode round by round on the episode's device.
+
+    Returns per-round metric tensors ``[R]`` -- ``repro``'s keys, plus
+    ``sp1_iters`` in both SP1 modes and ``selected [R, M, N]`` -- and the
+    ``final_*`` episode-end state.  With ``validate``, capacity
+    conservation and no overdraw are checked after the episode."""
+    if scheduler != "dpbalance":
+        raise NotImplementedError(f"scheduler {scheduler!r} is not ported "
+                                  "yet; only 'dpbalance'")
+    if diagnostics:
+        raise NotImplementedError("round diagnostics are not ported yet")
+    ep = episode
+    M, N, K = ep.demand.shape
+    dev = ep.demand.device
+    warm = sched_cfg.sp1_warm_start
+    capacity = torch.zeros(K, dtype=torch.float32, device=dev)
+    done = torch.zeros((M, N), dtype=torch.bool, device=dev)
+    lam = torch.ones(K, dtype=torch.float32, device=dev) if warm else None
+    view = DemandView(base=ep.demand)       # the episode's demand is fixed
+    rows: Dict[str, list] = {}
+
+    for r in range(ep.n_rounds):
+        if warm:    # freshly minted blocks start from cold duals
+            lam = torch.where(ep.block_round == r, torch.ones_like(lam), lam)
+        created = ep.block_round <= r
+        capacity = capacity + ep.block_budget * (ep.block_round == r)
+        budget_total = torch.where(created, ep.block_budget,
+                                   torch.ones_like(ep.block_budget))
+        active = (ep.spawn_round[:, None] <= r) & ~done
+        now = torch.tensor(np.float32(r) * np.float32(ROUND_SECONDS),
+                           device=dev)
+        rnd = RoundInputs(
+            demand=view.masked(active), active=active,
+            arrival=torch.where(active, ep.arrival,
+                                torch.zeros_like(ep.arrival)),
+            loss=torch.where(active, ep.loss, torch.ones_like(ep.loss)),
+            capacity=capacity, budget_total=budget_total, now=now, lam=lam)
+        res = schedule_round(rnd, sched_cfg)
+        if warm:
+            lam = res.sp1_lam
+
+        mask = torch.sum(active, dim=1) > 0
+        gap = torch.where(created, capacity - res.consumed - res.leftover,
+                          torch.zeros_like(capacity))
+        out = {
+            "round_efficiency": res.efficiency,
+            "round_fairness": res.fairness,
+            "round_fairness_norm": ut.normalized_fairness(
+                res.utility, sched_cfg.beta, mask),
+            "round_jain": res.jain,
+            "n_allocated": res.n_allocated,
+            "leftover": torch.sum(res.leftover),
+            # conservation: consumed + leftover == round-start capacity on
+            # every live block, and no overdraw
+            "conservation_gap": torch.amax(torch.abs(gap)),
+            "overdraw": torch.amax(res.consumed - capacity),
+            "sp1_iters": res.sp1_iters,
+            "selected": res.selected,
+        }
+        for k, v in out.items():
+            rows.setdefault(k, []).append(v)
+        capacity = torch.clamp(capacity - res.consumed, min=0.0)
+        done = done | res.selected
+
+    ys = {k: torch.stack(v) for k, v in rows.items()}
+    ys["final_capacity"] = capacity
+    ys["final_done"] = done
+    for k in ("efficiency", "fairness", "fairness_norm"):
+        ys[f"cumulative_{k}"] = torch.cumsum(ys[f"round_{k}"], dim=0)
+    if validate:
+        check_conservation(ys, scheduler)
+    return ys
+
+
+def check_conservation(out: Dict[str, torch.Tensor], scheduler: str) -> None:
+    """Raise ``AssertionError`` if any round overdrew a block or lost
+    budget (|capacity - consumed - leftover| or overdraw above 1e-4)."""
+    gap = float(torch.amax(out["conservation_gap"]))
+    over = float(torch.amax(out["overdraw"]))
+    if gap > 1e-4 or over > 1e-4:
+        raise AssertionError(
+            f"budget conservation violated under {scheduler!r}: "
+            f"max |capacity - consumed - leftover| = {gap:.3e}, "
+            f"max overdraw = {over:.3e}")

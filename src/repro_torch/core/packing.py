@@ -1,0 +1,140 @@
+"""SP2 -- pipeline-level reallocation inside each analyst (paper Eqs 20-24).
+
+Given each analyst's granted budget vector (from SP1), pick its pipeline
+set:
+
+    (Eq 23)  maximise the NUMBER of covered pipelines, then
+    (Eq 20)  maximise sum_j mu_ij x_ij a_ij over the chosen set, x_ij >= 1
+             (one-or-more, Eq 5), returning unused budget.
+
+* greedy cover by ascending mu_ij (max-count packing heuristic),
+* a single-swap refinement that keeps the count but may improve the
+  boosted Eq-20 objective (what picks Bob's P3 over P4 in Fig 2), by
+  default through the incremental engine in :mod:`repro_torch.core.swap`,
+* the closed-form sequential proportional boost for Eq 20: each selected
+  pipeline, in descending mu_ij a_ij order, receives kappa_j = min_k
+  leftover_k / gamma_jk extra, capped at kappa_max (Bob's P3: 1.25).
+
+Everything is batched over analysts: ``gamma [M, N, K]``, ``mu``/``a``/
+``active``/``sel`` ``[M, N]``, ``budget [M, K]``; the boost sweeps run as
+one kernel launch over the whole analyst axis.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..fp import seq_dot, seq_sum
+from . import hotpath
+from . import swap as _swap
+from .blockaxis import grant_fits_scan
+
+_EPS = 1e-9
+_FEAS = 1e-6  # feasibility slack (float32 headroom on normalized shares)
+_BIG = 1e30
+
+
+class PackResult(NamedTuple):
+    x_ij: torch.Tensor       # [M, N] allocation ratio (0 or >= 1)
+    selected: torch.Tensor   # [M, N] bool
+    used: torch.Tensor       # [M, K] budget consumed
+    objective: torch.Tensor  # [M] Eq-20 value
+    swapped: Optional[torch.Tensor] = None  # [M] bool: refinement changed greedy
+    water: Optional[torch.Tensor] = None    # [M] post-boost min leftover share
+
+
+def greedy_cover(gamma, mu, active, budget):
+    """Max-count pipeline set by ascending-mu greedy.  -> [M, N] bool."""
+    key = torch.where(active, mu, torch.full_like(mu, _BIG))
+    order = torch.argsort(key, dim=-1, stable=True)
+    dems = torch.take_along_dim(gamma, order[..., None], dim=1)
+    _, taken = grant_fits_scan(dems, torch.gather(active, 1, order), budget,
+                               _FEAS)
+    sel = torch.zeros_like(active).scatter_(1, order, taken)
+    return sel & active
+
+
+def proportional_boost(gamma, mu, a, active, sel, budget, kappa_max: float):
+    """Eq 20 heuristic: x = 1 for selected, then greedy kappa boosts in the
+    fixed descending mu*a order (unselected visits are no-ops).  Returns
+    ``(x_ij [M, N], used [M, K], objective [M])``."""
+    base_used = seq_sum(gamma * sel[..., None].to(gamma.dtype), 1)
+    leftover = budget - base_used
+
+    order = torch.argsort(-(mu * a), dim=-1, stable=True)  # selection-free
+    g_ord = torch.take_along_dim(gamma, order[..., None], dim=1)
+    sel_ord = torch.gather(sel, 1, order).to(torch.int32)
+
+    leftover, extras = hotpath.boost_scan(g_ord, sel_ord, leftover,
+                                          kappa_max)
+    x = torch.zeros_like(mu).scatter_(1, order, extras)
+    x = torch.where(sel, 1.0 + x, torch.zeros_like(x))
+    used = seq_dot(gamma, x[..., None], 1)
+    obj = seq_sum(mu * a * x * sel, -1)
+    return x, used, obj
+
+
+def swap_refine_reference(gamma, mu, a, active, sel, budget,
+                          kappa_max: float):
+    """Single-swap local search, reference path: for every (selected s,
+    unselected u) try sel - {s} + {u} with a full ``proportional_boost``
+    recompute; keep the feasible candidate with the best objective.
+    O(N^3 K); the oracle of :func:`repro_torch.core.swap.
+    swap_refine_incremental`, which must return the same selection."""
+    M, N = mu.shape
+    cands, objs, valids = [], [], []
+    for s in range(N):
+        for u in range(N):
+            cand = sel.clone()
+            cand[:, s] = False
+            cand[:, u] = True
+            valid = sel[:, s] & ~sel[:, u] & active[:, u] & (s != u)
+            used = seq_sum(gamma * cand[..., None].to(gamma.dtype), 1)
+            feasible = torch.all(used <= budget + _FEAS, dim=-1)
+            _, _, obj = proportional_boost(gamma, mu, a, active, cand,
+                                           budget, kappa_max)
+            cands.append(cand)
+            objs.append(obj)
+            valids.append(valid & feasible)
+    cands = torch.stack(cands, 1)                                 # [M,N2,N]
+    objs = torch.stack(objs, 1)
+    objs = torch.where(torch.stack(valids, 1), objs,
+                       torch.full_like(objs, -_BIG))
+    _, _, base_obj = proportional_boost(gamma, mu, a, active, sel, budget,
+                                        kappa_max)
+    best = torch.argmax(objs, dim=-1)
+    improved = torch.gather(objs, 1, best[:, None])[:, 0] > base_obj + 1e-12
+    best_cand = cands[torch.arange(M, device=sel.device), best]
+    return torch.where(improved[:, None], best_cand, sel)
+
+
+def swap_refine(gamma, mu, a, active, sel, budget, kappa_max: float,
+                incremental: bool = True):
+    """Single-swap refinement: the incremental engine (default) or the
+    O(N^3 K) reference; both return the same selection bit for bit."""
+    fn = (_swap.swap_refine_incremental if incremental
+          else swap_refine_reference)
+    return fn(gamma, mu, a, active, sel, budget, kappa_max)
+
+
+def _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
+                    kappa_max: float) -> PackResult:
+    """Shared SP2 tail: boost the final selection, assemble the result."""
+    swapped = torch.any(sel != sel0, dim=-1)
+    x, used, obj = proportional_boost(gamma, mu, a, active, sel, budget,
+                                      kappa_max)
+    water = torch.amin(budget - used, dim=-1)
+    return PackResult(x_ij=x, selected=sel, used=used, objective=obj,
+                      swapped=swapped, water=water)
+
+
+def pack_all(gamma, mu, a, active, budget, kappa_max: float = 8.0,
+             refine: bool = True, incremental: bool = True) -> PackResult:
+    """Full SP2 for every analyst at once (``repro``'s ``vmap`` of
+    ``pack_analyst``, written over the analyst axis)."""
+    sel0 = greedy_cover(gamma, mu, active, budget)
+    sel = (swap_refine(gamma, mu, a, active, sel0, budget, kappa_max,
+                       incremental) if refine else sel0)
+    return _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
+                           kappa_max)

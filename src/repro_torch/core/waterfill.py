@@ -1,0 +1,116 @@
+"""SP1 -- analyst-level alpha-fair allocation via the Lagrange-multiplier method.
+
+Solves (paper Eqs 17-19, the continuous relaxation of Eq 13)
+
+    max   sum_i (mu_i a_i x_i)^(1-beta) / (1-beta)
+    s.t.  sum_i c_ik x_i <= cap_k   for every block k,   x_i >= 0
+
+with the KKT closed form x_i(lambda) = [(mu_i a_i)^(1-beta) / sum_k
+lambda_k c_ik]^(1/beta) (paper Appendix B, Eq 39) and projected
+multiplicative dual ascent lambda_k <- lambda_k exp(eta g_k).
+
+Each iteration is one :func:`repro_torch.core.hotpath.dual_step` (the
+``dual_step`` kernel on the card) plus the update and the KKT error, and
+the stop rule is checked on the host every iteration (one device sync per
+iteration), so the iteration count is ``repro``'s exactly.  The step size
+is host arithmetic in float32 with ``repro``'s rounding.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import hotpath
+
+_EPS = 1e-12
+_F32 = np.float32
+
+
+class WaterfillResult(NamedTuple):
+    x: torch.Tensor          # [M] allocation ratios
+    lam: torch.Tensor        # [K] final multipliers
+    violation: torch.Tensor  # scalar max constraint violation
+    iters: torch.Tensor      # scalar int32 iterations executed
+
+
+def _x_of_lambda(lam, c, w_pow, beta, xcap, mask):
+    """x_i(lambda) from KKT stationarity, clipped to the per-analyst cap."""
+    denom = torch.clamp(hotpath.matvec(c, lam), min=_EPS)
+    x = (w_pow / denom) ** (1.0 / beta)
+    x = torch.minimum(x, xcap)
+    return torch.where(mask, x, torch.zeros_like(x))
+
+
+def _kkt(lam_new, g) -> float:
+    """KKT error max(primal infeasibility, complementary slackness)."""
+    feas = torch.amax(torch.clamp(g, min=0.0))
+    comp = torch.amax(lam_new * torch.abs(g))
+    return torch.maximum(feas, comp).item()
+
+
+def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
+                         max_iters: int = 4000, tol: float = 1e-6,
+                         lam0=None, adaptive: bool = False) -> WaterfillResult:
+    """Solve SP1.  Returns ratios x_i >= 0 with sum_i c_ik x_i <= cap_k.
+
+    ``mu``/``a``/``mask`` are ``[M]``, ``c`` is ``[M, K]``, ``cap`` ``[K]``
+    (default ones).  ``lam0`` warm-starts the duals; ``adaptive`` replaces
+    the cold step ``0.5 / (1 + 0.001 it)`` with one that grows x1.2 while
+    the KKT error falls and shrinks x0.7 when it rises, kept in [0.2,
+    1.5]."""
+    if beta <= 0:
+        raise ValueError("alpha-fairness requires beta > 0")
+    M, K = c.shape
+    dev = c.device
+    if cap is None:
+        cap = torch.ones(K, dtype=c.dtype, device=dev)
+    w = torch.clamp(mu * a, min=_EPS)
+    w_pow = torch.where(mask, w ** (1.0 - beta), torch.zeros_like(w))
+
+    # x_i <= min_k cap_k / c_ik is necessary for feasibility.
+    inf = torch.tensor(float("inf"), device=dev)
+    ratio = torch.where(c > _EPS, cap[None, :] / torch.clamp(c, min=_EPS),
+                        inf)
+    xcap = torch.amin(ratio, dim=1)
+    cmax = torch.amax(c, dim=1)
+    mask = mask & (cmax > _EPS) & torch.isfinite(xcap)
+    xcap = torch.where(mask, xcap, torch.zeros_like(xcap))
+
+    if lam0 is None:
+        lam = torch.ones(K, dtype=c.dtype, device=dev)
+    else:
+        lam = torch.clamp(lam0.to(c.dtype), 1e-12, 1e12)
+    cap_safe = torch.clamp(cap, min=_EPS)
+    mask_i32 = mask.to(torch.int32)
+    tol32 = float(_F32(tol))
+
+    it, viol = 0, float("inf")
+    eta, viol_prev = _F32(0.5), _F32(np.inf)
+    while it < max_iters and viol > tol32:
+        _, g = hotpath.dual_step(c, lam, w_pow, beta, xcap, mask_i32, cap,
+                                 cap_safe)
+        if not adaptive:    # decaying step; XLA fuses 1 + 0.001 * it
+            eta = _F32(0.5) / _F32(np.float64(_F32(0.001)) * it + 1.0)
+        lam = torch.clamp(lam * torch.exp(float(eta) * g), 1e-12, 1e12)
+        viol = _kkt(lam, g)
+        if adaptive:
+            eta = (min(eta * _F32(1.2), _F32(1.5)) if _F32(viol) <= viol_prev
+                   else max(eta * _F32(0.7), _F32(0.2)))
+            viol_prev = _F32(viol)
+        it += 1
+    x = _x_of_lambda(lam, c, w_pow, beta, xcap, mask)
+
+    # Final exact projection: uniform scale-down of any residual overshoot
+    # so the output is always feasible (budgets must never overdraw).
+    load = hotpath.matvec_t(c, x)
+    ones = torch.ones_like(load)
+    ratio = torch.where(load > cap, cap_safe / torch.clamp(load, min=_EPS),
+                        ones)
+    x = x * torch.amin(ratio)
+    violation = torch.amax(
+        torch.clamp(hotpath.matvec_t(c, x) - cap, min=0.0) / cap_safe)
+    return WaterfillResult(x=x, lam=lam, violation=violation,
+                           iters=torch.tensor(it, dtype=torch.int32,
+                                              device=dev))

@@ -19,6 +19,8 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA Hopper card (sm_90); skips elsewhere")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,283 @@
+"""Port kernels: the plain twins against ``repro``'s oracles and Pallas
+kernels on the CPU, and (on a Hopper card only) the CUDA kernels against
+their twins.
+
+Inputs are seeded numpy arrays handed to both frameworks.  Contracts:
+bitwise for rowmax, matvec_t (against ``repro``'s jnp ``x @ c``),
+boost_scan, swap_eval and dual_step's ``g`` given the same ``x``; 1e-5
+relative for matvec and dual_step's ``x`` (their K-long sums and ``pow``
+round differently in XLA and PyTorch).  ``repro``'s Pallas ``boost_scan``
+and ``swap_eval`` do not trace under the installed JAX (no ``pl.load``),
+so those twins are checked against ``repro/kernels/ref.py`` alone.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import hotpath
+from repro_torch.kernels import budget_alloc as ba
+from repro_torch.kernels import ref
+
+# (M, K): paper-like, ragged, single row / column, wide
+SHAPES_MK = [(6, 2000), (7, 1531), (1, 1), (5, 1), (3, 24), (13, 257)]
+# (N, K, C)
+SHAPES_NKC = [(25, 200, 9), (7, 1531, 5), (1, 1, 1), (6, 24, 13)]
+KAPPAS = [2.0, 1.25, 8.0]
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """``repro``'s oracles and Pallas kernels (imports JAX on demand, so the
+    card-only tests below also collect where JAX is not installed)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import budget_alloc as jba
+    from repro.kernels import ref as jref
+    return jnp, jref, jba
+
+
+@pytest.fixture
+def hopper():
+    """Skip unless an sm_90 card is present (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (compute capability 9.0)")
+    return torch.device("cuda")
+
+
+def _shares(rng, shape, density=0.5):
+    """Demand-like nonnegative shares with zeros, float32."""
+    g = rng.uniform(0, 0.1, shape) * (rng.random(shape) < density)
+    return g.astype(np.float32)
+
+
+def _mk_case(M, K, seed=0):
+    rng = np.random.default_rng(seed)
+    c = _shares(rng, (M, K))
+    c[-1] = 0.0                                          # an all-zero row
+    return dict(
+        c=c, lam=rng.uniform(0.5, 2.0, K).astype(np.float32),
+        x=rng.uniform(0.0, 2.0, M).astype(np.float32),
+        w_pow=rng.uniform(0.5, 50.0, M).astype(np.float32),
+        xcap=rng.uniform(1.0, 30.0, M).astype(np.float32),
+        mask=np.arange(M) % 3 != 2,
+        cap=rng.uniform(0.2, 1.0, K).astype(np.float32))
+
+
+def _nkc_case(N, K, C, seed=0, M=None):
+    rng = np.random.default_rng(seed)
+    lead = () if M is None else (M,)
+    g = _shares(rng, lead + (N, K), 0.3)
+    g[..., 0, :] = 0.0                                   # a row with no demand
+    sel = rng.random(lead + (N,)) < 0.6
+    sel_c = rng.random(lead + (C, N)) < 0.5
+    sel_c[..., 0, :] = False                             # a candidate with none
+    return dict(g=g, sel=sel, sel_c=sel_c,
+                left=rng.uniform(0.0, 0.4, lead + (K,)).astype(np.float32),
+                left_c=rng.uniform(0.0, 0.4, lead + (C, K)).astype(
+                    np.float32))
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _rel_ok(got, want, rtol=1e-5):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.all(np.abs(got - want) <= rtol * np.abs(want) + 1e-30)
+
+
+# ---------------------------------------------------------------- CPU twins
+
+@pytest.mark.parametrize("M,K", SHAPES_MK)
+def test_rowmax_twin_bitwise(jax_side, M, K):
+    jnp, jref, jba = jax_side
+    d = _mk_case(M, K)
+    got = ref.rowmax_ref(_t(d["c"])).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.rowmax_ref(d["c"])))
+    pallas = jba.rowmax(jnp.asarray(d["c"]), block_m=M, block_k=K,
+                        interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("M,K", SHAPES_MK)
+def test_matvec_twins(jax_side, M, K):
+    jnp, jref, jba = jax_side
+    d = _mk_case(M, K)
+    c, lam, x = d["c"], d["lam"], d["x"]
+    y = ref.matvec_ref(_t(c), _t(lam)).numpy()
+    assert _rel_ok(y, jref.matvec_ref(c, lam))
+    assert _rel_ok(y, jba.matvec(jnp.asarray(c), jnp.asarray(lam), block_m=M,
+                                 block_k=K, interpret=True))
+    load = ref.matvec_t_ref(_t(c), _t(x)).numpy()
+    # repro's jnp hot path computes the load as ``x @ c``: rows in order,
+    # one FMA each -- exactly the twin's rounding.
+    np.testing.assert_array_equal(load, np.asarray(jnp.asarray(x) @ c))
+    assert _rel_ok(load, jref.matvec_ref(c.T, x))
+
+
+@pytest.mark.parametrize("M,K", SHAPES_MK)
+@pytest.mark.parametrize("beta", [2.2, 0.5])
+def test_dual_step_twin(jax_side, M, K, beta):
+    jnp, jref, jba = jax_side
+    d = _mk_case(M, K)
+    cap_safe = np.maximum(d["cap"], 1e-12)
+    args = (d["c"], d["lam"], d["w_pow"], d["xcap"], d["mask"], d["cap"],
+            cap_safe)
+    x, g = ref.dual_step_ref(*map(_t, args), beta)
+    xj, gj = jref.dual_step_ref(*map(jnp.asarray, args), beta)
+    assert _rel_ok(x.numpy(), xj)
+    # g is bitwise given the same x
+    g_at_xj = ref.dual_residual_ref(_t(d["c"]), _t(xj), _t(d["cap"]),
+                                    _t(cap_safe))
+    np.testing.assert_array_equal(g_at_xj.numpy(), np.asarray(gj))
+    # ... and so against the Pallas kernel, at a tile that pads the rows
+    xp, gp = jba.dual_step(*map(jnp.asarray, args), beta=beta,
+                           block_m=max(1, M // 2), interpret=True)
+    assert _rel_ok(x.numpy(), xp)
+    g_at_xp = ref.dual_residual_ref(_t(d["c"]), _t(xp), _t(d["cap"]),
+                                    _t(cap_safe))
+    np.testing.assert_array_equal(g_at_xp.numpy(), np.asarray(gp))
+    assert not x.numpy()[~d["mask"]].any()               # masked rows are 0
+
+
+@pytest.mark.parametrize("N,K,C", SHAPES_NKC)
+@pytest.mark.parametrize("kappa", KAPPAS)
+def test_boost_scan_twin_bitwise(jax_side, N, K, C, kappa):
+    jnp, jref, _ = jax_side
+    d = _nkc_case(N, K, C)
+    ex, left = ref.boost_scan_ref(_t(d["g"]), _t(d["sel"]), _t(d["left"]),
+                                  kappa)
+    exj, leftj = jref.boost_scan_ref(jnp.asarray(d["g"]),
+                                     jnp.asarray(d["sel"]),
+                                     jnp.asarray(d["left"]), kappa)
+    np.testing.assert_array_equal(ex.numpy(), np.asarray(exj))
+    np.testing.assert_array_equal(left.numpy(), np.asarray(leftj))
+    assert not ex.numpy()[~d["sel"]].any()               # unselected: 0
+
+
+@pytest.mark.parametrize("N,K,C", SHAPES_NKC)
+@pytest.mark.parametrize("kappa", KAPPAS)
+def test_swap_eval_twin_bitwise(jax_side, N, K, C, kappa):
+    jnp, jref, _ = jax_side
+    d = _nkc_case(N, K, C)
+    ex = ref.swap_eval_ref(_t(d["g"]), _t(d["sel_c"]), _t(d["left_c"]),
+                           kappa)
+    exj = jref.swap_eval_ref(jnp.asarray(d["g"]), jnp.asarray(d["sel_c"]),
+                             jnp.asarray(d["left_c"]), kappa)
+    np.testing.assert_array_equal(ex.numpy(), np.asarray(exj))
+
+
+def test_batched_sweeps_match_per_analyst(jax_side):
+    """The analyst axis of the batched twins is a plain batch: each slice
+    equals ``repro``'s unbatched oracle."""
+    jnp, jref, _ = jax_side
+    d = _nkc_case(9, 300, 7, M=4)
+    ex, left = ref.boost_scan_ref(_t(d["g"]), _t(d["sel"]), _t(d["left"]),
+                                  2.0)
+    exc = ref.swap_eval_ref(_t(d["g"]), _t(d["sel_c"]), _t(d["left_c"]), 2.0)
+    for m in range(4):
+        exj, leftj = jref.boost_scan_ref(jnp.asarray(d["g"][m]),
+                                         jnp.asarray(d["sel"][m]),
+                                         jnp.asarray(d["left"][m]), 2.0)
+        np.testing.assert_array_equal(ex[m].numpy(), np.asarray(exj))
+        np.testing.assert_array_equal(left[m].numpy(), np.asarray(leftj))
+        np.testing.assert_array_equal(
+            exc[m].numpy(),
+            np.asarray(jref.swap_eval_ref(jnp.asarray(d["g"][m]),
+                                          jnp.asarray(d["sel_c"][m]),
+                                          jnp.asarray(d["left_c"][m]), 2.0)))
+
+
+def test_cpu_dispatch_runs_twins_and_counts_nothing():
+    d = _mk_case(5, 40)
+    b = _nkc_case(6, 40, 4, M=5)
+    ba.reset_launches()
+    c = _t(d["c"])
+    assert torch.equal(hotpath.rowmax(c), ref.rowmax_ref(c))
+    assert torch.equal(hotpath.matvec_t(c, _t(d["x"])),
+                       ref.matvec_t_ref(c, _t(d["x"])))
+    left, ex = hotpath.boost_scan(_t(b["g"]), _t(b["sel"]), _t(b["left"]),
+                                  2.0)
+    ex_r, left_r = ref.boost_scan_ref(_t(b["g"]), _t(b["sel"]),
+                                      _t(b["left"]), 2.0)
+    assert torch.equal(ex, ex_r) and torch.equal(left, left_r)
+    assert torch.equal(
+        hotpath.swap_eval(_t(b["g"]), _t(b["sel_c"]), _t(b["left_c"]), 2.0),
+        ref.swap_eval_ref(_t(b["g"]), _t(b["sel_c"]), _t(b["left_c"]), 2.0))
+    assert all(v == 0 for v in ba.LAUNCHES.values())
+
+
+def test_wrappers_refuse_other_devices():
+    """No fallback: a tensor on neither the CPU nor CUDA raises, and so do
+    operands split across devices; the launchers take CUDA tensors only."""
+    meta = torch.empty((3, 4), device="meta")
+    with pytest.raises(ValueError):
+        hotpath.rowmax(meta)
+    with pytest.raises(ValueError):
+        hotpath.matvec(meta, torch.ones(4))
+    with pytest.raises(ValueError):
+        ba.rowmax(torch.ones((3, 4)))
+    assert all(v == 0 for v in ba.LAUNCHES.values())
+
+
+# ------------------------------------------------ CUDA kernels (card only)
+
+def _dev(d, dev):
+    out = {}
+    for k, v in d.items():
+        t = torch.as_tensor(np.asarray(v))
+        out[k] = (t.to(torch.int32) if t.dtype == torch.bool else t).to(dev)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", SHAPES_MK)
+def test_cuda_dense_kernels_match_twins(hopper, M, K):
+    d = _dev(_mk_case(M, K), hopper)
+    ba.reset_launches()
+    c = d["c"]
+    assert torch.equal(ba.rowmax(c), ref.rowmax_ref(c))
+    assert _rel_ok(ba.matvec(c, d["lam"]).cpu(),
+                   ref.matvec_ref(c, d["lam"]).cpu())
+    assert _rel_ok(ba.matvec_t(c, d["x"]).cpu(),
+                   ref.matvec_t_ref(c, d["x"]).cpu())
+    cap_safe = torch.clamp(d["cap"], min=1e-12)
+    x, g = ba.dual_step(c, d["lam"], d["w_pow"], d["xcap"], d["mask"],
+                        d["cap"], cap_safe, 2.2)
+    xr, _ = ref.dual_step_ref(c, d["lam"], d["w_pow"], d["xcap"], d["mask"],
+                              d["cap"], cap_safe, 2.2)
+    assert _rel_ok(x.cpu(), xr.cpu())
+    assert torch.equal(g, ref.dual_residual_ref(c, x, d["cap"], cap_safe))
+    assert ba.LAUNCHES == dict(rowmax=1, matvec=1, matvec_t=1, dual_step=1,
+                               boost_scan=0, swap_eval=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,C", SHAPES_NKC + [(5, 53257, 3)])
+def test_cuda_boost_sweeps_match_twins_bitwise(hopper, N, K, C):
+    """Includes a K whose leftover row (> 200 KB) lives in device memory."""
+    d = _dev(_nkc_case(N, K, C, M=3), hopper)
+    ba.reset_launches()
+    ex, left = ba.boost_scan(d["g"], d["sel"], d["left"], 2.0)
+    ex_r, left_r = ref.boost_scan_ref(d["g"], d["sel"], d["left"], 2.0)
+    assert torch.equal(ex, ex_r) and torch.equal(left, left_r)
+    assert torch.equal(ba.swap_eval(d["g"], d["sel_c"], d["left_c"], 2.0),
+                       ref.swap_eval_ref(d["g"], d["sel_c"], d["left_c"],
+                                         2.0))
+    assert ba.LAUNCHES["boost_scan"] == 1 and ba.LAUNCHES["swap_eval"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take(hopper):
+    c = torch.ones((4, 8), device=hopper)
+    with pytest.raises(TypeError):
+        ba.rowmax(c.double())
+    with pytest.raises(ValueError):
+        ba.rowmax(c.T)                                   # not contiguous
+    with pytest.raises(ValueError):
+        ba.matvec(c, torch.ones(8))                      # mixed devices
+    with pytest.raises(TypeError):
+        ba.swap_eval(torch.ones((1, 2, 8), device=hopper),
+                     torch.ones((1, 3, 2), device=hopper),   # float sel
+                     torch.ones((1, 3, 8), device=hopper), 2.0)
