@@ -20,15 +20,35 @@ Phases (each raises on failure; nothing is caught):
      per analyst;
   6. where the time goes: SP1 and SP2 spans per round and, from
      torch.profiler, the card's kernel time and busy share (separate
-     traced runs, after the untimed checks).
+     traced runs, after the untimed checks);
+  7. the DP clip kernels (rownorms, clip_accumulate) against their twins
+     on the card at the FL path's shapes (B=6 and B=8 rows of P =
+     124,668,672 flaas-100m parameters), a ragged P and B=1, with a zero
+     row: clip_accumulate bitwise given the same scales, rownorms within
+     1e-5 relative, both bitwise from launch to launch; times beside the
+     twin's, the bound and a one-call PyTorch yardstick;
+  8. one DP-FedAvg round (sigma 0) of flaas-100m at full width, depth cut
+     to 2 layers, on the card and on the CPU from the same parameters and
+     data: equal cohort and kept set, parameters within RTOL_FL;
+  9. the end-to-end FL loop (repro_torch.launch.fl_e2e.run) on the card
+     at its defaults -- full flaas-100m, 8 devices, 2 analysts x 3
+     pipelines, seq 256, 12 rounds -- with its invariants, the DP kernels
+     launched once each per fl_round, and the scheduler's grants equal to
+     a scheduler-only run of the same loop on the CPU;
+ 10. where the FL path's time goes: per round the scheduler, the clients'
+     local steps, aggregate (of which the two kernels) and the noise, and
+     the card's busy share over one round traced by torch.profiler.
 
+float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
 card's name and power limit; the last line is the run's verdict as JSON.
 Exits nonzero without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,6 +64,18 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12        # H100 SXM published fp32 (non-tensor) rate
 SOURCE = "src/repro_torch/kernels/csrc/budget_alloc.cu"
+DP_SOURCE = "src/repro_torch/kernels/csrc/dp_clip_noise.cu"
+DP_REPLACES = {
+    "rownorms": "src/repro/kernels/dp_clip_noise.py:41",
+    "clip_accumulate": "src/repro/kernels/dp_clip_noise.py:73",
+}
+P_FLAAS = 124_668_672          # flaas-100m parameters
+# (name, B rows, P): the e2e aggregate (6 kept clients), DP-SGD example
+# mode (8 examples), a ragged P, one row
+DP_SHAPES = [("e2e", 6, P_FLAAS), ("example", 8, P_FLAAS),
+             ("ragged", 3, 4096 * 7 + 13), ("one-row", 1, P_FLAAS)]
+NORM_RTOL = 1e-5               # rownorms vs twin (sum order differs)
+RTOL_FL = 1e-4                 # phase 8: card vs CPU, of the largest delta
 REPLACES = {
     "rowmax": "src/repro/kernels/budget_alloc.py:41",
     "matvec": "src/repro/kernels/budget_alloc.py:75",
@@ -118,6 +150,12 @@ def phase_device():
         f"CUDA {torch.version.cuda}")
     log(smi)
     assert cap == (9, 0), f"needs a Hopper card (sm_90), got {cap}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
     return name, smi
 
 
@@ -125,13 +163,14 @@ def phase_build():
     log("[2] build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    path, secs, nvcc_log = build.build()
-    build.library()
-    log(f"built {path.name} in {secs:.2f} s (nvcc) / "
-        f"{time.perf_counter() - t0:.2f} s total")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    built = build.build_all()                  # one nvcc per source, at once
+    for name, (path, secs, nvcc_log) in built.items():
+        build.library(name)
+        log(f"built {path.name} in {secs:.2f} s (nvcc)")
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"build total {time.perf_counter() - t0:.2f} s")
 
 
 def make_inputs(M, N, K, C, seed=0):
@@ -429,6 +468,243 @@ def phase_trace():
         log(line)
 
 
+def _dp_inputs(B, P, seed=0):
+    """Gradient-like rows on the card, from a seeded torch.Generator: row
+    scales 0.01-2, and row 1 (where B > 1) all zero."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((B, P), generator=gen, device="cuda")
+    g *= torch.rand((B, 1), generator=gen, device="cuda") * 1.99 + 0.01
+    if B > 1:
+        g[1] = 0.0
+    return g
+
+
+def phase_dp_kernels(card):
+    log("[7] DP clip kernels against their twins on the card")
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.kernels import ref
+    rows = {}
+    for shape, B, P in DP_SHAPES:
+        g = _dp_inputs(B, P)
+        sq, sq2 = dp.rownorms(g), dp.rownorms(g)
+        s = dp.clip_scales(torch.sqrt(sq), 0.05)
+        acc, acc2 = dp.clip_accumulate(g, s), dp.clip_accumulate(g, s)
+        sq_twin = ref.rownorms_ref(g)
+        acc_twin = ref.clip_accumulate_ref(g, s)
+        torch.cuda.synchronize()
+        assert torch.equal(sq, sq2) and torch.equal(acc, acc2), \
+            f"{shape}: a kernel is not bitwise stable from launch to launch"
+        assert B == 1 or (float(sq[1]) == 0.0 and float(s[1]) == 1.0)
+        rel = float(((sq.double() - sq_twin.double()).abs()
+                     / sq_twin.double().clamp(min=1e-30)).max())
+        assert rel <= NORM_RTOL, f"rownorms {shape}: rel err {rel:.3e}"
+        errs = {"rownorms": float((sq - sq_twin).abs().max()),
+                "clip_accumulate": check("clip_accumulate " + shape, acc,
+                                         acc_twin, True)}
+        line = (f"  B={B} P={P} ({shape}): rownorms rel err {rel:.3e} "
+                f"(max abs {errs['rownorms']:.3e}), clip_accumulate "
+                f"bitwise, both stable")
+        cases = {
+            "rownorms": (lambda: dp.rownorms(g), lambda: ref.rownorms_ref(g),
+                         lambda: torch.linalg.vector_norm(g, dim=1) ** 2,
+                         4 * (B * P + B), 2 * B * P),
+            "clip_accumulate": (lambda: dp.clip_accumulate(g, s),
+                                lambda: ref.clip_accumulate_ref(g, s),
+                                lambda: torch.mv(g.T, s),
+                                4 * (B * P + B + P), 2 * B * P)}
+        for name, (run, twin, lib, nbytes, flops) in cases.items():
+            r = rows.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
+            if P != P_FLAAS or B == 1:
+                continue
+            ms, plain, lib_ms = time_ms(run, 10), time_ms(twin, 1, 3), \
+                time_ms(lib, 10)
+            b, by = bound_ms(nbytes, flops)
+            line += (f"\n    {name:15s} kernel {ms:.4f} ms  twin {plain:.4f} "
+                     f"ms  yardstick {lib_ms:.4f} ms  bound {b:.4f} ms "
+                     f"({by}, {card})")
+            if shape == "e2e":     # the JSON line reports the e2e shape
+                r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=lib_ms, shape=f"B={B} P={P}")
+        log(line)
+        del g, sq_twin, acc_twin
+        torch.cuda.empty_cache()
+    dp.reset_launches()
+    return rows
+
+
+def _fl_data(n_dev, vocab, seq, device, seed=0):
+    """Per-device loaders of one seeded [2, seq] token batch each."""
+    out = {}
+    for d in range(n_dev):
+        t = np.random.default_rng(seed + d).integers(
+            0, vocab, (2, seq + 1)).astype(np.int32)
+        t = torch.as_tensor(t, device=device)
+        out[d] = (lambda t=t: [{"tokens": t[:, :-1], "labels": t[:, 1:]}])
+    return out
+
+
+def phase_fl_round():
+    log("[8] one DP-FedAvg round of flaas-100m (full width, 2 layers), "
+        "card vs CPU")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.launch.fl_e2e import FEDAVG
+    from repro_torch.models import Transformer, init_model
+    from repro_torch.training import FedAvgConfig, fl_round, make_loss_fn
+    cfg = dataclasses.replace(get_arch("flaas-100m"), n_layers=2)
+    card = init_model(cfg, 0, device="cuda")
+    host = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        host.flat.copy_(card.flat.cpu())
+    start = host.flat.clone()
+    fcfg = FedAvgConfig(**FEDAVG, seed=0)
+    loss_fn = make_loss_fn(cfg)
+    dp.reset_launches()
+    t0 = time.perf_counter()
+    _, m_card = fl_round(card, loss_fn, _fl_data(8, cfg.vocab, 256, "cuda"),
+                         list(range(8)), fcfg, sigma=0.0, round_idx=0)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    assert dp.LAUNCHES == {"rownorms": 1, "clip_accumulate": 1}, dp.LAUNCHES
+    t0 = time.perf_counter()
+    _, m_host = fl_round(host, loss_fn, _fl_data(8, cfg.vocab, 256, "cpu"),
+                         list(range(8)), fcfg, sigma=0.0, round_idx=0)
+    t_host = time.perf_counter() - t0
+    assert m_card == m_host, (m_card, m_host)
+    got = card.flat.cpu().double()
+    want = host.flat.double()
+    delta = float((want - start.double()).abs().max())
+    diff = (got - want).abs()
+    ulp = 2.0 ** -23 * want.abs().clamp(min=2.0 ** -126)
+    ok = bool(torch.all(diff <= RTOL_FL * delta + ulp))
+    log(f"  P={card.flat.numel()}, cohort {m_card['cohort']}, kept "
+        f"{m_card['kept']}, stragglers {m_card['stragglers_dropped']}; "
+        f"new params: max |card - CPU| {float(diff.max()):.3e} (at most "
+        f"{float((diff / ulp).max()):.2f} ulp of the parameter; "
+        f"{int((diff > 0).sum())} of {diff.numel()} differ), max |delta| "
+        f"{delta:.3e}; bound {RTOL_FL} of max |delta| + one ulp; card "
+        f"{t_card:.2f} s, CPU {t_host:.2f} s")
+    assert ok, "card and CPU rounds disagree"
+
+
+def phase_fl_e2e():
+    log("[9] end-to-end FL loop on the card (flaas-100m, defaults)")
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.launch import fl_e2e
+    from repro_torch.privacy import RdpAccountant
+
+    def show(r):
+        g = ", ".join(f"{tuple(x['pipeline'])}: grant {x['grant']:.6f} "
+                      f"sigma {x['sigma']:.4f}" for x in r["granted"])
+        log(f"  round {r['round']:2d} allocated={r['allocated']} "
+            f"eff={r['efficiency']:.4f} live_blocks={r['live_blocks']} "
+            f"loss={r['mean_pipeline_loss']:.4f} wall {r['wall_s']:.3f} s "
+            f"(train {r['train_s']:.3f} s); {g}")
+    torch.cuda.synchronize()
+    dp.reset_launches()
+    t0 = time.perf_counter()
+    out = fl_e2e.run(device="cuda", log=show)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dp.LAUNCHES)
+    recs = out["records"]
+    n_rounds = sum(len(r["granted"]) for r in recs)
+    cfg = out["cfg"]
+    assert (cfg.name, cfg.n_layers, cfg.d_model) == ("flaas-100m", 12, 768)
+    assert launches == {"rownorms": n_rounds, "clip_accumulate": n_rounds}, \
+        (launches, n_rounds)
+    assert n_rounds > 0
+    ledger = out["ledger"]
+    for b in range(len(ledger)):
+        blk = ledger.block(b)
+        assert blk.consumed <= blk.budget + 1e-6, f"block {b} overdrawn"
+    fresh = RdpAccountant(alpha_star=8.0)
+    for r in recs:
+        assert math.isfinite(r["mean_pipeline_loss"]), r
+        for x in r["granted"]:
+            assert x["sigma"] == fresh.sigma_for_grant(x["grant"], 1), x
+    for p in out["pipelines"].values():
+        assert all(math.isfinite(v) for v in p["losses"])
+    eps, alpha = out["pipelines"][(0, 0)]["acc"].certify(1e-5)
+    assert math.isfinite(eps)
+    dry = fl_e2e.run(device="cpu", train=False)
+    for a, b in zip(recs, dry["records"]):
+        assert a["selected"] == b["selected"], (a["round"], a, b)
+        assert a["allocated"] == b["allocated"]
+        assert [x["pipeline"] for x in a["granted"]] == \
+            [x["pipeline"] for x in b["granted"]]
+    p00 = out["pipelines"][(0, 0)]["losses"]
+    log(f"  {len(recs)} rounds, {n_rounds} fl_rounds in {wall:.2f} s; "
+        f"launches {launches}; pipeline (0,0) losses {p00[:2]} -> "
+        f"{p00[-2:]}; certified ({eps:.3f}, 1e-5)-DP at alpha {alpha}; "
+        f"selections equal to the scheduler-only CPU run; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_fl_trace():
+    """Per-round spans of the FL path (synchronised host-clock spans) and
+    the card's busy share over one round traced by torch.profiler."""
+    log("[10] where the FL path's time goes (flaas-100m, 3 rounds)")
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.launch import fl_e2e
+    from repro_torch.training import fedavg
+    spans = {}
+    targets = [(fl_e2e, "schedule_round", "scheduler"),
+               (fedavg, "client_update", "clients"),
+               (fedavg, "aggregate", "aggregate"),
+               (fedavg, "add_noise", "noise"),
+               (dp, "rownorms", "rownorms"),
+               (dp, "clip_accumulate", "clip_accumulate")]
+    orig = {key: getattr(mod, attr) for mod, attr, key in targets}
+
+    def timed(key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[key](*a, **k)
+            torch.cuda.synchronize()
+            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    traced = {}
+
+    def each_round(r):
+        line = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in spans.items())
+        log(f"  round {r['round']}: wall {r['wall_s'] * 1e3:.2f} ms; spans "
+            f"(ms, aggregate includes noise and the kernels): {line}")
+        spans.clear()
+        if r["round"] == 0:
+            prof.start()
+        elif r["round"] == 1:
+            torch.cuda.synchronize()
+            prof.stop()
+            traced["wall_ms"] = r["wall_s"] * 1e3
+
+    for mod, attr, key in targets:
+        setattr(mod, attr, timed(key))
+    try:
+        fl_e2e.run(rounds=3, device="cuda", log=each_round)
+    finally:
+        for mod, attr, key in targets:
+            setattr(mod, attr, orig[key])
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+            for e in prof.key_averages()]
+    rows.sort(key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    top = ", ".join(f"{n[:40]} {ms:.2f}" for n, ms in rows[:6])
+    busy = (f"{dev_ms / traced['wall_ms']:.4f}" if dev_ms > 0
+            else "not measured (profiler saw no device time)")
+    log(f"  traced round 1 (spans on): card busy {dev_ms:.2f} ms of "
+        f"{traced['wall_ms']:.2f} ms wall, busy share {busy}; top kernels "
+        f"(ms): {top}")
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -436,9 +712,16 @@ def main() -> int:
     launches = phase_episode()
     large = phase_large_round()
     phase_trace()
+    dp_rows = phase_dp_kernels(smi)
+    phase_fl_round()
+    dp_launches = phase_fl_e2e()
+    phase_fl_trace()
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     **rows[k]) for k in REPLACES]
+    kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
+                     replaces=DP_REPLACES[k], launches=dp_launches[k],
+                     **dp_rows[k]) for k in DP_REPLACES]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

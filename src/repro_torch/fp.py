@@ -10,6 +10,11 @@ the port reproduces both rules wherever a value can reach one of them:
   float32.  The float64 product of two float32 values is exact, so the
   only gap to a true float32 FMA is double rounding when the float64 sum
   lands exactly on a float32 halfway point.
+* :func:`fma_exact` is a float32 FMA without that gap: the float64 sum
+  is rounded to odd (its TwoSum error decides the last bit) before the
+  one rounding to float32, which then equals the correctly rounded
+  result (53 >= 24 + 2 bits).  It is for twins that must be bitwise
+  with a ``__fmaf_rn`` kernel over hundreds of millions of elements.
 * :func:`seq_sum` / :func:`seq_dot` accumulate along one axis in index
   order, with every step rounded to float32 (``seq_dot`` through
   :func:`fma`).
@@ -30,6 +35,22 @@ def fma(a, b, c) -> torch.Tensor:
     b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
     c = torch.as_tensor(c, dtype=torch.float32, device=a.device)
     return (a.double() * b.double() + c.double()).float()
+
+
+def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+              ) -> torch.Tensor:
+    """float32 ``a * b + c``, correctly rounded (what ``__fmaf_rn`` and a
+    hardware FMA return) for float32 tensors of one device."""
+    p = a.double() * b.double()                     # exact
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)                 # TwoSum: p + c == s + err
+    bits = s.view(torch.int64)
+    # round to odd: an inexact even s moves one ulp towards the exact sum
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & (bits & 1 == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
 
 
 def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -24,6 +24,10 @@ LAUNCHES = {"rowmax": 0, "matvec": 0, "matvec_t": 0, "dual_step": 0,
 LAST_GRID: dict[str, tuple[int, int]] = {}
 
 
+def _lib():
+    return library("budget_alloc")
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -37,7 +41,7 @@ def _on_cuda(*ts: torch.Tensor) -> None:
         raise ValueError(f"kernel operands span devices {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type != "cuda":
-        raise ValueError(f"no budget kernel for device {dev}")
+        raise ValueError(f"no Hopper kernel for device {dev}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
@@ -74,8 +78,8 @@ def rowmax(gamma: torch.Tensor) -> torch.Tensor:
     M, K = gamma.shape
     _check(gamma, "gamma", _F32, (M, K))
     out = torch.empty(M, dtype=_F32, device=gamma.device)
-    _raise_on(library().ba_rowmax(gamma.data_ptr(), out.data_ptr(), M, K,
-                                  _stream(gamma)), "ba_rowmax")
+    _raise_on(_lib().ba_rowmax(gamma.data_ptr(), out.data_ptr(), M, K,
+                               _stream(gamma)), "ba_rowmax")
     LAUNCHES["rowmax"] += 1
     return out
 
@@ -92,8 +96,8 @@ def matvec(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check(c, "c", _F32, (M, K))
     _check(v, "v", _F32, (K,))
     y = torch.empty(M, dtype=_F32, device=c.device)
-    _raise_on(library().ba_matvec(c.data_ptr(), v.data_ptr(), y.data_ptr(),
-                                  M, K, _stream(c)), "ba_matvec")
+    _raise_on(_lib().ba_matvec(c.data_ptr(), v.data_ptr(), y.data_ptr(),
+                               M, K, _stream(c)), "ba_matvec")
     LAUNCHES["matvec"] += 1
     return y
 
@@ -110,8 +114,8 @@ def matvec_t(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(c, "c", _F32, (M, K))
     _check(x, "x", _F32, (M,))
     load = torch.empty(K, dtype=_F32, device=c.device)
-    _raise_on(library().ba_matvec_t(c.data_ptr(), x.data_ptr(),
-                                    load.data_ptr(), M, K, _stream(c)),
+    _raise_on(_lib().ba_matvec_t(c.data_ptr(), x.data_ptr(),
+                                 load.data_ptr(), M, K, _stream(c)),
               "ba_matvec_t")
     LAUNCHES["matvec_t"] += 1
     return load
@@ -142,7 +146,7 @@ def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     x = torch.empty(M, dtype=_F32, device=c.device)
     g = torch.empty(K, dtype=_F32, device=c.device)
     inv_beta = float(torch.tensor(1.0 / float(beta), dtype=_F32))
-    _raise_on(library().ba_dual_step(
+    _raise_on(_lib().ba_dual_step(
         c.data_ptr(), lam.data_ptr(), w_pow.data_ptr(), xcap.data_ptr(),
         mask.data_ptr(), cap.data_ptr(), cap_safe.data_ptr(), x.data_ptr(),
         g.data_ptr(), M, K, inv_beta, _stream(c)), "ba_dual_step")
@@ -158,7 +162,7 @@ def _boost_sweep(g_ord, sel, left, kappa_max: float, keep_left: bool):
     _check(g_ord, "g_ord", _F32, (B, N, K))
     _check(sel, "sel", _I32, (B, C, N))
     _check(left, "left", _F32, (B, C, K))
-    lib = library()
+    lib = _lib()
     extras = torch.empty((B, C, N), dtype=_F32, device=g_ord.device)
     spill = K * 4 > lib.ba_boost_smem_limit()
     left_out = (torch.empty((B, C, K), dtype=_F32, device=g_ord.device)

@@ -12,6 +12,7 @@ denormals break the kernels' bitwise contracts with their twins.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -27,13 +28,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of every entry point (all return a cudaError_t as int)
-_SIGNATURES = {
-    "ba_rowmax": (_P, _P, _I, _I, _P),
-    "ba_matvec": (_P, _P, _P, _I, _I, _P),
-    "ba_matvec_t": (_P, _P, _P, _I, _I, _P),
-    "ba_dual_step": (_P,) * 9 + (_I, _I, _F, _P),
-    "ba_boost_sweep": (_P,) * 5 + (_I, _I, _I, _I, _F, _P),
+_L, _Z = ctypes.c_longlong, ctypes.c_size_t
+# Per library (csrc/<name>.cu): each entry point's C argument types and
+# return type.  Launchers return a cudaError_t as int.
+SIGNATURES = {
+    "budget_alloc": {
+        "ba_rowmax": ((_P, _P, _I, _I, _P), _I),
+        "ba_matvec": ((_P, _P, _P, _I, _I, _P), _I),
+        "ba_matvec_t": ((_P, _P, _P, _I, _I, _P), _I),
+        "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _P), _I),
+        "ba_boost_sweep": ((_P,) * 5 + (_I, _I, _I, _I, _F, _P), _I),
+        "ba_boost_smem_limit": ((), _Z),
+    },
+    "dp_clip_noise": {
+        "dp_rownorms": ((_P, _P, _P, _I, _L, _P), _I),
+        "dp_clip_accumulate": ((_P, _P, _P, _I, _L, _P), _I),
+        "dp_rownorms_chunk": ((), _I),
+    },
 }
 
 
@@ -53,7 +64,7 @@ def nvcc() -> str:
                        "are compiled on the machine that runs them")
 
 
-def build(name: str = "budget_alloc") -> tuple[Path, float, str]:
+def build(name: str) -> tuple[Path, float, str]:
     """Compile ``csrc/<name>.cu`` unless a library of the same source hash
     exists.  Returns ``(library path, build seconds, nvcc log)``; seconds
     is 0.0 and the log empty when the cached library was reused."""
@@ -75,16 +86,22 @@ def build(name: str = "budget_alloc") -> tuple[Path, float, str]:
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
+def build_all() -> dict[str, tuple[Path, float, str]]:
+    """Build every library of :data:`SIGNATURES` at once, one ``nvcc`` per
+    source, all started together; ``{name: build(name)}``."""
+    with concurrent.futures.ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        futs = {name: pool.submit(build, name) for name in SIGNATURES}
+        return {name: f.result() for name, f in futs.items()}
+
+
 @functools.lru_cache(maxsize=None)
-def library(name: str = "budget_alloc") -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with ``argtypes`` and
-    ``restype`` declared for every entry point."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``csrc/<name>.cu``, built on first use, with
+    ``argtypes`` and ``restype`` declared for its own entry points."""
     path, _, _ = build(name)
     lib = ctypes.CDLL(str(path))
-    for fn, args in _SIGNATURES.items():
+    for fn, (args, res) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(args)
-        f.restype = ctypes.c_int
-    lib.ba_boost_smem_limit.argtypes = []
-    lib.ba_boost_smem_limit.restype = ctypes.c_size_t
+        f.restype = res
     return lib

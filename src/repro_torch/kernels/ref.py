@@ -1,7 +1,8 @@
-"""Plain PyTorch twins of the Hopper budget kernels.
+"""Plain PyTorch twins of the Hopper kernels.
 
 Each function is the contract its CUDA kernel in ``csrc/budget_alloc.cu``
-must meet, and the code that runs for a CPU tensor.  They mirror
+or ``csrc/dp_clip_noise.cu`` must meet, and the code that runs for a CPU
+tensor.  They mirror
 ``repro/kernels/ref.py`` (the TPU kernels' oracles) operation for
 operation, with XLA's rounding rules made explicit (see
 :mod:`repro_torch.fp`): every ``a * b + c`` update is one fused
@@ -15,12 +16,17 @@ Bitwise contracts (kernel == twin == ``repro``): ``rowmax_ref``,
 ``swap_eval_ref``.  ``matvec_ref`` and the ``x`` of ``dual_step_ref`` hold
 to 1e-5 relative: their K-long sums are tree reductions whose order is
 the device's, and ``pow`` differs by an ulp between libraries.
+
+DP clip: ``clip_accumulate_ref`` is bitwise the kernel's (rows in order,
+each step a correctly rounded FMA, :func:`repro_torch.fp.fma_exact`);
+``rownorms_ref`` sums each row in the device library's order, and the
+kernel's chunked sum agrees with it to 1e-5 relative.
 """
 from __future__ import annotations
 
 import torch
 
-from ..fp import fma, seq_dot
+from ..fp import fma, fma_exact, seq_dot
 
 DUAL_EPS = 1e-12
 BOOST_EPS = 1e-9
@@ -107,3 +113,20 @@ def swap_eval_ref(g_ord, sel_c, leftover_c, kappa_max: float):
                                 sel_c.reshape(-1, C, N),
                                 leftover_c.reshape(-1, C, K), kappa_max)
     return extras.reshape(*batch, C, N)
+
+
+def rownorms_ref(g: torch.Tensor) -> torch.Tensor:
+    """Squared L2 norm per row.  g [B, P] -> [B] float32."""
+    g = g.float()
+    return torch.sum(g * g, dim=-1)
+
+
+def clip_accumulate_ref(g: torch.Tensor, scales: torch.Tensor
+                        ) -> torch.Tensor:
+    """sum_b scales_b * g_b -> [P] float32: rows 0..B-1 in order, one FMA
+    each (the Pallas body ``acc += g * s`` as XLA contracts it)."""
+    g, s = g.float(), scales.float()
+    acc = torch.zeros(g.shape[1], dtype=torch.float32, device=g.device)
+    for b in range(g.shape[0]):
+        acc = fma_exact(g[b], s[b].expand_as(acc), acc)
+    return acc

@@ -18,8 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core import (Episode, RoundInputs, SimConfig,
                               generate_episode)
+from repro_torch.data import batch_iterator
+from repro_torch.launch import fl_e2e
+from repro_torch.models import Transformer, init_model, params_from_jax
+from repro_torch.training import TrainConfig, make_state
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -51,9 +56,16 @@ def test_port_has_every_slice_module():
                 "core/hotpath.py", "core/waterfill.py", "core/swap.py",
                 "core/packing.py", "core/scheduler.py", "core/simulation.py",
                 "core/engine.py", "kernels/ref.py", "kernels/build.py",
-                "kernels/budget_alloc.py"):
+                "kernels/budget_alloc.py", "kernels/dp_clip_noise.py",
+                "configs/base.py", "configs/flaas_100m.py", "data/blocks.py",
+                "data/pipeline.py", "privacy/rdp.py", "privacy/accountant.py",
+                "privacy/ledger.py", "models/layers.py",
+                "models/transformer.py", "training/dp_sgd.py",
+                "training/optimizer.py", "training/train_loop.py",
+                "training/fedavg.py", "launch/fl_e2e.py"):
         assert mod in have, mod
-    assert (ROOT / "src/repro_torch/kernels/csrc/budget_alloc.cu").is_file()
+    for cu in ("budget_alloc.cu", "dp_clip_noise.cu"):
+        assert (ROOT / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 
 @pytest.fixture
@@ -77,6 +89,20 @@ def test_input_constructors_default_to_cuda_and_raise_without_it(no_cuda):
     # the CPU stays available, but only when asked for
     assert RoundInputs.from_numpy(**d, device="cpu").demand.device.type \
         == "cpu"
+
+
+def test_fl_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    cfg = reduced(get_arch("flaas-100m"))
+    for build in (lambda: fl_e2e.run(rounds=1, small=True),
+                  lambda: Transformer(cfg), lambda: init_model(cfg),
+                  lambda: params_from_jax({}, cfg),
+                  lambda: make_state(0, cfg, TrainConfig(
+                      param_dtype="float32")),
+                  lambda: batch_iterator(2, 8, cfg.vocab)):
+        with pytest.raises(RuntimeError):
+            build()
+    assert next(batch_iterator(2, 8, cfg.vocab, device="cpu"))[
+        "tokens"].device.type == "cpu"
 
 
 def _run_smoke(cwd: Path):
