@@ -37,7 +37,28 @@ Phases (each raises on failure; nothing is caught):
      a scheduler-only run of the same loop on the CPU;
  10. where the FL path's time goes: per round the scheduler, the clients'
      local steps, aggregate (of which the two kernels) and the noise, and
-     the card's busy share over one round traced by torch.profiler.
+     the card's busy share over one round traced by torch.profiler;
+ 11. the attention kernels (flash_attention, decode_attention) against
+     their twins on the card at flaas-100m's heads (12 query / 4 kv heads,
+     dh 64): prefill at the serve default (B=4, S=32), B=4 S=2048 causal,
+     B=2 S=1000 window 256 and B=1 S=512 non-causal; decode at B=4 Lc=48
+     (cache_len 33 and 48), B=8 Lc=32768 (cache_len 32768 and 20000) and a
+     ragged Lc=5000; within rtol = atol = 2e-5 and bitwise from launch to
+     launch, with times beside the twin's, the bound and the
+     scaled_dot_product_attention yardstick (kv heads repeated);
+ 12. serving full flaas-100m through repro_torch.launch.serve on the card
+     at its defaults (B=4, prompt 32, gen 16): 12 flash launches and
+     12 x 15 decode launches; prefill logits and teacher-forced decode
+     logits within 1e-4 of the largest |logit| of the same run on the CPU
+     (same parameters and prompts), greedy tokens equal wherever the CPU's
+     top-two gap exceeds that bound (near-ties printed); then B=8, prompt
+     2048, gen 64 on the card alone;
+ 13. where serving's time goes at B=8, prompt 2048: per decode step the
+     embedding, the blocks (of which the decode kernel) and the LM head as
+     synchronised host-clock spans, the card's busy share and kernel
+     time by name from torch.profiler over a traced prefill and a traced
+     decode of 8 steps, and a host-side profile of 8 decode steps (time
+     inside PyTorch ops against the Python between them).
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -46,6 +67,7 @@ Exits nonzero without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -76,6 +98,21 @@ DP_SHAPES = [("e2e", 6, P_FLAAS), ("example", 8, P_FLAAS),
              ("ragged", 3, 4096 * 7 + 13), ("one-row", 1, P_FLAAS)]
 NORM_RTOL = 1e-5               # rownorms vs twin (sum order differs)
 RTOL_FL = 1e-4                 # phase 8: card vs CPU, of the largest delta
+ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+ATT_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:71",
+    "decode_attention": "src/repro/kernels/decode_attention.py:56",
+}
+ATT_TOL = 2e-5                 # rtol and atol, kernel vs twin (repro's bound)
+HEADS = (12, 4, 64)            # flaas-100m: query heads, kv heads, head dim
+# (name, B, S, causal, window)
+FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None),
+               ("swa", 2, 1000, True, 256), ("full", 1, 512, False, None)]
+# (name, B, cache slots Lc, cache_len)
+DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-48", 4, 48, 48),
+                ("32k", 8, 32768, 32768), ("32k-20000", 8, 32768, 20000),
+                ("ragged", 4, 5000, 4999)]
+RTOL_SERVE = 1e-4              # phase 12: card vs CPU, of the largest |logit|
 REPLACES = {
     "rowmax": "src/repro/kernels/budget_alloc.py:41",
     "matvec": "src/repro/kernels/budget_alloc.py:75",
@@ -418,18 +455,71 @@ def _stage_spans(fn):
     return spans
 
 
-def _device_kernels(fn):
-    """Kernel time on the card during ``fn`` from ``torch.profiler``:
-    ``(total ms, [(name, ms), ...] largest first)``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+def _kernel_rows(prof):
+    """``[(kernel, ms), ...]`` largest first, from a finished profiler."""
     rows = [(e.key, getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
             for e in prof.key_averages()]
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _device_kernels(fn):
+    """Kernel time on the card during ``fn`` from ``torch.profiler``:
+    ``(total ms, [(name, ms), ...] largest first, wall ms)``, the wall on
+    the host clock between synchronisations."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_rows(prof)
+    return sum(r[1] for r in rows), rows, wall
+
+
+def _host_ops(fn):
+    """Host side of ``fn`` from ``torch.profiler`` (CPU activity only):
+    ``(wall ms, ms inside top-level PyTorch ops, top-level ops,
+    [(op, self ms), ...] largest first)``.  The wall less the time inside
+    ops is the Python between them, the ctypes kernel calls included."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    top = [e for e in prof.events() if e.cpu_parent is None]
+    rows = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    return wall, sum(e.cpu_time_total for e in top) / 1e3, len(top), rows
+
+
+@contextlib.contextmanager
+def _timed_spans(targets, spans):
+    """Within the block, each ``(module, attribute, key)`` of ``targets``
+    runs inside a synchronised host-clock span added to ``spans[key]``
+    (seconds)."""
+    orig = {key: getattr(mod, attr) for mod, attr, key in targets}
+
+    def timed(key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[key](*a, **k)
+            torch.cuda.synchronize()
+            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for mod, attr, key in targets:
+        setattr(mod, attr, timed(key))
+    try:
+        yield
+    finally:
+        for mod, attr, key in targets:
+            setattr(mod, attr, orig[key])
 
 
 def phase_trace():
@@ -459,7 +549,7 @@ def phase_trace():
                 f"({sp['iters']} iters, {sp['sp1'] / max(sp['iters'], 1) * 1e3:.4f}"
                 f" ms/iter), SP2 {sp['sp2'] / rounds * 1e3:.2f} ms/round")
         if profiled:
-            dev_ms, rows = _device_kernels(fn)
+            dev_ms, rows, _ = _device_kernels(fn)
             top = ", ".join(f"{n[:40]} {ms:.2f}" for n, ms in rows[:5])
             busy = (f"{dev_ms / (wall * 1e3):.4f}" if dev_ms > 0
                     else "not measured (profiler saw no device time)")
@@ -658,18 +748,6 @@ def phase_fl_trace():
                (fedavg, "add_noise", "noise"),
                (dp, "rownorms", "rownorms"),
                (dp, "clip_accumulate", "clip_accumulate")]
-    orig = {key: getattr(mod, attr) for mod, attr, key in targets}
-
-    def timed(key):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig[key](*a, **k)
-            torch.cuda.synchronize()
-            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
     prof = profile(activities=[ProfilerActivity.CUDA])
     traced = {}
 
@@ -685,17 +763,9 @@ def phase_fl_trace():
             prof.stop()
             traced["wall_ms"] = r["wall_s"] * 1e3
 
-    for mod, attr, key in targets:
-        setattr(mod, attr, timed(key))
-    try:
+    with _timed_spans(targets, spans):
         fl_e2e.run(rounds=3, device="cuda", log=each_round)
-    finally:
-        for mod, attr, key in targets:
-            setattr(mod, attr, orig[key])
-    rows = [(e.key, getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
-            for e in prof.key_averages()]
-    rows.sort(key=lambda r: -r[1])
+    rows = _kernel_rows(prof)
     dev_ms = sum(r[1] for r in rows)
     top = ", ".join(f"{n[:40]} {ms:.2f}" for n, ms in rows[:6])
     busy = (f"{dev_ms / traced['wall_ms']:.4f}" if dev_ms > 0
@@ -703,6 +773,276 @@ def phase_fl_trace():
     log(f"  traced round 1 (spans on): card busy {dev_ms:.2f} ms of "
         f"{traced['wall_ms']:.2f} ms wall, busy share {busy}; top kernels "
         f"(ms): {top}")
+
+
+def _att_check(name, got, again, want) -> float:
+    """Raise unless the kernel is bitwise stable and within rtol = atol =
+    ATT_TOL of its twin; return the max absolute error."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: not bitwise stable from launch to "
+                             "launch")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    if not bool(torch.all(diff <= ATT_TOL + ATT_TOL * want.double().abs())):
+        raise AssertionError(f"{name}: kernel disagrees with its twin (max "
+                             f"abs err {err:.3e})")
+    return err
+
+
+def _pairs(S, causal, window) -> int:
+    """(query, key) pairs the masks keep."""
+    q = np.arange(S, dtype=np.int64)
+    hi = q + 1 if causal else np.full(S, S, np.int64)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    return int((hi - lo).sum())
+
+
+def _repeat_kv(x, G):
+    """[B, L, KH, dh] -> [B, KH*G, L, dh] (SDPA's layout, kv repeated)."""
+    return x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+
+
+def phase_attention(card):
+    log("[11] attention kernels against their twins on the card")
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KH, dh = HEADS
+    G = H // KH
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {"flash_attention": {"max_abs_err": 0.0},
+            "decode_attention": {"max_abs_err": 0.0}}
+
+    def record(kname, shape, err, run, twin, lib, nbytes, flops, reps,
+               report):
+        ms = time_ms(run, reps)
+        plain = time_ms(twin, max(1, reps // 10), 3)
+        lib_ms = time_ms(lib, reps)
+        b, by = bound_ms(nbytes, flops)
+        log(f"  {kname:16s} {shape}: max_abs_err {err:.3e}  kernel "
+            f"{ms:.4f} ms  twin {plain:.4f} ms  sdpa (kv repeated) "
+            f"{lib_ms:.4f} ms  bound {b:.6f} ms ({by}, {card})")
+        r = rows[kname]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if report:                        # the JSON line's shape
+            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=lib_ms, shape=shape)
+
+    for label, B, S, causal, window in FLASH_CASES:
+        q = torch.randn((B, S, H, dh), generator=gen, device="cuda")
+        k = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
+        v = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        shape = (f"B={B} S={S} causal={causal} window={window} ({label})")
+        err = _att_check("flash_attention " + shape, got, again, want)
+        del want
+        qt = q.transpose(1, 2).contiguous()
+        kr, vr = _repeat_kv(k, G), _repeat_kv(v, G)
+        mask = None
+        if window is not None:
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] > pos[:, None] - window
+            if causal:
+                mask &= pos[None, :] <= pos[:, None]
+        lib = (lambda: sdpa(qt, kr, vr, attn_mask=mask)) if mask is not None \
+            else (lambda: sdpa(qt, kr, vr, is_causal=causal))
+        pairs = _pairs(S, causal, window)
+        record("flash_attention", shape, err,
+               lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window),
+               lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window),
+               lib, 4 * (2 * B * S * H * dh + 2 * B * S * KH * dh),
+               4 * dh * pairs * B * H, 20, label == "2k")
+        del q, k, v, qt, kr, vr
+        torch.cuda.empty_cache()
+
+    for label, B, Lc, n in DECODE_CASES:
+        q = torch.randn((B, H, dh), generator=gen, device="cuda")
+        k = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
+        v = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
+        got = da.decode_attention_cuda(q, k, v, n)
+        again = da.decode_attention_cuda(q, k, v, n)
+        want = ref.decode_attention_ref(q, k, v, n)
+        shape = f"B={B} Lc={Lc} cache_len={n} ({label})"
+        err = _att_check("decode_attention " + shape, got, again, want)
+        q4 = q[:, :, None]
+        kr, vr = _repeat_kv(k[:, :n], G), _repeat_kv(v[:, :n], G)
+        record("decode_attention", shape, err,
+               lambda: da.decode_attention_cuda(q, k, v, n),
+               lambda: ref.decode_attention_ref(q, k, v, n),
+               lambda: sdpa(q4, kr, vr),
+               4 * (2 * B * H * dh + 2 * B * n * KH * dh),
+               4 * B * H * dh * n, 20, label == "32k")
+        del q, k, v, kr, vr
+        torch.cuda.empty_cache()
+    fa.reset_launches()
+    da.reset_launches()
+    return rows
+
+
+def _top2_gap(logits):
+    top = torch.topk(logits.double(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_serve():
+    log("[12] serve flaas-100m through repro_torch.launch.serve, card vs "
+        "CPU")
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    gen = 16
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    da.reset_launches()
+    card = serve.run(device="cuda", gen=gen, keep_logits=True, log=log)
+    launches = {**fa.LAUNCHES, **da.LAUNCHES}
+    cfg = card["cfg"]
+    n = cfg.n_layers
+    assert (cfg.name, n, cfg.d_model, cfg.vocab) == \
+        ("flaas-100m", 12, 768, 32000)
+    assert launches == {"flash_attention": n,
+                        "decode_attention": n * (gen - 1)}, launches
+    assert card["launches"] == launches
+    t0 = time.perf_counter()
+    host = serve.run(device="cpu", gen=gen, keep_logits=True, log=log)
+    host_s = time.perf_counter() - t0
+    forced = serve.run(device="cuda", gen=gen, feed=host["tokens"],
+                       keep_logits=True, log=None)
+    assert torch.equal(card["prompts"], host["prompts"])
+    errs = {}
+    for part, run in (("prefill", card), ("decode", forced)):
+        got, want = run["logits"][part], host["logits"][part]
+        assert bool(torch.isfinite(got).all()) and got.shape == want.shape
+        bound = RTOL_SERVE * float(want.abs().max())
+        errs[part] = float((got.double() - want.double()).abs().max())
+        assert errs[part] <= bound, (part, errs[part], bound)
+    # the logits that chose token t: the prefill's last position, then the
+    # decode steps; a token may differ only where the CPU's top two tie
+    # within the bound
+    chooser = torch.cat([host["logits"]["prefill"][:, -1:],
+                         host["logits"]["decode"]], dim=1)
+    bound = RTOL_SERVE * float(chooser.abs().max())
+    gap = _top2_gap(chooser)
+    ties = []
+    for name, run in (("forced", forced), ("free", card)):
+        for r in range(card["tokens"].shape[0]):
+            for t in range(gen):
+                a, b = int(run["tokens"][r, t]), int(host["tokens"][r, t])
+                if float(gap[r, t]) <= bound:
+                    ties.append((name, r, t, a, b, float(gap[r, t])))
+                    if name == "free" and a != b:
+                        break             # the row's context differs from here
+                    continue
+                assert a == b, (name, r, t, a, b, float(gap[r, t]), bound)
+    for tie in ties:
+        log(f"  near-tie ({tie[0]}): row {tie[1]} token {tie[2]}: card "
+            f"{tie[3]}, CPU {tie[4]}, CPU top-two gap {tie[5]:.3e}")
+    log(f"  card vs CPU: prefill logits max err {errs['prefill']:.3e}, "
+        f"teacher-forced decode logits max err {errs['decode']:.3e} (bound "
+        f"{RTOL_SERVE} x max|logit| = {bound:.3e}); tokens equal except at "
+        f"{len(ties)} printed near-ties; launches {launches}; card prefill "
+        f"{card['prefill_ms']:.2f} ms, decode "
+        f"{statistics.median(card['step_ms']):.2f} ms/step (median), "
+        f"{card['tok_per_s']:.1f} tok/s; CPU run {host_s:.2f} s")
+    log(f"  tokens (card, row 0): {card['tokens'][0].tolist()}")
+
+    B, prompt, gen2 = 8, 2048, 64
+    fa.reset_launches()
+    da.reset_launches()
+    long = serve.run(device="cuda", batch=B, prompt_len=prompt, gen=gen2,
+                     log=log)
+    assert long["launches"] == {"flash_attention": n,
+                                "decode_attention": n * (gen2 - 1)}, \
+        long["launches"]
+    assert long["tokens"].shape == (B, gen2)
+    assert int(long["tokens"].min()) >= 0 and \
+        int(long["tokens"].max()) < cfg.vocab
+    steps = long["step_ms"]
+    log(f"  B={B} prompt={prompt} gen={gen2}: prefill "
+        f"{long['prefill_ms']:.2f} ms, decode {statistics.median(steps):.3f} "
+        f"ms/step median ({min(steps):.3f}-{max(steps):.3f}), "
+        f"{long['tok_per_s']:.1f} tok/s, launches {long['launches']}, peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_serve_trace():
+    log("[13] where serving's time goes (flaas-100m, B=8, prompt 2048)")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.models import forward_with_cache, kv_cache, layers
+    from repro_torch.training import serve_step
+    cfg = get_arch("flaas-100m")
+    params = serve.make_model(cfg, 0, torch.device("cuda"))
+    B, prompt, steps = 8, 2048, 8
+    prompts = torch.randint(0, cfg.vocab, (B, prompt),
+                            generator=torch.Generator().manual_seed(0),
+                            dtype=torch.int32).cuda()
+    total = prompt + 3 * steps + 1
+
+    def prefill():
+        logits, cache = forward_with_cache(params, prompts, cfg, total)
+        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), cache
+
+    def decode(tok, cache, start):
+        for i in range(steps):
+            tok, _, cache = serve_step(params, tok, cache, start + i, cfg)
+        return tok
+
+    prefill()                                   # warm-up
+    state = {}
+    pre_busy, pre_rows, pre_wall = _device_kernels(
+        lambda: state.update(zip(("tok", "cache"), prefill())))
+    flash_ms = sum(ms for k, ms in pre_rows if "flash_fwd" in k)
+    log(f"  traced prefill: wall {pre_wall:.2f} ms, card busy "
+        f"{pre_busy:.2f} ms (share {pre_busy / pre_wall:.4f}), flash kernel "
+        f"{flash_ms:.2f} ms ({flash_ms / max(pre_busy, 1e-9):.4f} of busy); "
+        f"top kernels (ms): "
+        + ", ".join(f"{k[:40]} {ms:.2f}" for k, ms in pre_rows[:5]))
+    tok, cache = state["tok"], state["cache"]
+    tok = decode(tok, cache, prompt)            # warm-up, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = decode(tok, cache, prompt + steps)
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) * 1e3 / steps
+    dec_busy, dec_rows, dec_wall = _device_kernels(
+        lambda: decode(tok, cache, prompt + 2 * steps))
+    att_ms = sum(ms for k, ms in dec_rows if "decode_split" in k or
+                 "decode_combine" in k)
+    log(f"  decode: {untraced:.3f} ms/step untraced; traced {steps} steps: "
+        f"wall {dec_wall / steps:.3f} ms/step, card busy "
+        f"{dec_busy / steps:.3f} ms/step (share {dec_busy / dec_wall:.4f}), "
+        f"decode kernel {att_ms / steps:.3f} ms/step "
+        f"({att_ms / max(dec_busy, 1e-9):.4f} of busy); top kernels (ms per "
+        f"step): " + ", ".join(f"{k[:40]} {ms / steps:.3f}"
+                               for k, ms in dec_rows[:6]))
+
+    host_wall, in_ops, n_ops, host_rows = _host_ops(
+        lambda: decode(tok, cache, prompt + 2 * steps))
+    log(f"  host profile of {steps} decode steps: wall "
+        f"{host_wall / steps:.3f} ms/step, inside PyTorch ops "
+        f"{in_ops / steps:.3f} ms/step in {n_ops / steps:.1f} top-level ops "
+        f"per step, outside them {(host_wall - in_ops) / steps:.3f} ms/step; "
+        f"top ops by self time (ms per step): "
+        + ", ".join(f"{k[:40]} {ms / steps:.3f}" for k, ms in host_rows[:8]))
+
+    # synchronised host-clock spans of one more decode run (spans on)
+    spans = {}
+    targets = [(layers, "embed", "embed"), (kv_cache, "apply_block", "blocks"),
+               (kv_cache, "logits_head", "lm_head"),
+               (da, "decode_attention_cuda", "decode kernel")]
+    with _timed_spans(targets, spans):
+        decode(tok, cache, prompt + 2 * steps)   # positions already written
+    log("  spans per decode step (ms; blocks include the decode kernel): "
+        + ", ".join(f"{k} {v * 1e3 / steps:.3f}" for k, v in spans.items()))
 
 
 def main() -> int:
@@ -716,18 +1056,23 @@ def main() -> int:
     phase_fl_round()
     dp_launches = phase_fl_e2e()
     phase_fl_trace()
+    att_rows = phase_attention(smi)
+    att_launches = phase_serve()
+    phase_serve_trace()
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     **rows[k]) for k in REPLACES]
     kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
                      replaces=DP_REPLACES[k], launches=dp_launches[k],
                      **dp_rows[k]) for k in DP_REPLACES]
+    kernels += [dict(name=k, route="cuda", source=ATT_SOURCE,
+                     replaces=ATT_REPLACES[k], launches=att_launches[k],
+                     **att_rows[k]) for k in ATT_REPLACES]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -45,6 +45,10 @@ SIGNATURES = {
         "dp_clip_accumulate": ((_P, _P, _P, _I, _L, _P), _I),
         "dp_rownorms_chunk": ((), _I),
     },
+    "attention": {
+        "att_flash": ((_P,) * 4 + (_I,) * 7 + (_F, _P), _I),
+        "att_decode": ((_P,) * 7 + (_I,) * 9 + (_F, _P), _I),
+    },
 }
 
 

@@ -1,0 +1,468 @@
+// Attention kernels of the serving path for NVIDIA Hopper (sm_90a).
+//
+// Hand-written replacements of the two Pallas TPU attention kernels:
+//
+//   att_flash   q [B,S,H,dh], k,v [B,S,KH,dh] -> o [B,S,H,dh]
+//               forward GQA attention with causal / sliding-window masks
+//               (src/repro/kernels/flash_attention.py:71 flash_attention):
+//               the prefill's attention (repro_torch/models/kv_cache.py).
+//   att_decode  q [B,H,dh], KV cache k,v [B,L,KH,dh], valid positions
+//               [lo, hi) -> o [B,H,dh]
+//               (src/repro/kernels/decode_attention.py:56 decode_attention):
+//               one query per sequence against the cache, every decode step.
+//
+// Both read the port's layouts directly (heads inside a position's row,
+// as qkv_project and the cache leave them); nothing is transposed.  Query
+// head h reads kv head h / (H / KH).  Float32 throughout, plain FMAs on the
+// CUDA cores (no tensor cores, no TMA), expf (not __expf), no fast math.
+// The masked score is -1e30, as in the Pallas kernels: exp(-1e30 - m) is 0
+// for any finite m, and a row that has seen only masked scores carries
+// m = -1e30 and is wiped (corr = 0) by its first valid score.
+//
+// Plain C interface (loaded with ctypes by repro_torch/kernels/build.py):
+// every entry point takes device pointers, the sizes and PyTorch's current
+// stream, launches on that stream, does not synchronise or allocate, and
+// returns cudaGetLastError().  No atomics: both are bitwise the same from
+// launch to launch.
+//
+// Bounds on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 non-tensor):
+//   * flash: operations.  4*dh FLOPs per (query, key) pair that the masks
+//     keep (QK^T and PV); at B=4, S=2048, H=12, dh=64, causal, 25.8 GFLOP,
+//     0.385 ms; its 67 MB of q/k/v/o take 0.02 ms.
+//   * decode: bytes.  The K and V read, 2*B*n*KH*dh*4 bytes for n valid
+//     positions: 537 MB, 0.160 ms at B=8, n=32768, KH=4, dh=64.
+//
+// Design.
+//   * flash: one 256-thread block per (tile of 64 query rows, query head,
+//     batch row); the Pallas grid's sequential kv axis becomes a loop inside
+//     the block over 64-key tiles staged in shared memory (rows padded by
+//     one float so column reads are conflict-free).  Each thread owns 4
+//     query rows x 4 keys of the score tile and 4 rows x dh/16 columns of
+//     the accumulator; a row's max and sum reduce over the 16 lanes that
+//     share it (butterfly shuffles: every lane gets the same bits).  Key
+//     tiles wholly outside the causal / window band are skipped -- the only
+//     skipped work, and it does not change the result.  Ragged S: loads past
+//     S are zero-filled and masked.  Causal tiles are issued heaviest first.
+//   * decode: the Pallas grid walks (b, query head) and reads each kv head
+//     G = H/KH times; here one block serves all G query heads of one kv head
+//     and reads the cache once.  B*KH blocks would fill few of 132 SMs, so
+//     the valid range is cut into splits of `split` positions, one block
+//     each (launch 1), and a second launch combines each head's partial
+//     (m, l, acc) in split order.  Inside a block, dh/4 lanes read one
+//     cache row with 16-byte loads; 256/(dh/4) lane groups take positions
+//     round-robin, four at a time, with their own online softmax, and are
+//     merged in group order through shared memory.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;
+
+// ------------------------------------------------------------- flash
+constexpr int kBQ = 64;   // query rows per block
+constexpr int kBK = 64;   // keys per shared-memory tile
+
+template <int DH>
+constexpr int flash_smem_bytes() {
+  return (3 * kBQ * (DH + 1) + kBQ * (kBK + 1)) * (int)sizeof(float);
+}
+
+// Max / sum over the 16 lanes that share a query row (lanes 0-15 or 16-31).
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int KH, int causal, int window, float scale) {
+  static_assert(DH % 16 == 0, "dh must be a multiple of 16");
+  constexpr int LD = DH + 1;     // padded row of the q/k/v tiles
+  constexpr int PLD = kBK + 1;   // padded row of the probability tile
+  constexpr int NC = DH / 16;    // accumulator columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;              // [kBQ][LD]
+  float* sK = sQ + kBQ * LD;     // [kBK][LD]
+  float* sV = sK + kBK * LD;     // [kBK][LD]
+  float* sP = sV + kBK * LD;     // [kBQ][PLD]
+
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KH);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * kBQ;
+  const size_t q_stride = (size_t)H * DH;    // between positions of q / o
+  const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
+  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+
+  for (int i = threadIdx.x; i < kBQ * DH; i += kThreads) {
+    const int r = i / DH, d = i % DH;
+    sQ[r * LD + d] = q0 + r < S ? qb[(size_t)(q0 + r) * q_stride + d] : 0.0f;
+  }
+
+  // keys any row of this tile may see: [k_begin, k_end)
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
+      const int r = i / DH, d = i % DH;
+      const bool in = k0 + r < S;
+      const size_t off = (size_t)(k0 + r) * kv_stride + d;
+      sK[r * LD + d] = in ? kb[off] : 0.0f;
+      sV[r * LD + d] = in ? vb[off] : 0.0f;
+    }
+    __syncthreads();
+
+    // scores of rows ty + 16i against keys tx + 16j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = kp < S;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sP[(ty + 16 * i) * PLD + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+    // acc[row][col] += sum_key p[row][key] * v[key][col], keys in order
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float vv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = sV[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = sP[(ty + 16 * i) * PLD + kk];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = __fmaf_rn(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= S) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      ob[(size_t)qp * q_stride + tx + 16 * c] = acc[i][c] / denom;
+  }
+}
+
+template <int DH>
+int launch_flash(const float* q, const float* k, const float* v, float* o,
+                 int B, int S, int H, int KH, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  constexpr int smem = flash_smem_bytes<DH>();
+  // above 48 KB, dynamic shared memory must be asked for (per device)
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, S, H, KH, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ decode
+constexpr int kUnroll = 4;  // positions per lane group per step
+
+// Sum over the LG lanes of one lane group (LG a power of two <= 32).
+template <int LG>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Launch 1: block (split, kv head, batch row) -> each of its G query
+// heads' (m, l, acc[dh]) over positions [lo + split*sp, ... + split) n [lo, hi).
+template <int DH, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ part_m,
+                    float* __restrict__ part_l, float* __restrict__ part_acc,
+                    int L, int KH, int lo, int hi, int split, float scale) {
+  constexpr int LG = DH / 4;          // lanes per cache row (float4 each)
+  constexpr int NGR = kThreads / LG;  // lane groups per block
+  static_assert(DH % 4 == 0 && LG <= 32 && (32 % LG) == 0, "unsupported dh");
+  __shared__ float sm_m[NGR][G], sm_l[NGR][G];
+  __shared__ float sm_acc[NGR][G][DH];
+
+  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x, H = KH * G;
+  const int li = threadIdx.x % LG, gi = threadIdx.x / LG;
+  const int start = lo + sp * split;
+  const int end = min(hi, start + split);
+
+  float4 qv[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    qv[g] = reinterpret_cast<const float4*>(
+        q + ((size_t)b * H + (size_t)kvh * G + g) * DH)[li];
+
+  float m[G], l[G];
+  float4 acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.0f;
+    acc[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  const size_t row = (size_t)KH * DH;  // between positions of the cache
+  const float* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * 4;
+  const float* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * 4;
+  // the trip count is the block's, so every lane reaches the shuffles
+  for (int it = start; it < end; it += NGR * kUnroll) {
+    const int base = it + gi;
+    float4 kk[kUnroll], vv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = base + NGR * u;
+      if (p < end) {
+        kk[u] = __ldg(reinterpret_cast<const float4*>(kb + (size_t)p * row));
+        vv[u] = __ldg(reinterpret_cast<const float4*>(vb + (size_t)p * row));
+      } else {
+        kk[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        vv[u] = kk[u];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s[kUnroll];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float d = qv[g].x * kk[u].x;
+        d = __fmaf_rn(qv[g].y, kk[u].y, d);
+        d = __fmaf_rn(qv[g].z, kk[u].z, d);
+        d = __fmaf_rn(qv[g].w, kk[u].w, d);
+        d = group_sum<LG>(d);
+        s[u] = base + NGR * u < end ? d * scale : kNegInf;
+        mx = fmaxf(mx, s[u]);
+      }
+      const float m_new = fmaxf(m[g], mx);
+      const float corr = expf(m[g] - m_new);
+      l[g] *= corr;
+      acc[g].x *= corr;
+      acc[g].y *= corr;
+      acc[g].z *= corr;
+      acc[g].w *= corr;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        // a position past `end` adds exactly nothing (what exp(-1e30 - m)
+        // gives once m is a real score)
+        const float p = base + NGR * u < end ? expf(s[u] - m_new) : 0.0f;
+        l[g] += p;
+        acc[g].x = __fmaf_rn(p, vv[u].x, acc[g].x);
+        acc[g].y = __fmaf_rn(p, vv[u].y, acc[g].y);
+        acc[g].z = __fmaf_rn(p, vv[u].z, acc[g].z);
+        acc[g].w = __fmaf_rn(p, vv[u].w, acc[g].w);
+      }
+      m[g] = m_new;
+    }
+  }
+
+  // merge the lane groups in group order (a group with no position has
+  // m = -1e30, l = 0, acc = 0 and adds exactly nothing)
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (li == 0) {
+      sm_m[gi][g] = m[g];
+      sm_l[gi][g] = l[g];
+    }
+    sm_acc[gi][g][li * 4 + 0] = acc[g].x;
+    sm_acc[gi][g][li * 4 + 1] = acc[g].y;
+    sm_acc[gi][g][li * 4 + 2] = acc[g].z;
+    sm_acc[gi][g][li * 4 + 3] = acc[g].w;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < G * DH; t += kThreads) {
+    const int g = t / DH, d = t % DH;
+    float mm = kNegInf;
+    for (int r = 0; r < NGR; ++r) mm = fmaxf(mm, sm_m[r][g]);
+    float ll = 0.0f, aa = 0.0f;
+    for (int r = 0; r < NGR; ++r) {
+      const float w = expf(sm_m[r][g] - mm);
+      ll = __fmaf_rn(sm_l[r][g], w, ll);
+      aa = __fmaf_rn(sm_acc[r][g][d], w, aa);
+    }
+    const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
+    part_acc[(bh * nsplit + sp) * DH + d] = aa;
+    if (d == 0) {
+      part_m[bh * nsplit + sp] = mm;
+      part_l[bh * nsplit + sp] = ll;
+    }
+  }
+}
+
+// Launch 2: block (query head, batch row), one thread per output column:
+// merge the head's splits in order and normalise.
+__global__ void decode_combine_kernel(const float* __restrict__ part_m,
+                                      const float* __restrict__ part_l,
+                                      const float* __restrict__ part_acc,
+                                      float* __restrict__ o, int H,
+                                      int nsplit, int dh) {
+  const size_t bh = (size_t)blockIdx.y * H + blockIdx.x;
+  const float* pm = part_m + bh * nsplit;
+  const float* pl = part_l + bh * nsplit;
+  const float* pa = part_acc + bh * nsplit * dh;
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+    float mm = kNegInf;
+    for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, pm[s]);
+    float ll = 0.0f, aa = 0.0f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = expf(pm[s] - mm);
+      ll = __fmaf_rn(pl[s], w, ll);
+      aa = __fmaf_rn(pa[(size_t)s * dh + d], w, aa);
+    }
+    o[bh * dh + d] = aa / fmaxf(ll, 1e-20f);
+  }
+}
+
+template <int DH, int G>
+int launch_decode(const float* q, const float* k, const float* v, float* o,
+                  float* part_m, float* part_l, float* part_acc, int B,
+                  int KH, int L, int lo, int hi, int split, int nsplit,
+                  float scale, cudaStream_t stream) {
+  const dim3 grid((unsigned)nsplit, (unsigned)KH, (unsigned)B);
+  decode_split_kernel<DH, G><<<grid, kThreads, 0, stream>>>(
+      q, k, v, part_m, part_l, part_acc, L, KH, lo, hi, split, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<<<dim3((unsigned)(KH * G), (unsigned)B), DH, 0,
+                          stream>>>(part_m, part_l, part_acc, o, KH * G,
+                                    nsplit, DH);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_decode_g(int G, const float* q, const float* k, const float* v,
+                    float* o, float* pm, float* pl, float* pa, int B, int KH,
+                    int L, int lo, int hi, int split, int nsplit, float scale,
+                    cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_decode<DH, 1>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    case 2: return launch_decode<DH, 2>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    case 3: return launch_decode<DH, 3>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    case 4: return launch_decode<DH, 4>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    case 6: return launch_decode<DH, 6>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    case 8: return launch_decode<DH, 8>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// o = attention(q, k, v) in the port's layouts; window <= 0 means none.
+int att_flash(const float* q, const float* k, const float* v, float* o, int B,
+              int S, int H, int KH, int dh, int causal, int window,
+              float scale, cudaStream_t stream) {
+  if (B <= 0 || S <= 0) return (int)cudaGetLastError();
+  if (KH <= 0 || H % KH != 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 16: return launch_flash<16>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 32: return launch_flash<32>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 64: return launch_flash<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 128: return launch_flash<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// o[b,h] = attention of q[b,h] over cache positions [lo, hi), cut into
+// nsplit splits of `split` positions; part_m / part_l hold B*H*nsplit
+// floats and part_acc B*H*nsplit*dh (the caller's scratch).
+int att_decode(const float* q, const float* k, const float* v, float* o,
+               float* part_m, float* part_l, float* part_acc, int B, int H,
+               int KH, int L, int dh, int lo, int hi, int split, int nsplit,
+               float scale, cudaStream_t stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (KH <= 0 || H % KH != 0 || lo < 0 || hi > L || lo >= hi || split <= 0 ||
+      nsplit <= 0 || (long long)split * nsplit < hi - lo || B > 65535 ||
+      KH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KH;
+  switch (dh) {
+    case 16: return launch_decode_g<16>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
+    case 32: return launch_decode_g<32>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
+    case 64: return launch_decode_g<64>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
+    case 128: return launch_decode_g<128>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,111 @@
+"""Launcher of the Hopper decode attention kernel (``csrc/attention.cu``,
+``att_decode``) and the dispatch the decode step calls.
+
+:func:`decode_attention_cuda` takes CUDA tensors only (float32,
+contiguous, 16-byte aligned) and raises on anything else; it adds one to
+``LAUNCHES["decode_attention"]`` per call (two launches on the card: the
+splits, then their combination).  :func:`decode_attention` picks by the
+device of ``q`` alone -- a CPU tensor runs the twin
+:func:`repro_torch.kernels.ref.decode_attention_ref`, a CUDA tensor the
+kernel -- with no flag and no fallback.  ``cache_len`` is a host int: the port's decode loop runs on the
+host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .budget_alloc import _check, _on_cuda, _raise_on, _stream
+from .build import library
+from . import ref
+
+# Kernel launches since the last reset_launches().
+LAUNCHES = {"decode_attention": 0}
+HEAD_DIMS = (16, 32, 64, 128)
+GROUPS = (1, 2, 3, 4, 6, 8)          # query heads per kv head
+SMS = 132                            # H100 SXM streaming multiprocessors
+MIN_SPLIT = 256                      # positions per block, at least
+
+
+def reset_launches() -> None:
+    LAUNCHES["decode_attention"] = 0
+
+
+def valid_range(cache_len: int, L: int, window: Optional[int]):
+    """Positions ``[lo, hi)`` of the cache that the query attends to."""
+    hi = int(cache_len)
+    if not 1 <= hi <= L:
+        raise ValueError(f"cache_len {hi} outside [1, {L}]")
+    if window is None:
+        return 0, hi
+    if int(window) < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    return max(0, hi - int(window)), hi
+
+
+def split_size(n: int, blocks_per_split: int) -> int:
+    """Positions per split: enough splits for about four blocks per SM,
+    each of at least :data:`MIN_SPLIT` positions, in multiples of 64."""
+    want = -(-4 * SMS // max(blocks_per_split, 1))
+    split = max(MIN_SPLIT, -(-n // want))
+    return -(-split // 64) * 64
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache_len: int, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """One query per sequence against a KV cache, on the card: q [B,H,dh],
+    k,v [B,L,KH,dh] (the cache's layout) -> [B,H,dh], over the first
+    ``cache_len`` positions (with ``window``: the last ``window`` of them).
+
+    Replaces ``repro/kernels/decode_attention.py:decode_attention``.
+    Bound: bytes (the K and V rows read).  Design (source header): a block
+    per (split of positions, kv head, batch row) serves all H/KH query
+    heads of its kv head, so the cache is read once; a second launch
+    merges the splits in order.  Any L."""
+    _on_cuda(q, k, v)
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"expected q [B, H, dh] and k [B, L, KH, dh], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, dh = q.shape
+    L, KH = k.shape[1], k.shape[2]
+    if H % KH or H // KH not in GROUPS:
+        raise ValueError(f"{H} heads over {KH} kv heads: H/KH not in "
+                         f"{GROUPS}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    _check(q, "q", torch.float32, (B, H, dh))
+    _check(k, "k", torch.float32, (B, L, KH, dh))
+    _check(v, "v", torch.float32, (B, L, KH, dh))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    lo, hi = valid_range(cache_len, L, window)
+    split = split_size(hi - lo, B * KH)
+    nsplit = -(-(hi - lo) // split)
+    part_m = torch.empty(B * H * nsplit, dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(B * H * nsplit * dh, dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty_like(q)
+    _raise_on(library("attention").att_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), B, H, KH,
+        L, dh, lo, hi, split, nsplit, 1.0 / math.sqrt(dh), _stream(q)),
+        "att_decode")
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, cache_len: int, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention by the device of ``q``: the twin on the CPU,
+    :func:`decode_attention_cuda` on a CUDA tensor."""
+    if q.device.type == "cpu":
+        valid_range(cache_len, k.shape[1], window)
+        return ref.decode_attention_ref(q, k, v, int(cache_len),
+                                        window=window)
+    return decode_attention_cuda(q, k, v, cache_len, window=window)

@@ -21,8 +21,18 @@ DP clip: ``clip_accumulate_ref`` is bitwise the kernel's (rows in order,
 each step a correctly rounded FMA, :func:`repro_torch.fp.fma_exact`);
 ``rownorms_ref`` sums each row in the device library's order, and the
 kernel's chunked sum agrees with it to 1e-5 relative.
+
+Attention (``csrc/attention.cu``): ``flash_attention_ref`` and
+``decode_attention_ref`` are ``repro``'s oracles in the port's layouts
+(heads inside a position's row): the whole score matrix, masked with
+-1e30, a float32 softmax, GQA by head grouping.  The kernels' online
+softmax sums in another order and holds to rtol = atol = 2e-5, the bound
+``repro`` holds its Pallas attention kernels to.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -130,3 +140,51 @@ def clip_accumulate_ref(g: torch.Tensor, scales: torch.Tensor
     for b in range(g.shape[0]):
         acc = fma_exact(g[b], s[b].expand_as(acc), acc)
     return acc
+
+
+_MASKED = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, scale=None):
+    """q [B,S,H,dh]; k,v [B,S,KH,dh] -> [B,S,H,dh] in q's dtype.  Query
+    head h reads kv head h // (H // KH); ``causal`` keeps keys at or before
+    the query, ``window`` keys within ``window`` positions of it."""
+    B, S, H, dh = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(B, S, KH, G, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, H, dh).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, cache_len: int, *,
+                         window: Optional[int] = None, scale=None):
+    """q [B,H,dh]; cache k,v [B,L,KH,dh] -> [B,H,dh] in q's dtype, over the
+    first ``cache_len`` positions (and, with ``window``, only those after
+    ``cache_len - 1 - window``)."""
+    B, H, dh = q.shape
+    L, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(B, KH, G, dh)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float()) * scale
+    pos = torch.arange(L, device=q.device)
+    mask = pos < cache_len
+    if window is not None:
+        mask &= pos > cache_len - 1 - window
+    s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return o.reshape(B, H, dh).to(q.dtype)

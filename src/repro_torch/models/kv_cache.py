@@ -1,0 +1,132 @@
+"""KV cache and the decode path: prefill that builds the cache, one-token
+decode steps against it.
+
+Cache layout (``repro``'s, per block): ``{"k", "v"}: [B, Lc, KH, dh]``.
+``attn`` blocks hold ``Lc = cache_len`` entries; ``swa``/``local`` blocks a
+ring buffer of ``Lc = min(window, cache_len)`` where absolute position
+``p`` lives in slot ``p % Lc``.  RoPE is applied at absolute positions
+before insertion, so ring entries need no window mask: everything resident
+is in the window by construction.  The cache is a list with one entry per
+block in layer order (the port's blocks are a ``ModuleList``, not
+``repro``'s scanned stack), on the model's device.
+
+The prefill's attention is the flash dispatch
+(:func:`repro_torch.kernels.flash_attention.flash_attention`), the decode
+step's :func:`repro_torch.models.layers.decode_attention`; each runs its
+Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  Both run
+under ``torch.no_grad`` (the kernels have no backward).
+
+Where ``repro`` returns a new cache from each decode step, the port
+writes the step's key and value into the cache in place (saving a copy
+of the cache per token) and returns the same list.  Block kinds other
+than ``attn``/``swa``/``local`` (``rec``, ``mlstm``, ``slstm``, ``xattn``,
+``encdec``) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attention import flash_attention
+from . import layers as L
+from .transformer import Transformer, _check_ported, apply_block, logits_head
+
+Cache = List[Dict[str, torch.Tensor]]
+_RING = ("swa", "local")
+
+
+def _check(params: Transformer, cfg: ArchConfig) -> None:
+    _check_ported(cfg)
+    if cfg != params.cfg:
+        raise ValueError("cfg differs from the model's configuration")
+
+
+def _cache_len_for(kind: str, cfg: ArchConfig, cache_len: int) -> int:
+    if kind in _RING and cfg.window:
+        return min(cfg.window, cache_len)
+    return cache_len
+
+
+def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
+               cache_len: int, dtype=torch.float32) -> Cache:
+    """Zeroed cache, one ``{"k", "v"}`` per block, on the model's
+    device."""
+    _check(params, cfg)
+    dev = params.flat.device
+    out = []
+    for kind, _ in cfg.layer_specs():
+        shape = (batch, _cache_len_for(kind, cfg, cache_len), cfg.kv_heads,
+                 cfg.dh)
+        out.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return out
+
+
+def _fit(x, Lc: int, ring: bool):
+    """The prefill's keys or values [B, S, KH, dh] as a cache of Lc
+    entries: the last Lc positions (a ring rolled so position p sits in
+    slot p % Lc), or the S positions padded with zeros."""
+    S = x.shape[1]
+    if S >= Lc:
+        x = x[:, S - Lc:]
+        if ring:
+            x = torch.roll(x, S % Lc, dims=1)
+        return x.contiguous()
+    return F.pad(x, (0, 0, 0, 0, 0, Lc - S))
+
+
+def _prefill_attend(q, k, v, window: Optional[int]):
+    return flash_attention(q, k, v, causal=True, window=window)
+
+
+@torch.no_grad()
+def forward_with_cache(params: Transformer, tokens, cfg: ArchConfig,
+                       cache_len: int):
+    """Prefill: the forward pass over ``tokens`` [B, S] that also builds
+    the decode cache for ``cache_len`` positions.  Returns ``(logits [B,
+    S, vocab] float32, cache)``."""
+    _check(params, cfg)
+    h = L.embed(tokens, params.embed)
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=h.device)
+    cache = []
+    for blk in params.blocks:
+        h, k, v = apply_block(h, blk, blk.kind, cfg, positions=pos,
+                              attend=_prefill_attend)
+        Lc = _cache_len_for(blk.kind, cfg, cache_len)
+        ring = blk.kind in _RING
+        cache.append({"k": _fit(k, Lc, ring), "v": _fit(v, Lc, ring)})
+    return logits_head(params, h), cache
+
+
+def _decode_attend(entry: Dict[str, torch.Tensor], pos: int, ring: bool):
+    """The decode step's attention for one block: write the token's key and
+    value into its slot, then attend over the resident entries."""
+    def attend(q, k, v, window):
+        Lc = entry["k"].shape[1]
+        slot = pos % Lc if ring else min(pos, Lc - 1)
+        entry["k"][:, slot] = k[:, 0]
+        entry["v"][:, slot] = v[:, 0]
+        return L.decode_attention(q, entry["k"], entry["v"],
+                                  min(pos + 1, Lc))
+    return attend
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, token, cache: Cache, pos: int,
+                cfg: ArchConfig):
+    """One serving step.  ``token`` [B, 1], ``pos`` the token's absolute
+    position (a host int: the current length).  Returns ``(logits [B, 1,
+    vocab] float32, cache)``, the cache updated in place."""
+    _check(params, cfg)
+    pos = int(pos)
+    h = L.embed(token, params.embed)
+    posv = torch.full((1,), pos, device=h.device)
+    for blk, entry in zip(params.blocks, cache):
+        h, _, _ = apply_block(h, blk, blk.kind, cfg, positions=posv,
+                              attend=_decode_attend(entry, pos,
+                                                    blk.kind in _RING))
+    return logits_head(params, h), cache

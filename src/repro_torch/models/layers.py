@@ -8,14 +8,19 @@ Conventions (as in ``repro/models/layers.py``):
     takes ``q [B, S, H, dh]`` and ``k, v [B, S, KH, dh]``.
   * norms and the softmax accumulate in float32; outputs take the input's
     dtype.
-  * attention is chunked online-softmax, streaming over KV blocks, so the
-    score tensor is ``[B, Sq, H, chunk]``, never ``[Sq, Skv]``.  In
-    training it runs under autograd, as ``repro`` runs it under
+  * training attention is chunked online-softmax, streaming over KV
+    blocks, so the score tensor is ``[B, Sq, H, chunk]``, never ``[Sq,
+    Skv]``.  It runs under autograd, as ``repro`` runs it under
     ``jax.grad`` (the Pallas attention kernels have no backward).
+  * serving attention goes through the kernels' dispatches: the prefill
+    calls :func:`repro_torch.kernels.flash_attention.flash_attention`
+    (:mod:`repro_torch.models.kv_cache`), the decode step
+    :func:`decode_attention` below; each runs its Hopper kernel on a CUDA
+    tensor and its plain twin on a CPU tensor.
 
 ``repro``'s mesh constraint (``maybe_constrain``) and tuning knobs
 (``REPRO_DISABLE_OPT``, ``REPRO_ATTN_CHUNK``) belong to its TPU build and
-are not ported.  ``decode_attention`` comes with the serving slice.
+are not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import decode_attention as _decode
 
 Params = Mapping[str, torch.Tensor]
 
@@ -140,6 +147,18 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-20)
     return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                     window: Optional[int] = None):
+    """Single-position attention against a cache.  q [B,1,H,dh];
+    k_cache/v_cache [B,L,KH,dh]; ``cache_len`` (a host int) valid entries
+    from position 0; ``window`` keeps only the last ``window`` of them.
+    Returns [B,1,H,dh] in q's dtype."""
+    B, _, H, dh = q.shape
+    out = _decode.decode_attention(q.reshape(B, H, dh), k_cache, v_cache,
+                                   int(cache_len), window=window)
+    return out.reshape(B, 1, H, dh)
 
 
 # ----------------------------------------------------------------------- mlp

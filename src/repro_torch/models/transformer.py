@@ -20,11 +20,15 @@ Entry points:
   params_from_jax(tree, cfg, device)-> Transformer holding repro's values
   forward(params, tokens, cfg)      -> logits [B, S, vocab] (float32)
   lm_loss(logits, labels, mask)     -> mean token cross-entropy
+
+A block has one code path, :func:`apply_block`, for the training forward,
+the prefill and the decode step (:mod:`repro_torch.models.kv_cache`); only
+the attention call it is given differs between them.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -79,17 +83,57 @@ class Block(nn.Module):
         self.mlp = _pdict(mlp, device)
 
     def forward(self, h, cfg: ArchConfig, positions, causal: bool = True):
-        window = cfg.window if self.kind in ("swa", "local") else None
-        x = L.apply_norm(h, self.norm1, cfg.norm)
-        q, k, v = L.qkv_project(x, self.attn, cfg.n_heads, cfg.kv_heads,
-                                cfg.dh)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        out = L.chunked_attention(q, k, v, causal=causal, window=window)
-        B, S = h.shape[:2]
-        h = h + out.reshape(B, S, -1) @ self.attn["wo"]
-        return h + L.mlp(L.apply_norm(h, self.norm2, cfg.norm), self.mlp,
-                         cfg.act)
+        return apply_block_train(h, self, self.kind, cfg,
+                                 positions=positions, causal=causal)
+
+
+# (q, k, v, window) -> attention output [B, S, H, dh]
+Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Optional[int]],
+                  torch.Tensor]
+
+
+def _ffn_apply(h, p: Block, cfg: ArchConfig):
+    """The block's dense MLP (``repro``'s ``_ffn_apply``; MoE is not
+    ported)."""
+    return L.mlp(h, p.mlp, cfg.act)
+
+
+def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
+                attend: Attend):
+    """One ``attn``/``swa``/``local`` block: pre-norm attention on the
+    roped projections, then the pre-norm MLP, each added to the residual.
+    ``attend(q, k, v, window)`` is the attention; ``window`` is the
+    config's for ``swa``/``local`` and None for ``attn``.  Returns
+    ``(h, k, v)`` with the roped keys and values [B, S, KH, dh]."""
+    window = cfg.window if kind in ("swa", "local") else None
+    x = L.apply_norm(h, p.norm1, cfg.norm)
+    q, k, v = L.qkv_project(x, p.attn, cfg.n_heads, cfg.kv_heads, cfg.dh)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = attend(q, k, v, window)
+    B, S = h.shape[:2]
+    h = h + out.reshape(B, S, -1) @ p.attn["wo"]
+    return h + _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg), k, v
+
+
+def apply_block_train(h, p: Block, kind: str, cfg: ArchConfig, *,
+                      positions, causal: bool = True):
+    """The training block: :func:`apply_block` with
+    :func:`repro_torch.models.layers.chunked_attention` (autograd)."""
+    return apply_block(
+        h, p, kind, cfg, positions=positions,
+        attend=lambda q, k, v, window: L.chunked_attention(
+            q, k, v, causal=causal, window=window))[0]
+
+
+def logits_head(params: "Transformer", h):
+    """Final norm and the LM head (or the tied embedding): float32
+    logits."""
+    cfg = params.cfg
+    h = L.apply_norm(h, params.final_norm, cfg.norm)
+    if cfg.tie_embeddings:
+        return (h @ params.embed["table"].T).float()
+    return L.lm_head(h, params.lm_head)
 
 
 class Transformer(nn.Module):
@@ -122,10 +166,7 @@ class Transformer(nn.Module):
         pos = torch.arange(tokens.shape[1], device=h.device)
         for blk in self.blocks:
             h = blk(h, cfg, pos)
-        h = L.apply_norm(h, self.final_norm, cfg.norm)
-        if cfg.tie_embeddings:
-            return (h @ self.embed["table"].T).float()
-        return L.lm_head(h, self.lm_head)
+        return logits_head(self, h)
 
 
 def clone_model(model: Transformer) -> Transformer:

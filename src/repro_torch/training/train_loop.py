@@ -1,18 +1,19 @@
-"""Training state and loss builders.
+"""Training state, loss builders and the serving step.
 
-``train_step`` and ``serve_step`` (the jitted whole-batch step of
-``repro``'s launchers) are not in this slice of the port; the FL path
-trains through :mod:`repro_torch.training.fedavg` (ROADMAP.md, Queue 1).
+``serve_step`` is ``repro``'s decode step plus sampling.  ``train_step``
+(the jitted whole-batch step of ``repro``'s training launcher) is not in
+the port yet; the FL path trains through
+:mod:`repro_torch.training.fedavg` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..models import forward, init_model, lm_loss
+from ..models import decode_step, forward, init_model, lm_loss
 from .optimizer import Optimizer, make_optimizer
 
 
@@ -72,3 +73,28 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True):
         logits = forward(params, batch["tokens"], cfg)
         return lm_loss(logits, batch["labels"], batch.get("mask"))
     return loss_fn
+
+
+def serve_step(params, token, cache, pos: int, cfg: ArchConfig,
+               temperature: float = 0.0,
+               generator: Optional[torch.Generator] = None):
+    """One decode step and sampling.  Returns ``(next_token [B, 1],
+    logits [B, 1, vocab], cache)``.
+
+    ``temperature <= 0`` is greedy (argmax, first index on ties, as
+    ``jnp.argmax``).  Otherwise the token is drawn by the Gumbel-max rule
+    of ``jax.random.categorical`` from ``generator``, a ``torch.Generator``
+    on the logits' device: reproducible from its seed, but not the same
+    draws as ``repro``'s ``jax.random`` key."""
+    logits, cache = decode_step(params, token, cache, pos, cfg)
+    last = logits[:, -1]
+    if temperature <= 0.0:
+        nxt = torch.argmax(last, dim=-1)
+    else:
+        if generator is None:
+            raise ValueError("sampling (temperature > 0) needs a generator")
+        u = torch.rand(last.shape, generator=generator, device=last.device)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        nxt = torch.argmax(last / temperature + gumbel, dim=-1)
+    return nxt[:, None].to(token.dtype), logits, cache

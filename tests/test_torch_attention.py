@@ -1,0 +1,258 @@
+"""Attention: the port's twins against ``repro``'s Pallas kernels
+(interpret mode) and oracles on the CPU, the dispatch rule, and (on a
+Hopper card only) the CUDA kernels against their twins.
+
+Inputs are seeded numpy arrays in the port's layouts (q [B,S,H,dh], k,v
+[B,S,KH,dh]; the cache [B,L,KH,dh]), transposed to ``repro``'s Pallas
+layouts ([B,H,S,dh], [B,KH,L,dh]) at the test boundary.  Tolerance: rtol
+= atol = 2e-5, the bound ``repro`` holds its Pallas attention kernels to
+in float32 (``tests/test_kernels.py``).  The Pallas kernels assert that S
+and L are multiples of their block, so ragged S and L are checked against
+``repro``'s oracles and its XLA layers instead.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.models import layers
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+# (B, H, KH, S, dh): the sets of repro's tests/test_kernels.py
+FLASH_SHAPES = [(1, 2, 1, 64, 32), (2, 4, 2, 128, 64), (1, 8, 8, 64, 16),
+                (2, 6, 2, 96, 32)]
+MASKS = [(True, None), (False, None), (True, 32)]
+DECODE_SHAPES = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (2, 8, 8, 64, 16)]
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.models import layers as JL
+    return jnp, jops, jref, JL
+
+
+@pytest.fixture
+def hopper():
+    """Skip unless an sm_90 card is present (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (compute capability 9.0)")
+    return torch.device("cuda")
+
+
+def _qkv(B, H, KH, S, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, dh)).astype(np.float32),
+            rng.standard_normal((B, S, KH, dh)).astype(np.float32),
+            rng.standard_normal((B, S, KH, dh)).astype(np.float32))
+
+
+def _heads_first(x):
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+# ------------------------------------------------------------ flash twin
+@pytest.mark.parametrize("B,H,KH,S,dh", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_twin_matches_pallas_and_oracle(jax_side, B, H, KH, S, dh,
+                                              causal, window):
+    jnp, jops, jref, _ = jax_side
+    q, k, v = _qkv(B, H, KH, S, dh)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                  window=window).numpy()
+    jq, jk, jv = (jnp.asarray(_heads_first(x)) for x in (q, k, v))
+    pallas = jops.flash_attention_op(jq, jk, jv, causal=causal,
+                                     window=window, block_q=32, block_k=32)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                      window=window)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, _heads_first(np.asarray(want)),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 37, 100])
+@pytest.mark.parametrize("causal,window", MASKS + [(False, 7)])
+def test_flash_twin_at_ragged_s(jax_side, S, causal, window):
+    """Any S: against repro's oracle and its XLA chunked attention."""
+    jnp, _, jref, JL = jax_side
+    q, k, v = _qkv(2, 6, 2, S, 32, seed=S)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                  window=window).numpy()
+    oracle = jref.flash_attention_ref(
+        *(jnp.asarray(_heads_first(x)) for x in (q, k, v)), causal=causal,
+        window=window)
+    np.testing.assert_allclose(got, _heads_first(np.asarray(oracle)), **TOL)
+    chunked = JL.chunked_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                   causal=causal, window=window, chunk=16)
+    np.testing.assert_allclose(got, np.asarray(chunked), **TOL)
+
+
+def _count_calls(monkeypatch, name):
+    """Count the calls of the twin ``ref.<name>`` (it still runs)."""
+    calls, twin = [], getattr(ref, name)
+    monkeypatch.setattr(ref, name,
+                        lambda *a, **kw: calls.append(1) or twin(*a, **kw))
+    return calls
+
+
+def test_flash_dispatch_runs_the_twin_on_the_cpu(monkeypatch):
+    q, k, v = _t(*_qkv(1, 4, 2, 20, 16))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=5)
+    calls = _count_calls(monkeypatch, "flash_attention_ref")
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=True, window=5)
+    assert torch.equal(got, want)
+    assert fa.LAUNCHES == {"flash_attention": 0}
+    assert len(calls) == 1
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, v)             # no kernel for the CPU
+
+
+# ----------------------------------------------------------- decode twin
+def _cache(B, H, KH, L, dh, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, dh)).astype(np.float32),
+            rng.standard_normal((B, L, KH, dh)).astype(np.float32),
+            rng.standard_normal((B, L, KH, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,KH,L,dh", DECODE_SHAPES)
+@pytest.mark.parametrize("frac", [0.25, 1.0])
+def test_decode_twin_matches_pallas_oracle_and_layer(jax_side, B, H, KH, L,
+                                                     dh, frac):
+    jnp, jops, jref, JL = jax_side
+    q, k, v = _cache(B, H, KH, L, dh)
+    n = max(1, int(L * frac))
+    got = ref.decode_attention_ref(*_t(q, k, v), n).numpy()
+    jk, jv = jnp.asarray(_heads_first(k)), jnp.asarray(_heads_first(v))
+    pallas = jops.decode_attention_op(jnp.asarray(q), jk, jv,
+                                      jnp.asarray(n), block_k=32)
+    oracle = jref.decode_attention_ref(jnp.asarray(q), jk, jv, n)
+    layer = JL.decode_attention(jnp.asarray(q[:, None]), jnp.asarray(k),
+                                jnp.asarray(v), n)[:, 0]
+    for want in (pallas, oracle, layer):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("L,n", [(100, 100), (100, 37), (48, 33), (1, 1)])
+@pytest.mark.parametrize("window", [None, 8])
+def test_decode_layer_at_any_length(jax_side, L, n, window):
+    """A cache length that is no multiple of any block, with and without a
+    window: the port's layer against repro's layer and oracle."""
+    jnp, _, jref, JL = jax_side
+    q, k, v = _cache(3, 6, 2, L, 32, seed=L + n)
+    got = layers.decode_attention(*_t(q[:, None], k, v), n, window=window)
+    want = JL.decode_attention(jnp.asarray(q[:, None]), jnp.asarray(k),
+                               jnp.asarray(v), n, window=window)
+    assert tuple(got.shape) == (3, 1, 6, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if window is None:
+        oracle = jref.decode_attention_ref(
+            jnp.asarray(q), jnp.asarray(_heads_first(k)),
+            jnp.asarray(_heads_first(v)), n)
+        np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(oracle),
+                                   **TOL)
+
+
+def test_decode_dispatch_runs_the_twin_on_the_cpu(monkeypatch):
+    q, k, v = _t(*_cache(2, 4, 2, 40, 16))
+    want = ref.decode_attention_ref(q, k, v, 17)
+    calls = _count_calls(monkeypatch, "decode_attention_ref")
+    da.reset_launches()
+    got = da.decode_attention(q, k, v, 17)
+    assert torch.equal(got, want)
+    assert da.LAUNCHES == {"decode_attention": 0}
+    assert len(calls) == 1
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q, k, v, 17)
+    for bad in (0, 41):                          # outside [1, L]
+        with pytest.raises(ValueError):
+            da.decode_attention(q, k, v, bad)
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 16), (33, 16), (32768, 32),
+                                      (20000, 32), (5000, 1), (2049, 4)])
+def test_decode_splits_cover_the_valid_range(n, blocks):
+    split = da.split_size(n, blocks)
+    nsplit = -(-n // split)
+    assert split % 64 == 0 and split >= da.MIN_SPLIT
+    assert (nsplit - 1) * split < n <= nsplit * split     # no empty split
+    assert nsplit == 1 or nsplit * blocks <= 4 * da.SMS + blocks
+
+
+def test_decode_valid_range():
+    assert da.valid_range(48, 48, None) == (0, 48)
+    assert da.valid_range(33, 48, 8) == (25, 33)     # k > 33 - 1 - 8
+    assert da.valid_range(5, 48, 8) == (0, 5)
+    with pytest.raises(ValueError):
+        da.valid_range(5, 48, 0)
+
+
+# ------------------------------------------------------------ on the card
+# (B, H, KH, S, dh, causal, window): the serve default (ragged against a
+# 64-row tile), GQA at flaas-100m's heads, a ragged sliding window, a
+# non-causal prompt, a small head dim
+CARD_FLASH = [(4, 12, 4, 32, 64, True, None), (2, 12, 4, 1000, 64, True, 256),
+              (1, 12, 4, 512, 64, False, None), (2, 4, 2, 130, 32, True, 17),
+              (1, 8, 8, 65, 16, False, 9), (1, 2, 1, 70, 128, True, None)]
+# (B, H, KH, L, dh, cache_len, window)
+CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
+               (8, 12, 4, 4100, 64, 4100, None), (2, 12, 4, 3000, 64, 2999, 100),
+               (1, 8, 1, 700, 16, 513, None), (2, 16, 2, 300, 128, 300, None),
+               (3, 6, 3, 257, 32, 1, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window", CARD_FLASH)
+def test_cuda_flash_matches_twin(hopper, B, H, KH, S, dh, causal, window):
+    q, k, v = (x.to(hopper) for x in _t(*_qkv(B, H, KH, S, dh, seed=S)))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)                   # bitwise stable
+    assert fa.LAUNCHES == {"flash_attention": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,L,dh,n,window", CARD_DECODE)
+def test_cuda_decode_matches_twin(hopper, B, H, KH, L, dh, n, window):
+    q, k, v = (x.to(hopper) for x in _t(*_cache(B, H, KH, L, dh, seed=L)))
+    da.reset_launches()
+    got = da.decode_attention(q, k, v, n, window=window)
+    again = da.decode_attention_cuda(q, k, v, n, window=window)
+    want = ref.decode_attention_ref(q, k, v, n, window=window)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    assert da.LAUNCHES == {"decode_attention": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_launchers_reject_what_the_kernels_do_not_take(hopper):
+    q, k, v = (x.to(hopper) for x in _t(*_qkv(1, 4, 2, 16, 32)))
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.double(), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q.transpose(1, 2), k, v)  # not contiguous
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k.cpu(), v)           # mixed devices
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q[..., :24].contiguous(), k[..., :24]
+                                .contiguous(), v[..., :24].contiguous())
+    qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 10, 2, 16, 32)))
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(qd, kc, vc, 8)          # 5 heads per kv head
+    qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 4, 2, 16, 32)))
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(qd, kc, vc, 17)         # past the cache

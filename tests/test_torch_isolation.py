@@ -9,6 +9,7 @@ fallback.
   outside a checkout of the repository.
 """
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -22,7 +23,8 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.core import (Episode, RoundInputs, SimConfig,
                               generate_episode)
 from repro_torch.data import batch_iterator
-from repro_torch.launch import fl_e2e
+from repro_torch.kernels import build
+from repro_torch.launch import fl_e2e, serve
 from repro_torch.models import Transformer, init_model, params_from_jax
 from repro_torch.training import TrainConfig, make_state
 
@@ -62,10 +64,27 @@ def test_port_has_every_slice_module():
                 "privacy/ledger.py", "models/layers.py",
                 "models/transformer.py", "training/dp_sgd.py",
                 "training/optimizer.py", "training/train_loop.py",
-                "training/fedavg.py", "launch/fl_e2e.py"):
+                "training/fedavg.py", "launch/fl_e2e.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "models/kv_cache.py", "launch/serve.py"):
         assert mod in have, mod
-    for cu in ("budget_alloc.cu", "dp_clip_noise.cu"):
+    for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / cu).is_file()
+
+
+@pytest.mark.parametrize("lib", sorted(build.SIGNATURES))
+def test_ctypes_signatures_match_the_c_entry_points(lib):
+    """Every entry point ``build.SIGNATURES`` declares for a library is
+    defined in its source's ``extern "C"`` block with as many parameters
+    as ctypes will pass (a wrong count would shift every argument)."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    c_api = src[src.index('extern "C"'):]
+    for fn, (args, _) in build.SIGNATURES[lib].items():
+        m = re.search(rf"\b{fn}\s*\(([^)]*)\)\s*{{", c_api)
+        assert m, (lib, fn)
+        params = m.group(1).strip()
+        n = 0 if params in ("", "void") else params.count(",") + 1
+        assert n == len(args), (lib, fn, n, len(args))
 
 
 @pytest.fixture
@@ -103,6 +122,15 @@ def test_fl_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
             build()
     assert next(batch_iterator(2, 8, cfg.vocab, device="cpu"))[
         "tokens"].device.type == "cpu"
+
+
+def test_serve_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError):
+        serve.run(smoke=True, gen=2, log=None)
+    with pytest.raises(RuntimeError):
+        serve.main(["--smoke", "--gen", "2"])
+    rec = serve.run(smoke=True, gen=2, device="cpu", log=None)
+    assert rec["tokens"].shape == (4, 2)
 
 
 def _run_smoke(cwd: Path):
