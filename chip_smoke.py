@@ -58,7 +58,28 @@ Phases (each raises on failure; nothing is caught):
      synchronised host-clock spans, the card's busy share and kernel
      time by name from torch.profiler over a traced prefill and a traced
      decode of 8 steps, and a host-side profile of 8 decode steps (time
-     inside PyTorch ops against the Python between them).
+     inside PyTorch ops against the Python between them);
+ 14. the RG-LRU scan (rglru_scan) against its twin on the card, bitwise
+     and bitwise from launch to launch, at recurrentgemma-2b's width (D =
+     2560): the serve default's prefill (B=4, S=32), a long prefill with
+     h0 (B=4, S=2048), the decode step (B=4, S=1, h0) and a ragged B=3,
+     S=1000, D=2597; then both attention kernels at recurrentgemma-2b's
+     heads (10 query / 1 kv head, dh 256), at the serve defaults' shapes
+     (prefill B=4 S=32 window 2048; decode B=4 Lc=48 at cache_len 33 and
+     47) and the long serve's (prefill B=4 S=2048 window 2048; decode B=4
+     Lc=2048 at cache_len 2048 and 1000); times beside the twin's, the
+     bound and (attention) the SDPA yardstick;
+ 15. serving recurrentgemma-2b through repro_torch.launch.serve: card vs
+     CPU at full width with depth cut to one group (rec, rec, local),
+     logits within RTOL_SERVE and greedy tokens as in phase 12; the full
+     26 layers (3,038,753,280 parameters; make_model's host time printed)
+     at the defaults with exactly 8 flash, 8 x 15 decode and 18 + 18 x 15
+     scan launches; then B=4, prompt 2048, gen 64, so the local rings wrap
+     during the decode;
+ 16. where recurrentgemma-2b's serving time goes at B=4, prompt 2048: the
+     card's busy share, kernel time by name and the scan's share over a
+     traced prefill and 8 traced decode steps (torch.profiler), and a
+     host-side profile of 8 decode steps as in phase 13.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -112,7 +133,21 @@ FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None),
 DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-48", 4, 48, 48),
                 ("32k", 8, 32768, 32768), ("32k-20000", 8, 32768, 20000),
                 ("ragged", 4, 5000, 4999)]
-RTOL_SERVE = 1e-4              # phase 12: card vs CPU, of the largest |logit|
+RTOL_SERVE = 1e-4              # phases 12, 15: card vs CPU, of max |logit|
+RG_SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
+RG_REPLACES = "src/repro/kernels/rg_lru.py:43"
+RG_HEADS = (10, 1, 256)        # recurrentgemma-2b: query heads, kv heads, dh
+# (name, B, S, D, with h0): the serve default's prefill, the long run's
+# prefill, the decode step, a ragged shape
+RG_CASES = [("serve", 4, 32, 2560, False), ("2k", 4, 2048, 2560, True),
+            ("decode", 4, 1, 2560, True), ("ragged", 3, 1000, 2560 + 37, True)]
+# the serve defaults' shapes (prompt 32; a 48-slot ring at cache_len 33..47)
+# and the long serve's (prompt 2048; the 2048-slot ring full, and half full)
+RG_FLASH_CASES = [("rg-serve", 4, 32, True, 2048),
+                  ("rg-2k", 4, 2048, True, 2048)]
+RG_DECODE_CASES = [("rg-serve-33", 4, 48, 33), ("rg-serve-47", 4, 48, 47),
+                   ("rg-2048", 4, 2048, 2048), ("rg-1000", 4, 2048, 1000)]
+P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
 REPLACES = {
     "rowmax": "src/repro/kernels/budget_alloc.py:41",
     "matvec": "src/repro/kernels/budget_alloc.py:75",
@@ -496,6 +531,18 @@ def _host_ops(fn):
     return wall, sum(e.cpu_time_total for e in top) / 1e3, len(top), rows
 
 
+def _log_host_ops(decode, steps):
+    """Print the host profile (``_host_ops``) of ``decode()``, ``steps``
+    decode steps, per step."""
+    wall, in_ops, n_ops, rows = _host_ops(decode)
+    log(f"  host profile of {steps} decode steps: wall {wall / steps:.3f} "
+        f"ms/step, inside PyTorch ops {in_ops / steps:.3f} ms/step in "
+        f"{n_ops / steps:.1f} top-level ops per step, outside them "
+        f"{(wall - in_ops) / steps:.3f} ms/step; top ops by self time (ms "
+        f"per step): "
+        + ", ".join(f"{k[:40]} {ms / steps:.3f}" for k, ms in rows[:8]))
+
+
 @contextlib.contextmanager
 def _timed_spans(targets, spans):
     """Within the block, each ``(module, attribute, key)`` of ``targets``
@@ -802,20 +849,21 @@ def _repeat_kv(x, G):
     return x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
 
 
-def phase_attention(card):
-    log("[11] attention kernels against their twins on the card")
+def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
+    """Both attention kernels against their twins at ``heads`` (query
+    heads, kv heads, dh) on the given cases, with times; each case's
+    numbers go to ``rows[kernel]["by_shape"][label]``, and those of the
+    labels in ``top`` to ``rows[kernel]`` as well."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, KH, dh = HEADS
+    H, KH, dh = heads
     G = H // KH
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {"flash_attention": {"max_abs_err": 0.0},
-            "decode_attention": {"max_abs_err": 0.0}}
 
-    def record(kname, shape, err, run, twin, lib, nbytes, flops, reps,
-               report):
+    def record(kname, label, shape, err, run, twin, lib, nbytes, flops,
+               reps):
         ms = time_ms(run, reps)
         plain = time_ms(twin, max(1, reps // 10), 3)
         lib_ms = time_ms(lib, reps)
@@ -823,13 +871,15 @@ def phase_attention(card):
         log(f"  {kname:16s} {shape}: max_abs_err {err:.3e}  kernel "
             f"{ms:.4f} ms  twin {plain:.4f} ms  sdpa (kv repeated) "
             f"{lib_ms:.4f} ms  bound {b:.6f} ms ({by}, {card})")
-        r = rows[kname]
+        r = rows.setdefault(kname, {"max_abs_err": 0.0, "by_shape": {}})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if report:                        # the JSON line's shape
-            r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                     library_ms=lib_ms, shape=shape)
+        nums = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                    library_ms=lib_ms, shape=shape)
+        r["by_shape"][label] = nums
+        if label in top:                  # the JSON line's shape
+            r.update(nums)
 
-    for label, B, S, causal, window in FLASH_CASES:
+    for label, B, S, causal, window in flash_cases:
         q = torch.randn((B, S, H, dh), generator=gen, device="cuda")
         k = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
         v = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
@@ -837,7 +887,8 @@ def phase_attention(card):
         again = fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        shape = (f"B={B} S={S} causal={causal} window={window} ({label})")
+        shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S} causal={causal} "
+                 f"window={window} ({label})")
         err = _att_check("flash_attention " + shape, got, again, want)
         del want
         qt = q.transpose(1, 2).contiguous()
@@ -851,37 +902,44 @@ def phase_attention(card):
         lib = (lambda: sdpa(qt, kr, vr, attn_mask=mask)) if mask is not None \
             else (lambda: sdpa(qt, kr, vr, is_causal=causal))
         pairs = _pairs(S, causal, window)
-        record("flash_attention", shape, err,
+        record("flash_attention", label, shape, err,
                lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
                                                window=window),
                lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window),
                lib, 4 * (2 * B * S * H * dh + 2 * B * S * KH * dh),
-               4 * dh * pairs * B * H, 20, label == "2k")
+               4 * dh * pairs * B * H, 20)
         del q, k, v, qt, kr, vr
         torch.cuda.empty_cache()
 
-    for label, B, Lc, n in DECODE_CASES:
+    for label, B, Lc, n in decode_cases:
         q = torch.randn((B, H, dh), generator=gen, device="cuda")
         k = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
         v = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
         got = da.decode_attention_cuda(q, k, v, n)
         again = da.decode_attention_cuda(q, k, v, n)
         want = ref.decode_attention_ref(q, k, v, n)
-        shape = f"B={B} Lc={Lc} cache_len={n} ({label})"
+        shape = f"H/KH/dh={H}/{KH}/{dh} B={B} Lc={Lc} cache_len={n} ({label})"
         err = _att_check("decode_attention " + shape, got, again, want)
         q4 = q[:, :, None]
         kr, vr = _repeat_kv(k[:, :n], G), _repeat_kv(v[:, :n], G)
-        record("decode_attention", shape, err,
+        record("decode_attention", label, shape, err,
                lambda: da.decode_attention_cuda(q, k, v, n),
                lambda: ref.decode_attention_ref(q, k, v, n),
                lambda: sdpa(q4, kr, vr),
                4 * (2 * B * H * dh + 2 * B * n * KH * dh),
-               4 * B * H * dh * n, 20, label == "32k")
+               4 * B * H * dh * n, 20)
         del q, k, v, kr, vr
         torch.cuda.empty_cache()
     fa.reset_launches()
     da.reset_launches()
+
+
+def phase_attention(card):
+    log("[11] attention kernels against their twins on the card")
+    rows = {}
+    _attention_cases(card, HEADS, FLASH_CASES, DECODE_CASES, rows,
+                     top=("2k", "32k"))
     return rows
 
 
@@ -890,30 +948,29 @@ def _top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
-def phase_serve():
-    log("[12] serve flaas-100m through repro_torch.launch.serve, card vs "
-        "CPU")
+def _launch_counts():
+    """The serving kernels' launch counters, as ``serve.run`` reports
+    them."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve
-    gen = 16
-    torch.cuda.synchronize()
-    fa.reset_launches()
-    da.reset_launches()
-    card = serve.run(device="cuda", gen=gen, keep_logits=True, log=log)
-    launches = {**fa.LAUNCHES, **da.LAUNCHES}
-    cfg = card["cfg"]
-    n = cfg.n_layers
-    assert (cfg.name, n, cfg.d_model, cfg.vocab) == \
-        ("flaas-100m", 12, 768, 32000)
-    assert launches == {"flash_attention": n,
-                        "decode_attention": n * (gen - 1)}, launches
-    assert card["launches"] == launches
-    t0 = time.perf_counter()
-    host = serve.run(device="cpu", gen=gen, keep_logits=True, log=log)
-    host_s = time.perf_counter() - t0
-    forced = serve.run(device="cuda", gen=gen, feed=host["tokens"],
-                       keep_logits=True, log=None)
+    from repro_torch.kernels import rg_lru
+    return {**fa.LAUNCHES, **da.LAUNCHES, **rg_lru.LAUNCHES}
+
+
+def _reset_launches():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru
+    for mod in (fa, da, rg_lru):
+        mod.reset_launches()
+
+
+def _card_vs_cpu(card, host, forced, gen):
+    """Hold a card serve to the CPU's on the same model and prompts:
+    prefill logits (``card``) and teacher-forced decode logits
+    (``forced``) within RTOL_SERVE of the largest |logit|, greedy tokens
+    equal wherever the CPU's top-two gap exceeds that.  Returns ``(errs,
+    near-ties, bound)``."""
     assert torch.equal(card["prompts"], host["prompts"])
     errs = {}
     for part, run in (("prefill", card), ("decode", forced)):
@@ -943,6 +1000,52 @@ def phase_serve():
     for tie in ties:
         log(f"  near-tie ({tie[0]}): row {tie[1]} token {tie[2]}: card "
             f"{tie[3]}, CPU {tie[4]}, CPU top-two gap {tie[5]:.3e}")
+    return errs, ties, bound
+
+
+def _long_serve(B, prompt, gen2, expect, **which):
+    """A card-only serve of the model ``which`` names (``device=`` for a
+    fresh draw of the default architecture, or ``model=``); its launches
+    must equal ``expect``."""
+    from repro_torch.launch import serve
+    _reset_launches()
+    long = serve.run(batch=B, prompt_len=prompt, gen=gen2, log=log, **which)
+    assert long["launches"] == expect, long["launches"]
+    assert long["tokens"].shape == (B, gen2)
+    assert int(long["tokens"].min()) >= 0 and \
+        int(long["tokens"].max()) < long["cfg"].vocab
+    steps = long["step_ms"]
+    log(f"  B={B} prompt={prompt} gen={gen2}: prefill "
+        f"{long['prefill_ms']:.2f} ms, decode {statistics.median(steps):.3f} "
+        f"ms/step median ({min(steps):.3f}-{max(steps):.3f}), "
+        f"{long['tok_per_s']:.1f} tok/s, launches {long['launches']}, peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return long
+
+
+def phase_serve():
+    log("[12] serve flaas-100m through repro_torch.launch.serve, card vs "
+        "CPU")
+    from repro_torch.launch import serve
+    gen = 16
+    torch.cuda.synchronize()
+    _reset_launches()
+    card = serve.run(device="cuda", gen=gen, keep_logits=True, log=log)
+    launches = _launch_counts()
+    cfg = card["cfg"]
+    n = cfg.n_layers
+    assert (cfg.name, n, cfg.d_model, cfg.vocab) == \
+        ("flaas-100m", 12, 768, 32000)
+    assert launches == {"flash_attention": n,
+                        "decode_attention": n * (gen - 1),
+                        "rglru_scan": 0}, launches
+    assert card["launches"] == launches
+    t0 = time.perf_counter()
+    host = serve.run(device="cpu", gen=gen, keep_logits=True, log=log)
+    host_s = time.perf_counter() - t0
+    forced = serve.run(device="cuda", gen=gen, feed=host["tokens"],
+                       keep_logits=True, log=None)
+    errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
     log(f"  card vs CPU: prefill logits max err {errs['prefill']:.3e}, "
         f"teacher-forced decode logits max err {errs['decode']:.3e} (bound "
         f"{RTOL_SERVE} x max|logit| = {bound:.3e}); tokens equal except at "
@@ -953,22 +1056,9 @@ def phase_serve():
     log(f"  tokens (card, row 0): {card['tokens'][0].tolist()}")
 
     B, prompt, gen2 = 8, 2048, 64
-    fa.reset_launches()
-    da.reset_launches()
-    long = serve.run(device="cuda", batch=B, prompt_len=prompt, gen=gen2,
-                     log=log)
-    assert long["launches"] == {"flash_attention": n,
-                                "decode_attention": n * (gen2 - 1)}, \
-        long["launches"]
-    assert long["tokens"].shape == (B, gen2)
-    assert int(long["tokens"].min()) >= 0 and \
-        int(long["tokens"].max()) < cfg.vocab
-    steps = long["step_ms"]
-    log(f"  B={B} prompt={prompt} gen={gen2}: prefill "
-        f"{long['prefill_ms']:.2f} ms, decode {statistics.median(steps):.3f} "
-        f"ms/step median ({min(steps):.3f}-{max(steps):.3f}), "
-        f"{long['tok_per_s']:.1f} tok/s, launches {long['launches']}, peak "
-        f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _long_serve(B, prompt, gen2,
+                {"flash_attention": n, "decode_attention": n * (gen2 - 1),
+                 "rglru_scan": 0}, device="cuda")
     return launches
 
 
@@ -1025,14 +1115,7 @@ def phase_serve_trace():
         f"step): " + ", ".join(f"{k[:40]} {ms / steps:.3f}"
                                for k, ms in dec_rows[:6]))
 
-    host_wall, in_ops, n_ops, host_rows = _host_ops(
-        lambda: decode(tok, cache, prompt + 2 * steps))
-    log(f"  host profile of {steps} decode steps: wall "
-        f"{host_wall / steps:.3f} ms/step, inside PyTorch ops "
-        f"{in_ops / steps:.3f} ms/step in {n_ops / steps:.1f} top-level ops "
-        f"per step, outside them {(host_wall - in_ops) / steps:.3f} ms/step; "
-        f"top ops by self time (ms per step): "
-        + ", ".join(f"{k[:40]} {ms / steps:.3f}" for k, ms in host_rows[:8]))
+    _log_host_ops(lambda: decode(tok, cache, prompt + 2 * steps), steps)
 
     # synchronised host-clock spans of one more decode run (spans on)
     spans = {}
@@ -1043,6 +1126,168 @@ def phase_serve_trace():
         decode(tok, cache, prompt + 2 * steps)   # positions already written
     log("  spans per decode step (ms; blocks include the decode kernel): "
         + ", ".join(f"{k} {v * 1e3 / steps:.3f}" for k, v in spans.items()))
+
+
+def phase_rglru(card, att_rows):
+    log("[14] rglru_scan against its twin on the card; attention at "
+        "recurrentgemma-2b's heads")
+    from repro_torch.kernels import ref, rg_lru
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {"max_abs_err": 0.0, "by_shape": {}}
+    for label, B, S, D, with_h0 in RG_CASES:
+        a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.499 + 0.5
+        b = torch.randn((B, S, D), generator=gen, device="cuda")
+        h0 = torch.randn((B, D), generator=gen, device="cuda") \
+            if with_h0 else None
+        got = rg_lru.rglru_scan_cuda(a, b, h0)
+        again = rg_lru.rglru_scan_cuda(a, b, h0)
+        want = ref.rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        shape = f"B={B} S={S} D={D} h0={with_h0} ({label})"
+        if not torch.equal(got, again):
+            raise AssertionError(f"rglru_scan {shape}: not bitwise stable "
+                                 "from launch to launch")
+        err = check("rglru_scan " + shape, got, want, True)
+        del want
+        ms = time_ms(lambda: rg_lru.rglru_scan_cuda(a, b, h0), 20)
+        plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, 3)
+        nbytes = 4 * (3 * B * S * D + (B * D if with_h0 else 0))
+        bnd, by = bound_ms(nbytes, 2 * B * S * D)
+        log(f"  rglru_scan       {shape}: bitwise, stable  kernel "
+            f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
+            f"{card}); no single PyTorch call computes it")
+        nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=None, shape=shape)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["by_shape"][label] = nums
+        if label == "2k":                  # the JSON line's shape
+            row.update(nums)
+        del a, b, h0, got, again
+        torch.cuda.empty_cache()
+    rg_lru.reset_launches()
+    _attention_cases(card, RG_HEADS, RG_FLASH_CASES, RG_DECODE_CASES,
+                     att_rows)
+    return row
+
+
+def phase_serve_hybrid():
+    log("[15] serve recurrentgemma-2b through repro_torch.launch.serve")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    full_cfg = get_arch("recurrentgemma-2b")
+    gen = 16
+
+    # card vs CPU on one model: full width, depth cut to (rec, rec, local)
+    cut = dataclasses.replace(full_cfg, n_layers=3)
+    host_m = serve.make_model(cut, 0, torch.device("cpu"))
+    card_m = Transformer(cut, device="cuda")
+    with torch.no_grad():
+        card_m.flat.copy_(host_m.flat)
+    _reset_launches()
+    card = serve.run(model=card_m, gen=gen, keep_logits=True, log=log)
+    assert card["launches"] == {"flash_attention": 1,
+                                "decode_attention": gen - 1,
+                                "rglru_scan": 2 * gen}, card["launches"]
+    t0 = time.perf_counter()
+    host = serve.run(model=host_m, gen=gen, keep_logits=True, log=log)
+    host_s = time.perf_counter() - t0
+    forced = serve.run(model=card_m, gen=gen, feed=host["tokens"],
+                       keep_logits=True, log=None)
+    errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
+    log(f"  one group ({card_m.flat.numel()} parameters) card vs CPU: "
+        f"prefill logits max err {errs['prefill']:.3e}, teacher-forced "
+        f"decode logits max err {errs['decode']:.3e} (bound {RTOL_SERVE} x "
+        f"max|logit| = {bound:.3e}); tokens equal except at {len(ties)} "
+        f"printed near-ties; CPU run {host_s:.2f} s")
+    del host_m, card_m, card, host, forced
+    torch.cuda.empty_cache()
+
+    # the full 26 layers at the launcher's defaults
+    kinds = [k for k, _ in full_cfg.layer_specs()]
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = serve.make_model(full_cfg, 0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    assert (n_rec, n_local) == (18, 8) and model.flat.numel() == P_RG2B
+    log(f"  make_model(recurrentgemma-2b): {model.flat.numel()} float32 "
+        f"parameters drawn on the host and copied to the card in "
+        f"{make_s:.2f} s (host clock)")
+    _reset_launches()
+    run = serve.run(model=model, gen=gen, keep_logits=True, log=log)
+    launches = _launch_counts()
+    expect = {"flash_attention": n_local,
+              "decode_attention": n_local * (gen - 1),
+              "rglru_scan": n_rec * gen}
+    assert launches == expect == run["launches"], (launches, expect)
+    for part in ("prefill", "decode"):
+        assert bool(torch.isfinite(run["logits"][part]).all()), part
+    assert run["logits"]["prefill"].shape == (4, 32, full_cfg.vocab)
+    assert int(run["tokens"].min()) >= 0 and \
+        int(run["tokens"].max()) < full_cfg.vocab
+    log(f"  defaults (B=4, prompt 32, gen {gen}): launches {launches}; "
+        f"prefill {run['prefill_ms']:.2f} ms, decode "
+        f"{statistics.median(run['step_ms']):.2f} ms/step (median), "
+        f"{run['tok_per_s']:.1f} tok/s; tokens (row 0) "
+        f"{run['tokens'][0].tolist()}")
+    del run
+    B, prompt, gen2 = 4, 2048, 64
+    long = _long_serve(B, prompt, gen2,
+                       {"flash_attention": n_local,
+                        "decode_attention": n_local * (gen2 - 1),
+                        "rglru_scan": n_rec * gen2}, model=model)
+    return launches, long["launches"], model
+
+
+def phase_serve_hybrid_trace(model):
+    log("[16] where recurrentgemma-2b's serving time goes (B=4, prompt "
+        "2048)")
+    from repro_torch.models import forward_with_cache
+    from repro_torch.training import serve_step
+    cfg = model.cfg
+    B, prompt, steps = 4, 2048, 8
+    prompts = torch.randint(0, cfg.vocab, (B, prompt),
+                            generator=torch.Generator().manual_seed(0),
+                            dtype=torch.int32).cuda()
+    total = prompt + 3 * steps + 1
+
+    def prefill():
+        logits, cache = forward_with_cache(model, prompts, cfg, total)
+        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), cache
+
+    def decode(tok, cache, start):
+        for i in range(steps):
+            tok, _, cache = serve_step(model, tok, cache, start + i, cfg)
+        return tok
+
+    def kernel_ms(rows, *keys):
+        return sum(ms for k, ms in rows if any(key in k for key in keys))
+
+    prefill()                                   # warm-up
+    state = {}
+    busy, rows, wall = _device_kernels(
+        lambda: state.update(zip(("tok", "cache"), prefill())))
+    scan, flash = kernel_ms(rows, "rg_scan"), kernel_ms(rows, "flash_fwd")
+    log(f"  traced prefill: wall {wall:.2f} ms, card busy {busy:.2f} ms "
+        f"(share {busy / wall:.4f}); rglru_scan {scan:.3f} ms "
+        f"({scan / max(busy, 1e-9):.4f} of busy), flash {flash:.2f} ms "
+        f"({flash / max(busy, 1e-9):.4f}); top kernels (ms): "
+        + ", ".join(f"{k[:40]} {ms:.2f}" for k, ms in rows[:6]))
+    tok, cache = state["tok"], state["cache"]
+    tok = decode(tok, cache, prompt)            # warm-up, untimed
+    busy, rows, wall = _device_kernels(
+        lambda: decode(tok, cache, prompt + steps))
+    scan = kernel_ms(rows, "rg_scan")
+    att = kernel_ms(rows, "decode_split", "decode_combine")
+    log(f"  traced decode, {steps} steps: wall {wall / steps:.3f} ms/step, "
+        f"card busy {busy / steps:.3f} ms/step (share {busy / wall:.4f}); "
+        f"rglru_scan {scan / steps:.4f} ms/step ({scan / max(busy, 1e-9):.4f}"
+        f" of busy), decode attention {att / steps:.4f} ms/step "
+        f"({att / max(busy, 1e-9):.4f}); top kernels (ms per step): "
+        + ", ".join(f"{k[:40]} {ms / steps:.3f}" for k, ms in rows[:6]))
+    _log_host_ops(lambda: decode(tok, cache, prompt + 2 * steps), steps)
 
 
 def main() -> int:
@@ -1059,6 +1304,10 @@ def main() -> int:
     att_rows = phase_attention(smi)
     att_launches = phase_serve()
     phase_serve_trace()
+    rg_row = phase_rglru(smi, att_rows)
+    rg_launches, rg_long_launches, rg_model = phase_serve_hybrid()
+    phase_serve_hybrid_trace(rg_model)
+    del rg_model
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     **rows[k]) for k in REPLACES]
@@ -1067,7 +1316,14 @@ def main() -> int:
                      **dp_rows[k]) for k in DP_REPLACES]
     kernels += [dict(name=k, route="cuda", source=ATT_SOURCE,
                      replaces=ATT_REPLACES[k], launches=att_launches[k],
+                     launches_recurrentgemma=rg_launches[k],
                      **att_rows[k]) for k in ATT_REPLACES]
+    kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
+                        replaces=RG_REPLACES,
+                        launches=rg_launches["rglru_scan"],
+                        launches_long_serve=rg_long_launches["rglru_scan"],
+                        **rg_row))
+    assert len(kernels) == 11, [k["name"] for k in kernels]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

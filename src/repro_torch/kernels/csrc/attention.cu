@@ -48,10 +48,18 @@
 //     and reads the cache once.  B*KH blocks would fill few of 132 SMs, so
 //     the valid range is cut into splits of `split` positions, one block
 //     each (launch 1), and a second launch combines each head's partial
-//     (m, l, acc) in split order.  Inside a block, dh/4 lanes read one
-//     cache row with 16-byte loads; 256/(dh/4) lane groups take positions
-//     round-robin, four at a time, with their own online softmax, and are
-//     merged in group order through shared memory.
+//     (m, l, acc) in split order.  Inside a block, dh/4 lanes (dh <= 128)
+//     or a full warp with 8 floats a lane (dh 256) read one cache row with
+//     16-byte loads; the lane groups take positions round-robin, four (two
+//     at dh 256) at a time, with their own online softmax, and are merged
+//     in group order through dynamic shared memory.
+//
+// Instantiations: flash at dh 16, 32, 64, 128, 256 (any H/KH); decode at
+// dh 16-128 with G = H/KH in {1, 2, 3, 4, 6, 8}, and at dh 256 with G = 10
+// (recurrentgemma-2b's 10 query heads over 1 kv head).  At dh 256 the
+// flash tiles take 214,016 bytes of shared memory (one block per SM), and
+// the decode block keeps q in shared memory (10 heads x 256 floats would
+// take 80 registers a thread) beside its 82,560-byte merge buffer.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -234,7 +242,32 @@ int launch_flash(const float* q, const float* k, const float* v, float* o,
 }
 
 // ------------------------------------------------------------ decode
-constexpr int kUnroll = 4;  // positions per lane group per step
+// Lane mapping of a cache row: VEC floats per lane (16-byte loads), LG
+// lanes per row, U positions per lane group per step.  Up to dh 128 a
+// lane takes 4 floats; at dh 256 a full warp takes a row, 8 floats a lane,
+// and two positions a step (fewer registers for the G = 10 accumulators).
+template <int DH>
+struct DecodeMap {
+  static constexpr int VEC = DH > 128 ? 8 : 4;
+  static constexpr int LG = DH / VEC;
+  static constexpr int NGR = kThreads / LG;  // lane groups per block
+  static constexpr int U = VEC == 8 ? 2 : 4;
+};
+
+// q lives in shared memory when the G heads' slices would take more than
+// 32 registers a thread (dh 256, G 10); otherwise in registers.
+template <int DH, int G>
+__host__ __device__ constexpr bool decode_q_shared() {
+  return G * DecodeMap<DH>::VEC > 32;
+}
+
+// Dynamic shared memory of one decode block: q (when shared), then each
+// lane group's (acc[G][DH], m[G], l[G]) for the in-order merge.
+template <int DH, int G>
+constexpr int decode_smem_bytes() {
+  return ((decode_q_shared<DH, G>() ? G * DH : 0) +
+          DecodeMap<DH>::NGR * G * (DH + 2)) * (int)sizeof(float);
+}
 
 // Sum over the LG lanes of one lane group (LG a power of two <= 32).
 template <int LG>
@@ -245,6 +278,19 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&dst)[VEC],
+                                         const float* src) {
+#pragma unroll
+  for (int e = 0; e < VEC; e += 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(src + e));
+    dst[e] = t.x;
+    dst[e + 1] = t.y;
+    dst[e + 2] = t.z;
+    dst[e + 3] = t.w;
+  }
+}
+
 // Launch 1: block (split, kv head, batch row) -> each of its G query
 // heads' (m, l, acc[dh]) over positions [lo + split*sp, ... + split) n [lo, hi).
 template <int DH, int G>
@@ -253,61 +299,83 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc,
                     int L, int KH, int lo, int hi, int split, float scale) {
-  constexpr int LG = DH / 4;          // lanes per cache row (float4 each)
-  constexpr int NGR = kThreads / LG;  // lane groups per block
-  static_assert(DH % 4 == 0 && LG <= 32 && (32 % LG) == 0, "unsupported dh");
-  __shared__ float sm_m[NGR][G], sm_l[NGR][G];
-  __shared__ float sm_acc[NGR][G][DH];
+  using Map = DecodeMap<DH>;
+  constexpr int VEC = Map::VEC, LG = Map::LG, NGR = Map::NGR, U = Map::U;
+  constexpr bool kQShared = decode_q_shared<DH, G>();
+  static_assert(DH % VEC == 0 && LG <= 32 && (32 % LG) == 0, "unsupported dh");
+  extern __shared__ float smem[];
+  float* sm_q = smem;                                       // [G][DH]
+  float* sm_acc = sm_q + (kQShared ? G * DH : 0);           // [NGR][G][DH]
+  float* sm_m = sm_acc + NGR * G * DH;                      // [NGR][G]
+  float* sm_l = sm_m + NGR * G;                             // [NGR][G]
 
   const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x, H = KH * G;
   const int li = threadIdx.x % LG, gi = threadIdx.x / LG;
   const int start = lo + sp * split;
   const int end = min(hi, start + split);
+  const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * DH;  // G rows
 
-  float4 qv[G];
+  float qreg[kQShared ? 1 : G][VEC];
+  if constexpr (kQShared) {
+    for (int i = threadIdx.x; i < G * DH; i += kThreads) sm_q[i] = qb[i];
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    qv[g] = reinterpret_cast<const float4*>(
-        q + ((size_t)b * H + (size_t)kvh * G + g) * DH)[li];
+    for (int g = 0; g < G; ++g) load_vec<VEC>(qreg[g], qb + g * DH + li * VEC);
+  }
 
-  float m[G], l[G];
-  float4 acc[G];
+  float m[G], l[G], acc[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.0f;
-    acc[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.0f;
   }
 
   const size_t row = (size_t)KH * DH;  // between positions of the cache
-  const float* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * 4;
-  const float* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * 4;
+  const float* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
+  const float* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
   // the trip count is the block's, so every lane reaches the shuffles
-  for (int it = start; it < end; it += NGR * kUnroll) {
+  for (int it = start; it < end; it += NGR * U) {
     const int base = it + gi;
-    float4 kk[kUnroll], vv[kUnroll];
+    float kk[U][VEC], vv[U][VEC];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int p = base + NGR * u;
       if (p < end) {
-        kk[u] = __ldg(reinterpret_cast<const float4*>(kb + (size_t)p * row));
-        vv[u] = __ldg(reinterpret_cast<const float4*>(vb + (size_t)p * row));
+        load_vec<VEC>(kk[u], kb + (size_t)p * row);
+        load_vec<VEC>(vv[u], vb + (size_t)p * row);
       } else {
-        kk[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        vv[u] = kk[u];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kk[u][e] = vv[u][e] = 0.0f;
       }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[kUnroll];
+      float qv[VEC];
+      if constexpr (kQShared) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 t =
+              *reinterpret_cast<const float4*>(sm_q + g * DH + li * VEC + e);
+          qv[e] = t.x;
+          qv[e + 1] = t.y;
+          qv[e + 2] = t.z;
+          qv[e + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qv[e] = qreg[g][e];
+      }
+      float s[U];
       float mx = kNegInf;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float d = qv[g].x * kk[u].x;
-        d = __fmaf_rn(qv[g].y, kk[u].y, d);
-        d = __fmaf_rn(qv[g].z, kk[u].z, d);
-        d = __fmaf_rn(qv[g].w, kk[u].w, d);
+      for (int u = 0; u < U; ++u) {
+        float d = qv[0] * kk[u][0];
+#pragma unroll
+        for (int e = 1; e < VEC; ++e) d = __fmaf_rn(qv[e], kk[u][e], d);
         d = group_sum<LG>(d);
         s[u] = base + NGR * u < end ? d * scale : kNegInf;
         mx = fmaxf(mx, s[u]);
@@ -315,20 +383,16 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float m_new = fmaxf(m[g], mx);
       const float corr = expf(m[g] - m_new);
       l[g] *= corr;
-      acc[g].x *= corr;
-      acc[g].y *= corr;
-      acc[g].z *= corr;
-      acc[g].w *= corr;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
         // a position past `end` adds exactly nothing (what exp(-1e30 - m)
         // gives once m is a real score)
         const float p = base + NGR * u < end ? expf(s[u] - m_new) : 0.0f;
         l[g] += p;
-        acc[g].x = __fmaf_rn(p, vv[u].x, acc[g].x);
-        acc[g].y = __fmaf_rn(p, vv[u].y, acc[g].y);
-        acc[g].z = __fmaf_rn(p, vv[u].z, acc[g].z);
-        acc[g].w = __fmaf_rn(p, vv[u].w, acc[g].w);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = __fmaf_rn(p, vv[u][e], acc[g][e]);
       }
       m[g] = m_new;
     }
@@ -339,24 +403,23 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (li == 0) {
-      sm_m[gi][g] = m[g];
-      sm_l[gi][g] = l[g];
+      sm_m[gi * G + g] = m[g];
+      sm_l[gi * G + g] = l[g];
     }
-    sm_acc[gi][g][li * 4 + 0] = acc[g].x;
-    sm_acc[gi][g][li * 4 + 1] = acc[g].y;
-    sm_acc[gi][g][li * 4 + 2] = acc[g].z;
-    sm_acc[gi][g][li * 4 + 3] = acc[g].w;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      sm_acc[(gi * G + g) * DH + li * VEC + e] = acc[g][e];
   }
   __syncthreads();
   for (int t = threadIdx.x; t < G * DH; t += kThreads) {
     const int g = t / DH, d = t % DH;
     float mm = kNegInf;
-    for (int r = 0; r < NGR; ++r) mm = fmaxf(mm, sm_m[r][g]);
+    for (int r = 0; r < NGR; ++r) mm = fmaxf(mm, sm_m[r * G + g]);
     float ll = 0.0f, aa = 0.0f;
     for (int r = 0; r < NGR; ++r) {
-      const float w = expf(sm_m[r][g] - mm);
-      ll = __fmaf_rn(sm_l[r][g], w, ll);
-      aa = __fmaf_rn(sm_acc[r][g][d], w, aa);
+      const float w = expf(sm_m[r * G + g] - mm);
+      ll = __fmaf_rn(sm_l[r * G + g], w, ll);
+      aa = __fmaf_rn(sm_acc[(r * G + g) * DH + d], w, aa);
     }
     const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
     part_acc[(bh * nsplit + sp) * DH + d] = aa;
@@ -396,8 +459,15 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
                   float* part_m, float* part_l, float* part_acc, int B,
                   int KH, int L, int lo, int hi, int split, int nsplit,
                   float scale, cudaStream_t stream) {
+  constexpr int smem = decode_smem_bytes<DH, G>();
+  if (smem > 48 * 1024) {  // above 48 KB it must be asked for (per device)
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_split_kernel<DH, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((unsigned)nsplit, (unsigned)KH, (unsigned)B);
-  decode_split_kernel<DH, G><<<grid, kThreads, 0, stream>>>(
+  decode_split_kernel<DH, G><<<grid, kThreads, smem, stream>>>(
       q, k, v, part_m, part_l, part_acc, L, KH, lo, hi, split, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -439,6 +509,7 @@ int att_flash(const float* q, const float* k, const float* v, float* o, int B,
     case 32: return launch_flash<32>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 64: return launch_flash<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 128: return launch_flash<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 256: return launch_flash<256>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -461,6 +532,9 @@ int att_decode(const float* q, const float* k, const float* v, float* o,
     case 32: return launch_decode_g<32>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
     case 64: return launch_decode_g<64>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
     case 128: return launch_decode_g<128>(G, q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
+    case 256:  // recurrentgemma-2b: 10 query heads over 1 kv head only
+      if (G != 10) return (int)cudaErrorInvalidValue;
+      return launch_decode<256, 10>(q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,8 +23,9 @@ from . import ref
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"decode_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 3, 4, 6, 8)          # query heads per kv head
+# The kernel's instantiations: head dim -> query heads per kv head.
+GROUPS = {dh: (1, 2, 3, 4, 6, 8) for dh in (16, 32, 64, 128)}
+GROUPS[256] = (10,)                  # recurrentgemma-2b: 10 heads over 1
 SMS = 132                            # H100 SXM streaming multiprocessors
 MIN_SPLIT = 256                      # positions per block, at least
 
@@ -71,11 +72,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     B, H, dh = q.shape
     L, KH = k.shape[1], k.shape[2]
-    if H % KH or H // KH not in GROUPS:
+    if dh not in GROUPS:
+        raise ValueError(f"head dim {dh} not in {sorted(GROUPS)}")
+    if H % KH or H // KH not in GROUPS[dh]:
         raise ValueError(f"{H} heads over {KH} kv heads: H/KH not in "
-                         f"{GROUPS}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+                         f"{GROUPS[dh]} at head dim {dh}")
     _check(q, "q", torch.float32, (B, H, dh))
     _check(k, "k", torch.float32, (B, L, KH, dh))
     _check(v, "v", torch.float32, (B, L, KH, dh))

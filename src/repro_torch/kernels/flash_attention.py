@@ -25,7 +25,7 @@ from . import ref
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
 
 
 def reset_launches() -> None:

@@ -28,6 +28,11 @@ Attention (``csrc/attention.cu``): ``flash_attention_ref`` and
 -1e30, a float32 softmax, GQA by head grouping.  The kernels' online
 softmax sums in another order and holds to rtol = atol = 2e-5, the bound
 ``repro`` holds its Pallas attention kernels to.
+
+RG-LRU (``csrc/rg_lru.cu``): ``rglru_scan_ref`` runs the recurrence in
+time order, each step one correctly rounded FMA
+(:func:`repro_torch.fp.fma_exact`), bitwise what ``repro``'s ``lax.scan``
+oracle, its Pallas kernel and the CUDA kernel's ``__fmaf_rn`` give.
 """
 from __future__ import annotations
 
@@ -188,3 +193,19 @@ def decode_attention_ref(q, k, v, cache_len: int, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(B, H, dh).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t, t = 0..S-1 in order, each step one
+    correctly rounded FMA.  a, b [B, S, D] float32; h0 [B, D] (zeros when
+    None) -> every h_t, [B, S, D] float32."""
+    a, b = a.float(), b.float()
+    B, S, D = a.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    out = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = fma_exact(a[:, t], h, b[:, t])
+        out[:, t] = h
+    return out

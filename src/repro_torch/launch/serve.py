@@ -3,6 +3,7 @@ KV cache, on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve             # H100
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
 
 The counterpart of ``repro``'s ``launch/serve.py`` with the same flags,
 plus ``--device`` (default ``cuda``; raises without it) and ``--seed``.
@@ -12,7 +13,8 @@ are drawn on the CPU from a generator seeded with ``--seed`` and copied to
 the device, and so are the prompts: runs on the card and on the CPU serve
 the same model the same prompts.  The first new token is the prefill's
 argmax (as in ``repro``), then ``gen - 1`` :func:`serve_step` calls; the
-cache holds ``prompt_len + gen`` positions.
+cache holds ``prompt_len + gen`` positions (a ``rec`` block's state is
+O(1), a ``local`` block's ring ``min(window, prompt_len + gen)``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .. import resolve_device
 from ..configs import get_arch, reduced
 from ..kernels import decode_attention as da
 from ..kernels import flash_attention as fa
+from ..kernels import rg_lru
 from ..models import Transformer, forward_with_cache, init_model
 from ..training import serve_step
 
@@ -36,7 +39,7 @@ def _sync(dev: torch.device) -> None:
 
 
 def _launches() -> Dict[str, int]:
-    return {**fa.LAUNCHES, **da.LAUNCHES}
+    return {**fa.LAUNCHES, **da.LAUNCHES, **rg_lru.LAUNCHES}
 
 
 def make_model(cfg, seed: int, dev: torch.device) -> Transformer:
@@ -54,23 +57,34 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
         device="cuda", seed: int = 0, feed: Optional[torch.Tensor] = None,
         keep_logits: bool = False,
-        log: Optional[Callable[[str], None]] = print) -> Dict:
+        log: Optional[Callable[[str], None]] = print,
+        model: Optional[Transformer] = None) -> Dict:
     """Serve ``batch`` seeded prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each.  ``feed`` [batch, gen] (optional) feeds those
     tokens to the decode steps instead of the generated ones (teacher
-    forcing; the generated tokens are still recorded).  Returns ``{"cfg",
-    "prompts", "tokens" [batch, gen], "prefill_ms", "step_ms" (per decode
-    step), "tok_per_s", "launches"}`` -- the attention kernels' launches
-    during the run -- and, with ``keep_logits``,
+    forcing; the generated tokens are still recorded).  ``model``
+    (optional) is served instead of ``make_model(arch, seed)``, on its own
+    device and configuration, so one drawn model can serve several runs;
+    ``seed`` then draws only the prompts, and ``arch``, ``smoke`` and
+    ``device`` must keep their defaults (a second choice raises).
+    Returns ``{"cfg", "prompts", "tokens" [batch, gen], "prefill_ms",
+    "step_ms" (per decode step), "tok_per_s", "launches"}`` -- the
+    kernels' launches during the run -- and, with ``keep_logits``,
     ``"logits": {"prefill" [B, S, V], "decode" [B, gen - 1, V]}`` on the
     CPU."""
-    dev = resolve_device(device)
     if gen < 1:
         raise ValueError("gen must be at least 1")
-    cfg = get_arch(arch)
-    if smoke:
-        cfg = reduced(cfg)
-    params = make_model(cfg, seed, dev)
+    if model is None:
+        dev = resolve_device(device)
+        cfg = get_arch(arch)
+        if smoke:
+            cfg = reduced(cfg)
+        params = make_model(cfg, seed, dev)
+    elif arch != "flaas-100m" or smoke or str(device) != "cuda":
+        raise ValueError("model= serves its own configuration on its own "
+                         "device; do not pass arch, smoke or device with it")
+    else:
+        params, cfg, dev = model, model.cfg, model.flat.device
     cpu_gen = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=cpu_gen, dtype=torch.int32)

@@ -1,26 +1,33 @@
-"""KV cache and the decode path: prefill that builds the cache, one-token
-decode steps against it.
+"""KV cache and recurrent state, and the decode path: prefill that builds
+the cache, one-token decode steps against it.
 
-Cache layout (``repro``'s, per block): ``{"k", "v"}: [B, Lc, KH, dh]``.
-``attn`` blocks hold ``Lc = cache_len`` entries; ``swa``/``local`` blocks a
-ring buffer of ``Lc = min(window, cache_len)`` where absolute position
-``p`` lives in slot ``p % Lc``.  RoPE is applied at absolute positions
-before insertion, so ring entries need no window mask: everything resident
-is in the window by construction.  The cache is a list with one entry per
-block in layer order (the port's blocks are a ``ModuleList``, not
-``repro``'s scanned stack), on the model's device.
+Cache layout (``repro``'s, per block):
+
+  attn          {"k", "v"}: [B, Lc, KH, dh]            Lc = cache_len
+  swa/local     {"k", "v"}: [B, min(window, Lc), ...]  ring buffer
+  rec           {"conv": [B, W-1, D], "h": [B, D]}     float32
+
+In a ring, absolute position ``p`` lives in slot ``p % Lc``.  RoPE is
+applied at absolute positions before insertion, so ring entries need no
+window mask: everything resident is in the window by construction.  A
+``rec`` block's entry is its RG-LRU state: the last ``W - 1 = 3`` inputs
+of the causal convolution and the scan's last output.  The cache is a
+list with one entry per block in layer order (the port's blocks are a
+``ModuleList``, not ``repro``'s scanned stack), on the model's device.
 
 The prefill's attention is the flash dispatch
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), the decode
-step's :func:`repro_torch.models.layers.decode_attention`; each runs its
-Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  Both run
-under ``torch.no_grad`` (the kernels have no backward).
+step's :func:`repro_torch.models.layers.decode_attention`, and a ``rec``
+block's scan :func:`repro_torch.kernels.rg_lru.rglru_scan` (S steps from
+zero in the prefill, one step from the cached ``h`` in the decode); each
+runs its Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  All
+run under ``torch.no_grad`` (the kernels have no backward).
 
 Where ``repro`` returns a new cache from each decode step, the port
-writes the step's key and value into the cache in place (saving a copy
-of the cache per token) and returns the same list.  Block kinds other
-than ``attn``/``swa``/``local`` (``rec``, ``mlstm``, ``slstm``, ``xattn``,
-``encdec``) raise ``NotImplementedError``.
+writes the step's key and value, or the new ``conv`` and ``h``, into the
+cache in place (saving a copy of the cache per token) and returns the
+same list.  Block kinds ``mlstm``, ``slstm``, ``xattn`` and ``encdec``,
+and MoE blocks, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
 from . import layers as L
+from . import recurrent as R
 from .transformer import Transformer, _check_ported, apply_block, logits_head
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -52,12 +60,17 @@ def _cache_len_for(kind: str, cfg: ArchConfig, cache_len: int) -> int:
 
 def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
                cache_len: int, dtype=torch.float32) -> Cache:
-    """Zeroed cache, one ``{"k", "v"}`` per block, on the model's
+    """Zeroed cache, one entry per block (``{"k", "v"}`` in ``dtype``, or
+    a ``rec`` block's float32 ``{"conv", "h"}``), on the model's
     device."""
     _check(params, cfg)
     dev = params.flat.device
     out = []
     for kind, _ in cfg.layer_specs():
+        if kind == "rec":
+            conv, h = R.rglru_init_state(batch, cfg.d_model, dev)
+            out.append({"conv": conv, "h": h})
+            continue
         shape = (batch, _cache_len_for(kind, cfg, cache_len), cfg.kv_heads,
                  cfg.dh)
         out.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -94,11 +107,16 @@ def forward_with_cache(params: Transformer, tokens, cfg: ArchConfig,
     pos = torch.arange(S, device=h.device)
     cache = []
     for blk in params.blocks:
-        h, k, v = apply_block(h, blk, blk.kind, cfg, positions=pos,
-                              attend=_prefill_attend)
+        h, state = apply_block(h, blk, blk.kind, cfg, positions=pos,
+                               attend=_prefill_attend)
+        if blk.kind == "rec":       # copies: the views pin [B, S, D] buffers
+            cache.append({n: x.clone(memory_format=torch.contiguous_format)
+                          for n, x in zip(("conv", "h"), state)})
+            continue
         Lc = _cache_len_for(blk.kind, cfg, cache_len)
         ring = blk.kind in _RING
-        cache.append({"k": _fit(k, Lc, ring), "v": _fit(v, Lc, ring)})
+        cache.append({"k": _fit(state[0], Lc, ring),
+                      "v": _fit(state[1], Lc, ring)})
     return logits_head(params, h), cache
 
 
@@ -126,7 +144,14 @@ def decode_step(params: Transformer, token, cache: Cache, pos: int,
     h = L.embed(token, params.embed)
     posv = torch.full((1,), pos, device=h.device)
     for blk, entry in zip(params.blocks, cache):
-        h, _, _ = apply_block(h, blk, blk.kind, cfg, positions=posv,
-                              attend=_decode_attend(entry, pos,
-                                                    blk.kind in _RING))
+        if blk.kind == "rec":
+            h, (conv, hs) = apply_block(
+                h, blk, blk.kind, cfg, positions=posv, attend=None,
+                state=(entry["conv"], entry["h"]))
+            entry["conv"].copy_(conv)
+            entry["h"].copy_(hs)
+            continue
+        h, _ = apply_block(h, blk, blk.kind, cfg, positions=posv,
+                           attend=_decode_attend(entry, pos,
+                                                 blk.kind in _RING))
     return logits_head(params, h), cache

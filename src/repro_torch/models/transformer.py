@@ -1,5 +1,6 @@
 """Transformer backbone on PyTorch: the ``attn``/``swa``/``local`` blocks
-with a dense MLP (the families ``flaas-100m`` needs).
+and the RG-LRU ``rec`` block, each with a dense MLP (the families
+``flaas-100m`` and ``recurrentgemma-2b`` need).
 
 ``repro`` keeps parameters as a pytree and stacks the repeating body for
 ``lax.scan``; the port keeps them in an ``nn.Module`` -- a ``ModuleList``
@@ -23,7 +24,10 @@ Entry points:
 
 A block has one code path, :func:`apply_block`, for the training forward,
 the prefill and the decode step (:mod:`repro_torch.models.kv_cache`); only
-the attention call it is given differs between them.
+the attention call and the recurrent state it is given differ between
+them.  A ``rec`` block trains on the CPU (the scan's twin has a backward)
+and raises ``NotImplementedError`` on the card under autograd: the Hopper
+scan has no backward kernel yet.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ from torch import nn
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import recurrent as R
 
-_PORTED_KINDS = ("attn", "swa", "local")
+_PORTED_KINDS = ("attn", "swa", "local", "rec")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -62,23 +67,35 @@ def _norm_shapes(d: int, kind: str) -> Dict[str, tuple]:
         {"scale": (d,), "bias": (d,)}
 
 
+def _rg_shapes(D: int) -> Dict[str, tuple]:
+    """The RG-LRU's leaves in ``repro``'s order (``init_rglru_block``)."""
+    return {"w_x": (D, D), "w_gate_br": (D, D),
+            "conv_w": (R.CONV_WIDTH, D), "conv_b": (D,), "w_a": (D, D),
+            "b_a": (D,), "w_i": (D, D), "b_i": (D,), "lambda": (D,),
+            "w_out": (D, D)}
+
+
 class Block(nn.Module):
-    """One attention block: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One block: ``norm1``, the mixer (``attn`` for ``attn``/``swa``/
+    ``local``, ``rg`` for ``rec``), ``norm2``, ``mlp``."""
 
     def __init__(self, kind: str, cfg: ArchConfig, device):
         super().__init__()
         self.kind = kind
         D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dh
-        attn = {"wq": (D, H * dh), "wk": (D, KH * dh), "wv": (D, KH * dh),
-                "wo": (H * dh, D)}
-        if cfg.qkv_bias:
-            attn.update(bq=(H * dh,), bk=(KH * dh,), bv=(KH * dh,))
         width = cfg.dense_ff or cfg.d_ff
         mlp = {"w_up": (D, width), "w_down": (width, D)}
         if cfg.act in ("silu", "swiglu"):
             mlp["w_gate"] = (D, width)
         self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
-        self.attn = _pdict(attn, device)
+        if kind == "rec":
+            self.rg = _pdict(_rg_shapes(D), device)
+        else:
+            attn = {"wq": (D, H * dh), "wk": (D, KH * dh),
+                    "wv": (D, KH * dh), "wo": (H * dh, D)}
+            if cfg.qkv_bias:
+                attn.update(bq=(H * dh,), bk=(KH * dh,), bv=(KH * dh,))
+            self.attn = _pdict(attn, device)
         self.norm2 = _pdict(_norm_shapes(D, cfg.norm), device)
         self.mlp = _pdict(mlp, device)
 
@@ -99,27 +116,37 @@ def _ffn_apply(h, p: Block, cfg: ArchConfig):
 
 
 def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
-                attend: Attend):
-    """One ``attn``/``swa``/``local`` block: pre-norm attention on the
-    roped projections, then the pre-norm MLP, each added to the residual.
-    ``attend(q, k, v, window)`` is the attention; ``window`` is the
-    config's for ``swa``/``local`` and None for ``attn``.  Returns
-    ``(h, k, v)`` with the roped keys and values [B, S, KH, dh]."""
-    window = cfg.window if kind in ("swa", "local") else None
+                attend: Optional[Attend],
+                state: Optional[R.State] = None):
+    """One block: the pre-norm mixer, then the pre-norm MLP, each added to
+    the residual.  For ``attn``/``swa``/``local`` the mixer is attention on
+    the roped projections, ``attend(q, k, v, window)`` (``window`` the
+    config's for ``swa``/``local``, None for ``attn``), and the block's
+    new state is ``(k, v)``, the roped keys and values [B, S, KH, dh].
+    For ``rec`` it is the RG-LRU from ``state`` (the decode state, None at
+    a sequence's start), and the new state ``(conv, h)``.  Returns ``(h,
+    new state)``."""
     x = L.apply_norm(h, p.norm1, cfg.norm)
-    q, k, v = L.qkv_project(x, p.attn, cfg.n_heads, cfg.kv_heads, cfg.dh)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = attend(q, k, v, window)
-    B, S = h.shape[:2]
-    h = h + out.reshape(B, S, -1) @ p.attn["wo"]
-    return h + _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg), k, v
+    if kind == "rec":
+        out, new = R.rglru_block(x, p.rg, state)
+    else:
+        window = cfg.window if kind in ("swa", "local") else None
+        q, k, v = L.qkv_project(x, p.attn, cfg.n_heads, cfg.kv_heads,
+                                cfg.dh)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        B, S = h.shape[:2]
+        out = attend(q, k, v, window).reshape(B, S, -1) @ p.attn["wo"]
+        new = (k, v)
+    h = h + out
+    return h + _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg), new
 
 
 def apply_block_train(h, p: Block, kind: str, cfg: ArchConfig, *,
                       positions, causal: bool = True):
     """The training block: :func:`apply_block` with
-    :func:`repro_torch.models.layers.chunked_attention` (autograd)."""
+    :func:`repro_torch.models.layers.chunked_attention` (autograd), a
+    ``rec`` block from a zero state."""
     return apply_block(
         h, p, kind, cfg, positions=positions,
         attend=lambda q, k, v, window: L.chunked_attention(
@@ -193,20 +220,28 @@ def unflatten(model: Transformer, vec: torch.Tensor
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``, with ``repro``'s scheme: dense weights
-    ``N(0, 1/fan_in)``, embeddings ``N(0, 0.02^2)``, norm scales one,
-    biases zero.  (``repro`` draws from ``jax.random``; the values
-    differ, the distribution does not.)"""
+    ``N(0, 1/fan_in)``, embeddings and the RG-LRU's ``conv_w`` ``N(0,
+    0.02^2)``, norm scales one, biases zero, and the RG-LRU's ``lambda``
+    griffin's: ``log(u^(1/8) / (1 - u^(1/8)))`` for ``u ~ U(0.9, 0.999)``,
+    so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999).  (``repro`` draws
+    from ``jax.random``; the values differ, the distribution does
+    not.)"""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.flat.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             p.fill_(1.0)
-        elif leaf in ("bias", "bq", "bk", "bv"):
+        elif leaf in ("bias", "bq", "bk", "bv", "conv_b", "b_a", "b_i"):
             p.zero_()
+        elif leaf == "lambda":
+            u = torch.rand(p.shape, generator=gen, device=p.device)
+            u = (u * (0.999 - 0.9) + 0.9) ** (1.0 / R._C_RGLRU)
+            p.copy_(torch.log(u / (1.0 - u)))
         else:
             p.normal_(generator=gen)
-            p.mul_(0.02 if leaf == "table" else 1.0 / math.sqrt(p.shape[0]))
+            p.mul_(0.02 if leaf in ("table", "conv_w")
+                   else 1.0 / math.sqrt(p.shape[0]))
     return model
 
 

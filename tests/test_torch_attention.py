@@ -20,11 +20,13 @@ from repro_torch.kernels import ref
 from repro_torch.models import layers
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-# (B, H, KH, S, dh): the sets of repro's tests/test_kernels.py
+# (B, H, KH, S, dh): the sets of repro's tests/test_kernels.py, and
+# recurrentgemma-2b's heads (10 query heads over 1 kv head, dh 256)
 FLASH_SHAPES = [(1, 2, 1, 64, 32), (2, 4, 2, 128, 64), (1, 8, 8, 64, 16),
-                (2, 6, 2, 96, 32)]
+                (2, 6, 2, 96, 32), (1, 10, 1, 64, 256)]
 MASKS = [(True, None), (False, None), (True, 32)]
-DECODE_SHAPES = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (2, 8, 8, 64, 16)]
+DECODE_SHAPES = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (2, 8, 8, 64, 16),
+                 (1, 10, 1, 128, 256)]
 
 
 @pytest.fixture(scope="module")
@@ -201,15 +203,22 @@ def test_decode_valid_range():
 # ------------------------------------------------------------ on the card
 # (B, H, KH, S, dh, causal, window): the serve default (ragged against a
 # 64-row tile), GQA at flaas-100m's heads, a ragged sliding window, a
-# non-causal prompt, a small head dim
+# non-causal prompt, a small head dim; recurrentgemma-2b's heads (10/1,
+# dh 256) at its prefill (S 2048, window 2048) and a ragged S
 CARD_FLASH = [(4, 12, 4, 32, 64, True, None), (2, 12, 4, 1000, 64, True, 256),
               (1, 12, 4, 512, 64, False, None), (2, 4, 2, 130, 32, True, 17),
-              (1, 8, 8, 65, 16, False, 9), (1, 2, 1, 70, 128, True, None)]
-# (B, H, KH, L, dh, cache_len, window)
+              (1, 8, 8, 65, 16, False, 9), (1, 2, 1, 70, 128, True, None),
+              (4, 10, 1, 2048, 256, True, 2048),
+              (2, 10, 1, 1037, 256, True, 300)]
+# (B, H, KH, L, dh, cache_len, window); at dh 256 the local ring (2048
+# slots, full and partly filled) and a ragged cache
 CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
                (8, 12, 4, 4100, 64, 4100, None), (2, 12, 4, 3000, 64, 2999, 100),
                (1, 8, 1, 700, 16, 513, None), (2, 16, 2, 300, 128, 300, None),
-               (3, 6, 3, 257, 32, 1, None)]
+               (3, 6, 3, 257, 32, 1, None),
+               (4, 10, 1, 2048, 256, 2048, None),
+               (4, 10, 1, 2048, 256, 1000, None),
+               (3, 10, 1, 1037, 256, 1037, None)]
 
 
 @pytest.mark.cuda
@@ -253,6 +262,9 @@ def test_cuda_launchers_reject_what_the_kernels_do_not_take(hopper):
     qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 10, 2, 16, 32)))
     with pytest.raises(ValueError):
         da.decode_attention_cuda(qd, kc, vc, 8)          # 5 heads per kv head
+    qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 8, 1, 16, 256)))
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(qd, kc, vc, 8)          # dh 256: G 10 only
     qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 4, 2, 16, 32)))
     with pytest.raises(ValueError):
         da.decode_attention_cuda(qd, kc, vc, 17)         # past the cache

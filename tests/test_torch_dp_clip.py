@@ -155,8 +155,8 @@ def test_launchers_refuse_cpu_tensors():
 
 def test_build_map_names_every_source_and_symbol():
     sources = {p.stem for p in build.CSRC.glob("*.cu")}
-    assert sources == set(build.SIGNATURES) == {"budget_alloc",
-                                                "dp_clip_noise", "attention"}
+    assert sources == set(build.SIGNATURES) == {
+        "budget_alloc", "dp_clip_noise", "attention", "rg_lru"}
     for name, sigs in build.SIGNATURES.items():
         src = (build.CSRC / f"{name}.cu").read_text()
         c_api = src[src.index('extern "C"'):]

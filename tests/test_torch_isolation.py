@@ -66,9 +66,12 @@ def test_port_has_every_slice_module():
                 "training/optimizer.py", "training/train_loop.py",
                 "training/fedavg.py", "launch/fl_e2e.py",
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
-                "models/kv_cache.py", "launch/serve.py"):
+                "models/kv_cache.py", "launch/serve.py",
+                "configs/recurrentgemma_2b.py", "kernels/rg_lru.py",
+                "models/recurrent.py"):
         assert mod in have, mod
-    for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu"):
+    for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu",
+               "rg_lru.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / cu).is_file()
 
 

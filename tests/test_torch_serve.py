@@ -222,7 +222,8 @@ def test_serve_launcher_on_the_cpu(capsys, monkeypatch):
     rec = serve.main(["--device", "cpu", "--smoke", "--gen", str(gen)])
     n = rec["cfg"].n_layers
     assert calls == {"flash_attention": n, "decode_attention": n * (gen - 1)}
-    assert rec["launches"] == {"flash_attention": 0, "decode_attention": 0}
+    assert rec["launches"] == {"flash_attention": 0, "decode_attention": 0,
+                               "rglru_scan": 0}
     assert rec["tokens"].shape == (4, gen)
     assert len(rec["step_ms"]) == gen - 1
     out = capsys.readouterr().out
@@ -255,11 +256,12 @@ def test_serve_draws_the_same_model_and_prompts_on_every_device():
     assert meta.flat.device.type == "meta"
 
 
-@pytest.mark.parametrize("kind", ["rec", "mlstm", "slstm", "xattn",
+@pytest.mark.parametrize("kind", ["moe", "mlstm", "slstm", "xattn",
                                   "encdec"])
 def test_unported_kinds_raise(kind):
-    cfg = dataclasses.replace(CONFIGS["flaas-smoke"],
-                              pattern=((kind, False),))
+    """Every block kind but attn/swa/local/rec, and MoE blocks, raise."""
+    pattern = (("attn", True),) if kind == "moe" else ((kind, False),)
+    cfg = dataclasses.replace(CONFIGS["flaas-smoke"], pattern=pattern)
     for call in (lambda: init_cache(None, cfg, 1, 8),
                  lambda: forward_with_cache(None, torch.zeros(1, 4), cfg, 8),
                  lambda: decode_step(None, torch.zeros(1, 1), [], 4, cfg)):
