@@ -7,10 +7,14 @@ Phases (each raises on failure; nothing is caught):
   1. the device: name, compute capability (must be 9.0), power limit;
   2. build the Hopper kernels from src/repro_torch/kernels/csrc;
   3. every kernel against its plain PyTorch twin on the card, at the
-     paper's shapes, the large round's shapes and one ragged shape
+     paper's shapes, the large round's shapes, one ragged shape and, for
+     rowmax, matvec and matvec_t, the production shape M=1024, K=131072
      (bitwise for rowmax, the boost sweeps and dual_step's g given x;
-     1e-5 relative otherwise), with CUDA-event times beside the twin's,
-     a one-call PyTorch yardstick where one exists, and the bound;
+     1e-5 relative otherwise; matvec also bitwise from launch to launch),
+     with CUDA-event times beside the twin's, a one-call PyTorch
+     yardstick where one exists, and the bound; rowmax's and matvec's
+     cluster size and block count per launch; the launch floor (an empty
+     kernel launched back to back) beside the card's name and power limit;
   4. the paper episode (SimConfig(seed=0): 6 analysts x 25 pipelines,
      100 devices, K=2000, 10 rounds) through run_episode on the card, cold
      and warm SP1, every kernel's launch count above 0, and agreement with
@@ -160,6 +164,11 @@ REPLACES = {
 SHAPES = [("paper", 6, 25, 2000, 156),
           ("large", 32, 32, 16384, 256),
           ("ragged", 5, 7, 53257, 11)]   # K*4 > 200 KB: leftover in HBM
+# (name, M, K): the regime repro/kernels/budget_alloc.py was written for
+# ("M ~ 10^3 analysts, K ~ 10^5 live blocks"), 512 MB of float32, beyond
+# the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
+# take 40+ GB)
+PROD = ("prod", 1024, 131072)
 
 
 def log(*a):
@@ -272,6 +281,50 @@ def make_inputs(M, N, K, C, seed=0):
         left_c=t(rng.uniform(0.0, 0.5, (M, C, K))))
 
 
+def make_dense_inputs(M, K, seed=0):
+    """The dense kernels' inputs at the production shape, drawn on the
+    card from a seed (the host would take seconds): shares as in
+    make_inputs, an all-zero row, duals and a grant vector."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    gamma = u(0.0, 0.05, M, K) * (u(0.0, 1.0, M, K) > 0.9)
+    gamma[-1] = 0.0
+    return dict(gamma=gamma, lam=u(0.5, 2.0, K), x=u(0.0, 2.0, M))
+
+
+def dense_cases(d, M, K):
+    """rowmax, matvec and matvec_t: (launch, twin, yardstick, compare,
+    bytes, flops) each."""
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.kernels import ref
+
+    def cmp_matvec(got, want):
+        again = ba.matvec(d["gamma"], d["lam"])
+        if not torch.equal(got, again):
+            raise AssertionError("matvec: not bitwise from launch to launch")
+        return check("matvec", got, want, False)
+
+    return {
+        "rowmax": (lambda: ba.rowmax(d["gamma"]),
+                   lambda: ref.rowmax_ref(d["gamma"]),
+                   lambda: torch.amax(d["gamma"], dim=-1),
+                   lambda g, w: check("rowmax", g, w, True),
+                   4 * (M * K + M), M * K),
+        "matvec": (lambda: ba.matvec(d["gamma"], d["lam"]),
+                   lambda: ref.matvec_ref(d["gamma"], d["lam"]),
+                   lambda: torch.mv(d["gamma"], d["lam"]),
+                   cmp_matvec, 4 * (M * K + K + M), 2 * M * K),
+        "matvec_t": (lambda: ba.matvec_t(d["gamma"], d["x"]),
+                     lambda: ref.matvec_t_ref(d["gamma"], d["x"]),
+                     lambda: torch.mv(d["gamma"].T, d["x"]),
+                     lambda g, w: check("matvec_t", g, w, False),
+                     4 * (M * K + M + K), 2 * M * K),
+    }
+
+
 def kernel_cases(d, M, N, K, C):
     """Per kernel: (launch, twin, yardstick or None, compare, bytes, flops)."""
     from repro_torch.kernels import budget_alloc as ba
@@ -294,21 +347,7 @@ def kernel_cases(d, M, N, K, C):
                    check("boost_scan leftover", got[1], want[1], True))
 
     return {
-        "rowmax": (lambda: ba.rowmax(d["gamma"]),
-                   lambda: ref.rowmax_ref(d["gamma"]),
-                   lambda: torch.amax(d["gamma"], dim=-1),
-                   lambda g, w: check("rowmax", g, w, True),
-                   4 * (M * K + M), M * K),
-        "matvec": (lambda: ba.matvec(d["gamma"], d["lam"]),
-                   lambda: ref.matvec_ref(d["gamma"], d["lam"]),
-                   lambda: torch.mv(d["gamma"], d["lam"]),
-                   lambda g, w: check("matvec", g, w, False),
-                   4 * (M * K + K + M), 2 * M * K),
-        "matvec_t": (lambda: ba.matvec_t(d["gamma"], d["x"]),
-                     lambda: ref.matvec_t_ref(d["gamma"], d["x"]),
-                     lambda: torch.mv(d["gamma"].T, d["x"]),
-                     lambda g, w: check("matvec_t", g, w, False),
-                     4 * (M * K + M + K), 2 * M * K),
+        **dense_cases(d, M, K),
         "dual_step": (lambda: ba.dual_step(*dual_args, 2.2),
                       lambda: ref.dual_step_ref(*dual_args, 2.2),
                       None, cmp_dual,
@@ -332,30 +371,48 @@ def kernel_cases(d, M, N, K, C):
 def phase_kernels(card):
     log("[3] kernels against their twins on the card")
     from repro_torch.kernels import budget_alloc as ba
+    floor = time_ms(lambda: torch.cuda._sleep(1), 100)
+    log(f"  launch floor (torch.cuda._sleep(1) back to back) {floor:.4f} ms "
+        f"({card})")
     rows = {}
-    for shape, M, N, K, C in SHAPES:
-        d = make_inputs(M, N, K, C)
-        for name, (run, twin, lib, cmp, nbytes, flops) in \
-                kernel_cases(d, M, N, K, C).items():
+
+    def measure(shape, dims, cases, slow=(), plain_reps=5):
+        for name, (run, twin, lib, cmp, nbytes, flops) in cases.items():
             got = run()
             torch.cuda.synchronize()
             err = cmp(got, twin())
-            slow = name in ("boost_scan", "swap_eval") and shape != "paper"
-            ms = time_ms(run, 3 if slow else 20)
-            plain = time_ms(twin, 1 if slow else 5)
+            grid = ba.LAST_GRID.get(name) if name in ("rowmax", "matvec") \
+                else None
+            geo = "" if grid is None else \
+                f"cs={grid[0]} blocks={grid[0] * grid[1]}  "
+            ms = time_ms(run, 3 if name in slow else 20)
+            plain = time_ms(twin, 1 if name in slow else plain_reps)
             lib_ms = time_ms(lib, 20) if lib is not None else None
             b, by = bound_ms(nbytes, flops)
-            log(f"  {name:10s} {shape:6s} M={M} N={N} K={K} C={C}: "
-                f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  twin "
-                f"{plain:.4f} ms  yardstick "
+            log(f"  {name:10s} {shape:6s} {dims}: {geo}max_abs_err {err:.3e}"
+                f"  kernel {ms:.4f} ms  twin {plain:.4f} ms  yardstick "
                 f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
                 f"{b:.6f} ms ({by}, {card})")
-            r = rows.setdefault(name, {"max_abs_err": 0.0})
+            r = rows.setdefault(name, {"max_abs_err": 0.0, "by_shape": {}})
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if shape == "large":     # the JSON line reports the large round
-                r.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=lib_ms,
-                         shape=f"M={M} N={N} K={K} C={C}")
+            nums = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        library_ms=lib_ms, shape=dims)
+            if grid is not None:
+                nums.update(cs=grid[0], blocks=grid[0] * grid[1])
+            r["by_shape"][shape] = nums
+            if shape == "large":     # the JSON line's top level: large round
+                r.update(nums)
+
+    for shape, M, N, K, C in SHAPES:
+        d = make_inputs(M, N, K, C)
+        measure(shape, f"M={M} N={N} K={K} C={C}", kernel_cases(d, M, N, K, C),
+                slow=() if shape == "paper" else ("boost_scan", "swap_eval"))
+        del d
+    shape, M, K = PROD
+    d = make_dense_inputs(M, K)
+    measure(shape, f"M={M} K={K}", dense_cases(d, M, K), plain_reps=1)
+    del d
+    torch.cuda.empty_cache()
     ba.reset_launches()
     return rows
 

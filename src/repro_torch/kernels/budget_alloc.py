@@ -20,8 +20,16 @@ from .build import library
 # Kernel launches per launcher since the last reset_launches().
 LAUNCHES = {"rowmax": 0, "matvec": 0, "matvec_t": 0, "dual_step": 0,
             "boost_scan": 0, "swap_eval": 0}
-# Grid of the last launch of swap_eval: {"swap_eval": (analysts, candidates)}.
+# Geometry of the last launch: "rowmax" and "matvec" (cs, M), blocks per
+# row's cluster and rows; "swap_eval" (analysts, candidates).
 LAST_GRID: dict[str, tuple[int, int]] = {}
+
+# row_split's constants: the portable cluster size limit, the fewest
+# floats a block of a split row reads (8 KB), and the grid it aims for
+# (two blocks on each of the H100's 132 SMs).
+ROW_SPLIT_MAX = 8
+ROW_SPLIT_MIN_CHUNK = 2048
+ROW_SPLIT_BLOCKS = 264
 
 
 def _lib():
@@ -66,21 +74,45 @@ def _raise_on(err: int, fn: str) -> None:
 _F32, _I32 = torch.float32, torch.int32
 
 
+def row_split(M: int, K: int) -> int:
+    """Blocks per row (the cluster size cs) for :func:`rowmax` and
+    :func:`matvec` on an [M, K] matrix.
+
+    cs starts at 1 and doubles while all three hold: cs < ROW_SPLIT_MAX
+    (8, the portable cluster size), cs * M < ROW_SPLIT_BLOCKS (264, two
+    blocks per SM: a grid that large fills the card without a split), and
+    K >= 2 * cs * ROW_SPLIT_MIN_CHUNK (each of the 2 * cs chunks would
+    still hold 2048 floats, 8 KB).  So cs = 1 wherever K < 4096 or
+    M >= 264.  The kernel cuts a row on its own 16-byte grid, so a
+    chunk may hold up to 4 floats fewer than K / cs."""
+    cs = 1
+    while (cs < ROW_SPLIT_MAX and cs * M < ROW_SPLIT_BLOCKS
+           and K >= 2 * cs * ROW_SPLIT_MIN_CHUNK):
+        cs *= 2
+    return cs
+
+
 def rowmax(gamma: torch.Tensor) -> torch.Tensor:
     """mu_i = max_k gamma_ik.  [M, K] -> [M].
 
     Replaces ``repro/kernels/budget_alloc.py:rowmax``.  Bound on the card:
-    bytes (reads M*K*4 once; one compare per element).  Design: one
-    256-thread block per row with a strided, coalesced loop over K, then a
-    warp-shuffle and shared-memory max; order-free, so bitwise equal to
+    bytes (reads M*K*4 once; one compare per element).  Design: each row
+    is split over a thread-block cluster of ``cs = row_split(M, K)``
+    blocks of 256 threads, one launch of cs * M blocks; a block reads its
+    contiguous chunk with 16-byte loads, four in flight a thread, reduces
+    it by warp shuffle and shared memory, and stores its maximum into the
+    cluster's block 0 (distributed shared memory), which combines the cs
+    of them after one cluster barrier.  Order-free, so bitwise equal to
     the twin."""
     _on_cuda(gamma)
     M, K = gamma.shape
     _check(gamma, "gamma", _F32, (M, K))
     out = torch.empty(M, dtype=_F32, device=gamma.device)
-    _raise_on(_lib().ba_rowmax(gamma.data_ptr(), out.data_ptr(), M, K,
+    cs = row_split(M, K)
+    _raise_on(_lib().ba_rowmax(gamma.data_ptr(), out.data_ptr(), M, K, cs,
                                _stream(gamma)), "ba_rowmax")
     LAUNCHES["rowmax"] += 1
+    LAST_GRID["rowmax"] = (cs, M)
     return out
 
 
@@ -88,17 +120,23 @@ def matvec(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M].
 
     Replaces ``repro/kernels/budget_alloc.py:matvec``.  Bound: bytes (c
-    read once, 2 flops per 4 bytes).  Design: one block per row, FMA per
-    thread over a strided K loop, tree sum; agrees with the twin to
-    float32 rounding (1e-5 relative)."""
+    read once, 2 flops per 4 bytes; v is shared by the rows and stays in
+    L2).  Design: :func:`rowmax`'s clusters of ``cs = row_split(M, K)``
+    blocks per row; an FMA chain per thread over its 16-byte loads (eight
+    in flight a thread), warp and block tree sums, and the cs partials
+    added in rank order by the cluster's block 0.  Within 1e-5 relative
+    of the twin, and bitwise from launch to launch (cs depends on M and K
+    alone)."""
     _on_cuda(c, v)
     M, K = c.shape
     _check(c, "c", _F32, (M, K))
     _check(v, "v", _F32, (K,))
     y = torch.empty(M, dtype=_F32, device=c.device)
+    cs = row_split(M, K)
     _raise_on(_lib().ba_matvec(c.data_ptr(), v.data_ptr(), y.data_ptr(),
-                               M, K, _stream(c)), "ba_matvec")
+                               M, K, cs, _stream(c)), "ba_matvec")
     LAUNCHES["matvec"] += 1
+    LAST_GRID["matvec"] = (cs, M)
     return y
 
 

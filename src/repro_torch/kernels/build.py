@@ -33,8 +33,8 @@ _L, _Z = ctypes.c_longlong, ctypes.c_size_t
 # return type.  Launchers return a cudaError_t as int.
 SIGNATURES = {
     "budget_alloc": {
-        "ba_rowmax": ((_P, _P, _I, _I, _P), _I),
-        "ba_matvec": ((_P, _P, _P, _I, _I, _P), _I),
+        "ba_rowmax": ((_P, _P, _I, _I, _I, _P), _I),
+        "ba_matvec": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "ba_matvec_t": ((_P, _P, _P, _I, _I, _P), _I),
         "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _P), _I),
         "ba_boost_sweep": ((_P,) * 5 + (_I, _I, _I, _I, _F, _P), _I),

@@ -12,14 +12,36 @@
 // XLA contracts it, and divisions are IEEE (never build with
 // --use_fast_math).  rowmax, matvec_t, dual_step's g (given x) and the boost
 // sweep are bitwise equal to their twins; matvec and dual_step's x use a
-// tree sum over K and agree to float32 rounding.
+// tree sum over K and agree with their twins within 1e-5 relative, and are
+// bitwise from launch to launch (every sum runs in a fixed order).
+//
+// rowmax and matvec (repro's rowmax and matvec, pallas_call at
+// budget_alloc.py:47 and :81) read M*K*4 bytes once and do one or two
+// operations per 4 bytes: bound by bytes.  One block per row left them
+// bound by latency instead (M blocks on 132 SMs, one 4-byte load in flight
+// a thread), so each row is split over a thread-block cluster of cs blocks
+// (cs from repro_torch/kernels/budget_alloc.py:row_split): every block
+// reads a contiguous chunk of the row with 16-byte loads, 4 (rowmax) or 8
+// (matvec) of them in flight a thread, reduces it to one float, and stores
+// it into block rank 0's shared memory (distributed shared memory); rank 0
+// combines the cs partials in rank order.  One launch, no workspace, one
+// exposed cluster barrier, a fixed combine order.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;                 // 8 warps per block
+// 16-byte loads in flight a thread, each kernel's depth picked on an H100
+// from 2, 4 and 8.
+constexpr int kUnrollMax = 4;                 // rowmax
+constexpr int kUnrollDot = 8;                 // matvec
+constexpr int kMaxCluster = 8;                // portable cluster size
 constexpr float kNegInit = -1e30f;            // rowmax accumulator start
 constexpr float kDualEps = 1e-12f;
 constexpr float kBoostEps = 1e-9f;
@@ -66,31 +88,164 @@ __device__ float block_reduce(float v, float* sh) {
   return r;
 }
 
-// ---------------------------------------------------------------- rowmax
-// mu_i = max_k g_ik: one block per row, strided loop over K, warp-shuffle
-// then shared-memory max.  Max is order-free, so bitwise equal to amax.
+// ------------------------------------------------- rowmax and matvec
+// The cs blocks of a row's cluster split it on the row's own 16-byte grid:
+// h scalars up to the first 16-byte boundary (block 0), nvec float4s cut
+// into cs balanced runs of whole vectors, and the scalar tail (block cs -
+// 1).  Every element is read exactly once.
+struct RowChunk {
+  int h, nvec, v0, v1;        // head length, float4s in the row, own run
+};
+
+__device__ __forceinline__ RowChunk row_chunk(const float* row, int K,
+                                              int rank, int cs) {
+  RowChunk c;
+  c.h = (int)((16 - (reinterpret_cast<size_t>(row) & 15)) & 15) >> 2;
+  if (c.h > K) c.h = K;
+  c.nvec = (K - c.h) >> 2;
+  c.v0 = (int)((long long)rank * c.nvec / cs);
+  c.v1 = (int)((long long)(rank + 1) * c.nvec / cs);
+  return c;
+}
+
+// A split row's cluster meets twice at a hardware cluster barrier.  Every
+// block arrives (relaxed) as it starts, and waits on that phase only
+// before its first remote store, so the wait costs nothing by then; the
+// second phase publishes the stores to block rank 0.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Every thread passes its block's reduced value v (the same in all
+// threads).  With cs > 1 (the block arrived at the cluster barrier when
+// it started), each block stores v into parts[rank] of block rank 0's
+// shared memory (distributed shared memory), the cluster syncs, and rank
+// 0 combines parts[0..cs-1] in rank order and writes *dst.  Only rank 0's
+// shared memory is read remotely, and rank 0 outlives every store to it.
+template <typename Op>
+__device__ void cluster_combine(float v, float* parts, float* dst) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned cs = cluster.num_blocks();
+  if (cs == 1) {
+    if (threadIdx.x == 0) *dst = v;
+    return;
+  }
+  const unsigned rank = cluster.block_rank();
+  cluster_wait();                          // every block of the cluster runs
+  if (threadIdx.x == 0) cluster.map_shared_rank(parts, 0)[rank] = v;
+  cluster.sync();                          // release the stores to rank 0
+  if (rank == 0 && threadIdx.x == 0) {
+    float r = parts[0];
+    for (unsigned q = 1; q < cs; ++q) r = Op::op(r, parts[q]);
+    *dst = r;
+  }
+}
+
+// mu_i = max_k g_ik.  Grid: cs * M blocks in clusters of cs, row i on
+// blocks i*cs .. i*cs + cs - 1.  fmaxf from kNegInit (the TPU kernel's
+// NEG_INF), warp shuffle, block reduce, cluster combine: max is
+// order-free, so bitwise equal to amax.
 __global__ void rowmax_kernel(const float* __restrict__ g,
                               float* __restrict__ out, int K) {
   __shared__ float sh[32];
-  const float* row = g + (size_t)blockIdx.x * K;
+  __shared__ float parts[kMaxCluster];
+  const int cs = (int)cg::this_cluster().num_blocks();
+  if (cs > 1) cluster_arrive_relaxed();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const size_t i = blockIdx.x / cs;
+  const float* row = g + i * K;
+  const RowChunk c = row_chunk(row, K, rank, cs);
+  const float4* rv = reinterpret_cast<const float4*>(row + c.h);
+  const int t = threadIdx.x;
   float m = kNegInit;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, row[k]);
+  for (int j = c.v0 + t; j < c.v1; j += kUnrollMax * kThreads) {
+    float4 a[kUnrollMax];
+#pragma unroll
+    for (int u = 0; u < kUnrollMax; ++u)
+      a[u] = j + u * kThreads < c.v1
+                 ? __ldg(rv + j + u * kThreads)
+                 : make_float4(kNegInit, kNegInit, kNegInit, kNegInit);
+#pragma unroll
+    for (int u = 0; u < kUnrollMax; ++u)
+      m = fmaxf(fmaxf(m, a[u].x),
+                fmaxf(fmaxf(a[u].y, a[u].z), a[u].w));
+  }
+  if (rank == 0 && t < c.h) m = fmaxf(m, row[t]);
+  const int k_tail = c.h + 4 * c.nvec + t;
+  if (rank == cs - 1 && k_tail < K) m = fmaxf(m, row[k_tail]);
   m = block_reduce<MaxOp>(m, sh);
-  if (threadIdx.x == 0) out[blockIdx.x] = m;
+  cluster_combine<MaxOp>(m, parts, out + i);
 }
 
-// ---------------------------------------------------------------- matvec
-// y_i = sum_k c_ik v_k: one block per row, fp32 FMA per thread, tree sum.
+// acc += sum over float4s j in [v0, v1) of c4[j] . v at the same elements,
+// one __fmaf_rn per element, in order.  v4 is v at the row's first aligned
+// element; kVecV says whether it is 16-byte aligned too (it is for every
+// row when K % 4 == 0), else v is read as scalars.  v is shared by all
+// rows and comes from L2.
+template <bool kVecV>
+__device__ __forceinline__ float dot_run(const float4* __restrict__ c4,
+                                         const float* __restrict__ v4,
+                                         int v0, int v1, float acc) {
+  for (int j = v0 + (int)threadIdx.x; j < v1; j += kUnrollDot * kThreads) {
+    float4 a[kUnrollDot], b[kUnrollDot];
+#pragma unroll
+    for (int u = 0; u < kUnrollDot; ++u) {
+      const int jj = j + u * kThreads;
+      a[u] = b[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (jj < v1) {
+        a[u] = __ldg(c4 + jj);
+        if constexpr (kVecV)
+          b[u] = __ldg(reinterpret_cast<const float4*>(v4) + jj);
+        else
+          b[u] = make_float4(__ldg(v4 + 4 * jj), __ldg(v4 + 4 * jj + 1),
+                             __ldg(v4 + 4 * jj + 2), __ldg(v4 + 4 * jj + 3));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnrollDot; ++u) {
+      if (j + u * kThreads < v1) {
+        acc = __fmaf_rn(a[u].x, b[u].x, acc);
+        acc = __fmaf_rn(a[u].y, b[u].y, acc);
+        acc = __fmaf_rn(a[u].z, b[u].z, acc);
+        acc = __fmaf_rn(a[u].w, b[u].w, acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// y_i = sum_k c_ik v_k.  Grid as rowmax_kernel's.  Per thread an FMA
+// chain over its elements (head, its float4s, tail), then warp and block
+// tree sums, then the cs partials added in rank order: within 1e-5
+// relative of the twin, bitwise from launch to launch (cs depends only on
+// M and K).
 __global__ void matvec_kernel(const float* __restrict__ c,
                               const float* __restrict__ v,
                               float* __restrict__ y, int K) {
   __shared__ float sh[32];
-  const float* row = c + (size_t)blockIdx.x * K;
+  __shared__ float parts[kMaxCluster];
+  const int cs = (int)cg::this_cluster().num_blocks();
+  if (cs > 1) cluster_arrive_relaxed();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const size_t i = blockIdx.x / cs;
+  const float* row = c + i * K;
+  const RowChunk ch = row_chunk(row, K, rank, cs);
+  const float4* c4 = reinterpret_cast<const float4*>(row + ch.h);
+  const float* v4 = v + ch.h;
+  const int t = threadIdx.x;
   float acc = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    acc = __fmaf_rn(row[k], v[k], acc);
+  if (rank == 0 && t < ch.h) acc = __fmaf_rn(row[t], v[t], acc);
+  acc = (reinterpret_cast<size_t>(v4) & 15) == 0
+            ? dot_run<true>(c4, v4, ch.v0, ch.v1, acc)
+            : dot_run<false>(c4, v4, ch.v0, ch.v1, acc);
+  const int k_tail = ch.h + 4 * ch.nvec + t;
+  if (rank == cs - 1 && k_tail < K)
+    acc = __fmaf_rn(row[k_tail], v[k_tail], acc);
   acc = block_reduce<SumOp>(acc, sh);
-  if (threadIdx.x == 0) y[blockIdx.x] = acc;
+  cluster_combine<SumOp>(acc, parts, y + i);
 }
 
 // load_k = sum_i c_ik x_i: one thread per column k, rows 0..M-1 in order,
@@ -195,19 +350,51 @@ __global__ void boost_sweep_kernel(const float* __restrict__ g_ord,
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// Launch `kernel(args...)` on a 1-D grid of cs * M blocks in clusters of
+// cs (cudaLaunchAttributeClusterDimension), so the cs blocks of row i are
+// one cluster; M is not held to gridDim.y's 65,535.
+template <typename... Params, typename... Args>
+int launch_row_clusters(void (*kernel)(Params...), int M, int cs,
+                        cudaStream_t stream, Args... args) {
+  if (cs != 1 && cs != 2 && cs != 4 && cs != kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0) return (int)cudaGetLastError();
+  if ((long long)M * cs > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(M * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();                  // clear it for the next launch
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int ba_rowmax(const float* g, float* out, int M, int K, cudaStream_t stream) {
-  if (M > 0) rowmax_kernel<<<M, kThreads, 0, stream>>>(g, out, K);
-  return (int)cudaGetLastError();
+// cs, the blocks per row's cluster, is 1, 2, 4 or 8 (the portable cluster
+// sizes); the caller picks it (row_split).  A launch the card refuses
+// returns its error code; there is no other geometry to fall back to.
+int ba_rowmax(const float* g, float* out, int M, int K, int cs,
+              cudaStream_t stream) {
+  return launch_row_clusters(rowmax_kernel, M, cs, stream, g, out, K);
 }
 
-int ba_matvec(const float* c, const float* v, float* y, int M, int K,
+int ba_matvec(const float* c, const float* v, float* y, int M, int K, int cs,
               cudaStream_t stream) {
-  if (M > 0) matvec_kernel<<<M, kThreads, 0, stream>>>(c, v, y, K);
-  return (int)cudaGetLastError();
+  return launch_row_clusters(matvec_kernel, M, cs, stream, c, v, y, K);
 }
 
 int ba_matvec_t(const float* c, const float* x, float* load, int M, int K,

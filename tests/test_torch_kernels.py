@@ -18,8 +18,22 @@ from repro_torch.core import hotpath
 from repro_torch.kernels import budget_alloc as ba
 from repro_torch.kernels import ref
 
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:                              # pragma: no cover
+    given = settings = st = None
+
 # (M, K): paper-like, ragged, single row / column, wide
 SHAPES_MK = [(6, 2000), (7, 1531), (1, 1), (5, 1), (3, 24), (13, 257)]
+# (M, K) -> cs for rowmax / matvec: paper, FL e2e, large round, ragged,
+# production, and one past the grid target
+ROW_SPLITS = [((6, 2000), 1), ((2, 96), 1), ((32, 16384), 8),
+              ((5, 53257), 8), ((1024, 131072), 1), ((300, 4099), 1)]
+# (M, K) for the cluster kernels on the card: every cs (1, 2, 4, 8) and
+# every K % 4
+CLUSTER_SHAPES = [(1, 16384), (2, 16384), (32, 16384), (5, 53257),
+                  (300, 4099), (1, 3), (3, 4097), (7, 8194), (7, 8195)]
 # (N, K, C)
 SHAPES_NKC = [(25, 200, 9), (7, 1531, 5), (1, 1, 1), (6, 24, 13)]
 KAPPAS = [2.0, 1.25, 8.0]
@@ -221,6 +235,62 @@ def test_wrappers_refuse_other_devices():
     assert all(v == 0 for v in ba.LAUNCHES.values())
 
 
+# ------------------------------------------- row split (rowmax, matvec)
+
+def _kernel_chunks(K, cs, head):
+    """[start, end) of the row that each of the cs blocks reads, as
+    ``row_chunk`` in csrc/budget_alloc.cu cuts it: ``head`` scalars up to
+    the row's first 16-byte boundary (block 0), the float4 body in cs
+    balanced runs, the scalar tail (block cs - 1)."""
+    h = min(head, K)
+    nvec = (K - h) // 4
+    cuts = [h + 4 * (r * nvec // cs) for r in range(1, cs)]
+    return list(zip([0] + cuts, cuts + [K]))
+
+
+@pytest.mark.parametrize("MK,cs", ROW_SPLITS)
+def test_row_split_at_the_main_path_shapes(MK, cs):
+    assert ba.row_split(*MK) == cs
+
+
+def _check_row_split(M, K, head):
+    cs = ba.row_split(M, K)
+    assert cs in (1, 2, 4, 8)
+    if M >= ba.ROW_SPLIT_BLOCKS or K < 2 * ba.ROW_SPLIT_MIN_CHUNK:
+        assert cs == 1
+    # the split stops only at the cluster limit, the grid target or the
+    # chunk minimum
+    assert (cs == ba.ROW_SPLIT_MAX or cs * M >= ba.ROW_SPLIT_BLOCKS
+            or K < 2 * cs * ba.ROW_SPLIT_MIN_CHUNK)
+    chunks = _kernel_chunks(K, cs, head)
+    assert len(chunks) == cs and chunks[0][0] == 0 and chunks[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all((lo - min(head, K)) % 4 == 0 for lo, _ in chunks[1:])
+    if cs > 1:
+        # a boundary on the row's 16-byte grid moves by up to 3 floats
+        least = ba.ROW_SPLIT_MIN_CHUNK - (0 if head == 0 else 4)
+        assert min(hi - lo for lo, hi in chunks) >= least
+
+
+if given is not None:
+    @settings(max_examples=400, deadline=None)
+    @given(M=st.integers(1, 4096), K=st.integers(1, 1 << 20),
+           head=st.integers(0, 3))
+    def test_row_split_property(M, K, head):
+        """cs is a portable cluster size, 1 for many rows or short ones;
+        the kernel's chunks cover the row exactly, none under the
+        minimum (less a misaligned row's shift) unless cs = 1."""
+        _check_row_split(M, K, head)
+
+
+@pytest.mark.parametrize("M,K", [(1, 4095), (1, 4096), (131, 8191),
+                                 (132, 8192), (263, 1 << 20),
+                                 (264, 1 << 20), (1, 1 << 20)])
+@pytest.mark.parametrize("head", [0, 1, 3])
+def test_row_split_edges(M, K, head):
+    _check_row_split(M, K, head)
+
+
 # ------------------------------------------------ CUDA kernels (card only)
 
 def _dev(d, dev):
@@ -281,3 +351,76 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(hopper):
         ba.swap_eval(torch.ones((1, 2, 8), device=hopper),
                      torch.ones((1, 3, 2), device=hopper),   # float sel
                      torch.ones((1, 3, 8), device=hopper), 2.0)
+
+
+def _misaligned(a, off, dev):
+    """``a`` (numpy float32) on ``dev`` as a contiguous view starting
+    ``off`` floats past the allocation's start, so its rows start at every
+    16-byte phase."""
+    flat = torch.zeros(a.size + off, dtype=torch.float32, device=dev)
+    flat[off:] = torch.as_tensor(a.ravel(), device=dev)
+    return flat[off:].view(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", CLUSTER_SHAPES + SHAPES_MK)
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_cuda_cluster_kernels_match_twins(hopper, M, K, off):
+    """rowmax bitwise with its twin, matvec within 1e-5 relative and
+    bitwise from launch to launch, at every cs and row alignment (c and v
+    at different 16-byte phases when off > 0)."""
+    rng = np.random.default_rng(M * 100003 + K)
+    c = _shares(rng, (M, K))
+    lam = rng.uniform(0.5, 2.0, K).astype(np.float32)
+    cd = _misaligned(c, off, hopper)
+    vd = _misaligned(lam, (off + 1) % 4 if off else 0, hopper)
+    ba.reset_launches()
+    mu = ba.rowmax(cd)
+    assert torch.equal(mu.view(torch.int32),
+                       ref.rowmax_ref(cd).view(torch.int32))
+    y = ba.matvec(cd, vd)
+    assert _rel_ok(y.cpu(), ref.matvec_ref(cd, vd).cpu())
+    assert torch.equal(y.view(torch.int32),
+                       ba.matvec(cd, vd).view(torch.int32))
+    cs = ba.row_split(M, K)
+    assert ba.LAST_GRID["rowmax"] == (cs, M)
+    assert ba.LAST_GRID["matvec"] == (cs, M)
+    assert ba.LAUNCHES["rowmax"] == 1 and ba.LAUNCHES["matvec"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(4, 16384), (4, 53257), (4, 2000)])
+def test_cuda_cluster_kernels_on_signed_and_zero_rows(hopper, M, K):
+    """An all-zero row, an all-negative row, a row of -0.0 and negatives
+    (max -0.0) and a row of -0.0 and positives: rowmax bitwise, sign of
+    zero included; matvec within 1e-5 relative."""
+    rng = np.random.default_rng(K)
+    c = np.zeros((M, K), np.float32)
+    c[1] = -rng.uniform(0.01, 1.0, K)
+    c[2] = -rng.uniform(0.01, 1.0, K)
+    c[2, ::7] = -0.0
+    c[3] = rng.uniform(0.0, 1.0, K) * (rng.random(K) < 0.01)
+    c[3, rng.random(K) < 0.5] = -0.0
+    lam = rng.uniform(-1.0, 1.0, K).astype(np.float32)
+    cd = torch.as_tensor(c, device=hopper)
+    vd = torch.as_tensor(lam, device=hopper)
+    mu = ba.rowmax(cd)
+    assert torch.equal(mu.view(torch.int32),
+                       ref.rowmax_ref(cd).view(torch.int32))
+    assert float(mu[2]) == 0.0 and torch.signbit(mu[2])
+    assert _rel_ok(ba.matvec(cd, vd).cpu(), ref.matvec_ref(cd, vd).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_refused_cluster_launch_raises(hopper, monkeypatch):
+    """A cluster size the card does not take reaches the launcher as a
+    nonzero cudaError_t and raises; nothing falls back or counts."""
+    c = torch.ones((4, 8192), device=hopper)
+    ba.reset_launches()
+    monkeypatch.setattr(ba, "row_split", lambda M, K: 3)
+    with pytest.raises(RuntimeError, match="ba_rowmax"):
+        ba.rowmax(c)
+    with pytest.raises(RuntimeError, match="ba_matvec"):
+        ba.matvec(c, torch.ones(8192, device=hopper))
+    assert ba.LAUNCHES["rowmax"] == 0 and ba.LAUNCHES["matvec"] == 0
+    assert "rowmax" not in ba.LAST_GRID
