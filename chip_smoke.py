@@ -248,9 +248,12 @@ def phase_build():
     for name, (path, secs, nvcc_log) in built.items():
         build.library(name)
         log(f"built {path.name} in {secs:.2f} s (nvcc)")
+        entry = ""                 # ptxas names a kernel, then its numbers
         for line in nvcc_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas: {entry}: {line.strip()}")
     log(f"build total {time.perf_counter() - t0:.2f} s")
 
 

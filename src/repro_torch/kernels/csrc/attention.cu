@@ -33,16 +33,45 @@
 //     positions: 537 MB, 0.160 ms at B=8, n=32768, KH=4, dh=64.
 //
 // Design.
-//   * flash: one 256-thread block per (tile of 64 query rows, query head,
-//     batch row); the Pallas grid's sequential kv axis becomes a loop inside
-//     the block over 64-key tiles staged in shared memory (rows padded by
-//     one float so column reads are conflict-free).  Each thread owns 4
-//     query rows x 4 keys of the score tile and 4 rows x dh/16 columns of
-//     the accumulator; a row's max and sum reduce over the 16 lanes that
-//     share it (butterfly shuffles: every lane gets the same bits).  Key
-//     tiles wholly outside the causal / window band are skipped -- the only
-//     skipped work, and it does not change the result.  Ragged S: loads past
-//     S are zero-filled and masked.  Causal tiles are issued heaviest first.
+//   * flash: one block per (tile of 64 query rows, query head, batch row);
+//     the Pallas grid's sequential kv axis becomes a loop inside the block
+//     over 64-key tiles staged in shared memory.  Key tiles wholly outside
+//     the causal / window band are skipped -- the only skipped work, and it
+//     does not change the result.  Ragged S: loads past S are zero-filled
+//     and masked.  Causal tiles start heaviest first.  Two templates:
+//     - dh 16, 32, 256 (flash_fwd_kernel): 256 threads; rows padded by one
+//       float so scalar column reads are conflict-free.  Each thread owns 4
+//       query rows x 4 keys of the score tile and 4 rows x dh/16 columns of
+//       the accumulator; a row's max and sum reduce over the 16 lanes that
+//       share it (butterfly shuffles: every lane gets the same bits).  Each
+//       QK^T step makes 8 scalar shared loads for 16 FMAs, so the loop is
+//       bound by shared-memory instruction throughput.
+//     - dh 64, 128 (flash_fwd_tiled_kernel): 128 threads as 16 row groups
+//       x 8 lanes (ty = t / 8, tx = t % 8).  A thread owns rows ty + 16i
+//       (i < 4) x keys tx + 8j (j < 8) of the score tile and the same rows
+//       x columns 4 (tx + 8c) .. +3 (c < dh/32) of the accumulator; row max
+//       and sum reduce over the 8 lanes of a group (xor 4, 2, 1).  Tiles are
+//       row-major, padded to dh + 4 (q, k, v) and 68 (p) floats: rows stay
+//       on the 16-byte grid, and a row starts 4 banks after the previous.
+//       QK^T walks d by 4: a float4 of q for each of 4 rows and of k for
+//       each of 8 keys, 12 16-byte loads for 128 FMAs.  The mapping keeps
+//       every such load one shared-memory wavefront: the 8 lanes of a
+//       quarter-warp read one q row (broadcast) or 8 key rows 4 banks apart
+//       (all 32 banks), and the warp's 4 row groups read the same 8 key rows
+//       (broadcast) and 4 q rows 4 banks apart.  PV walks keys by 4: a
+//       float4 of p for each row, dh/32 float4s of v for each key (8 lanes
+//       on 128 contiguous bytes), 12 loads for 128 FMAs at dh 64.  Scores
+//       and PV sums are the same FMA chains in the same order as in the
+//       other template; only the row sum l adds over 8 lanes, not 16.  q, k
+//       and v are staged with 16-byte global loads, 8 in flight a tile per
+//       thread before the stores, no per-element divides.  The grid is
+//       (head, batch row, q tile), x fastest, so the heaviest causal tile
+//       row of every head and batch row starts before any lighter one
+//       (the other template orders tiles within a head and batch row only):
+//       at B=4 S=2048 the last blocks to start are the lightest, not a
+//       late head's 32-tile block.  ptxas (CUDA 12.8): 168 registers at dh
+//       64, 167 at dh 128, no spills, so registers and shared memory alike
+//       hold three dh-64 blocks (12 warps) on an SM.
 //   * decode: the Pallas grid walks (b, query head) and reads each kv head
 //     G = H/KH times; here one block serves all G query heads of one kv head
 //     and reads the cache once.  B*KH blocks would fill few of 132 SMs, so
@@ -54,12 +83,14 @@
 //     at dh 256) at a time, with their own online softmax, and are merged
 //     in group order through dynamic shared memory.
 //
-// Instantiations: flash at dh 16, 32, 64, 128, 256 (any H/KH); decode at
-// dh 16-128 with G = H/KH in {1, 2, 3, 4, 6, 8}, and at dh 256 with G = 10
-// (recurrentgemma-2b's 10 query heads over 1 kv head).  At dh 256 the
-// flash tiles take 214,016 bytes of shared memory (one block per SM), and
-// the decode block keeps q in shared memory (10 heads x 256 floats would
-// take 80 registers a thread) beside its 82,560-byte merge buffer.
+// Instantiations: flash at dh 16, 32, 256 (flash_fwd_kernel) and 64, 128
+// (flash_fwd_tiled_kernel), any H/KH; decode at dh 16-128 with G = H/KH in
+// {1, 2, 3, 4, 6, 8}, and at dh 256 with G = 10 (recurrentgemma-2b's 10
+// query heads over 1 kv head).  Flash shared memory: 214,016 bytes at dh
+// 256 (one block per SM); 69,632 at dh 64 (three blocks per SM) and
+// 118,784 at dh 128 (one) in the tiled template.  The decode block at dh
+// 256 keeps q in shared memory (10 heads x 256 floats would take 80
+// registers a thread) beside its 82,560-byte merge buffer.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -241,6 +272,244 @@ int launch_flash(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- flash, dh 64 and 128
+constexpr int kTileThreads = 128;  // 16 row groups x 8 lanes
+
+template <int DH>
+constexpr int flash_tiled_smem_bytes() {
+  return (3 * kBQ * (DH + 4) + kBQ * (kBK + 4)) * (int)sizeof(float);
+}
+
+// Max / sum over the LG lanes of one lane group (LG a power of two <= 32);
+// butterflies, so every lane of the group gets the same bits.
+template <int LG>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <int LG>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dst[0..3] = the 16 bytes of shared memory at src (16-byte aligned)
+__device__ __forceinline__ void lds4(float* dst, const float* src) {
+  const float4 t = *reinterpret_cast<const float4*>(src);
+  dst[0] = t.x;
+  dst[1] = t.y;
+  dst[2] = t.z;
+  dst[3] = t.w;
+}
+
+// NT tiles (q; or k and v) of kBQ positions p0.. from HBM into shared
+// rows of DH + 4 floats, zero past S.  Thread t moves the float4 at column
+// 4 * (t % (DH / 4)) of rows t / (DH / 4) + n * STEP; each pass puts
+// 8 loads a tile in flight before its stores.
+template <int DH, int NT>
+__device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
+                                            const float* const (&src)[NT],
+                                            size_t stride, int p0, int S) {
+  constexpr int D4 = DH / 4, STEP = kTileThreads / D4, N = kBQ / STEP;
+  constexpr int CH = 8;
+  static_assert(N % CH == 0, "passes of CH rows");
+  const int r0 = threadIdx.x / D4, c = (threadIdx.x % D4) * 4;
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += CH) {
+    float4 t[NT][CH];
+#pragma unroll
+    for (int n = 0; n < CH; ++n) {
+      const int r = r0 + (n0 + n) * STEP;
+#pragma unroll
+      for (int a = 0; a < NT; ++a)
+        t[a][n] = p0 + r < S
+                      ? __ldg(reinterpret_cast<const float4*>(
+                            src[a] + (size_t)(p0 + r) * stride + c))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int n = 0; n < CH; ++n)
+#pragma unroll
+      for (int a = 0; a < NT; ++a)
+        *reinterpret_cast<float4*>(dst[a] + (r0 + (n0 + n) * STEP) *
+                                                (DH + 4) + c) = t[a][n];
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kTileThreads)
+flash_fwd_tiled_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int S, int H, int KH, int causal, int window,
+                       float scale) {
+  static_assert(DH == 64 || DH == 128, "the 4 x 8 tile takes dh 64 or 128");
+  static_assert(kBQ == kBK, "stage_tiles stages kBQ rows of either tile");
+  constexpr int LD = DH + 4;     // padded row of the q/k/v tiles
+  constexpr int PLD = kBK + 4;   // padded row of the probability tile
+  constexpr int NV = DH / 32;    // float4 column groups of acc per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;              // [kBQ][LD]
+  float* sK = sQ + kBQ * LD;     // [kBK][LD]
+  float* sV = sK + kBK * LD;     // [kBK][LD]
+  float* sP = sV + kBK * LD;     // [kBQ][PLD]
+
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.z;  // heaviest tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KH);
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int q0 = qt * kBQ;
+  const size_t q_stride = (size_t)H * DH;    // between positions of q / o
+  const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
+  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+  float* const kv_dst[2] = {sK, sV};
+  const float* const kv_src[2] = {kb, vb};
+
+  {
+    float* const dst[1] = {sQ};
+    const float* const src[1] = {qb};
+    stage_tiles<DH, 1>(dst, src, q_stride, q0, S);
+  }
+
+  // keys any row of this tile may see: [k_begin, k_end)
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  // rows ty + 16i; keys tx + 8j; acc columns 4 * (tx + 8c) + e
+  float m[4], l[4], acc[4][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tile's readers are done
+    stage_tiles<DH, 2>(kv_dst, kv_src, kv_stride, k0, S);
+    __syncthreads();
+
+    // s[i][j] = q[row i] . k[key j], one FMA per d in d order
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float qv[4][4], kv[8][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds4(qv[i], sQ + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lds4(kv[j], sK + (tx + 8 * j) * LD + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            s[i][j] = __fmaf_rn(qv[i][e], kv[j][e], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kp = k0 + tx + 8 * j;
+        bool ok = kp < S;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max<8>(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sP[(ty + 16 * i) * PLD + tx + 8 * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * corr + group_sum<8>(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NV; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+    // acc[row][col] += sum_key p[row][key] * v[key][col], keys in order
+#pragma unroll 2
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds4(p[i], sP + (ty + 16 * i) * PLD + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[4 * NV];
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+          lds4(vv + 4 * c, sV + (kk + u) * LD + 4 * (tx + 8 * c));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4 * NV; ++c)
+            acc[i][c] = __fmaf_rn(p[i][u], vv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= S) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride +
+                                 4 * (tx + 8 * c)) =
+          make_float4(acc[i][4 * c] / denom, acc[i][4 * c + 1] / denom,
+                      acc[i][4 * c + 2] / denom, acc[i][4 * c + 3] / denom);
+  }
+}
+
+template <int DH>
+int launch_flash_tiled(const float* q, const float* k, const float* v,
+                       float* o, int B, int S, int H, int KH, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  constexpr int smem = flash_tiled_smem_bytes<DH>();
+  // above 48 KB, dynamic shared memory must be asked for (per device); the
+  // largest carveout is asked for so that three dh-64 blocks (3 x 69,632
+  // bytes) fit an SM whatever carveout CUDA would pick by default
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tiled_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_fwd_tiled_kernel<DH>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
+  flash_fwd_tiled_kernel<DH><<<grid, kTileThreads, smem, stream>>>(
+      q, k, v, o, S, H, KH, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ decode
 // Lane mapping of a cache row: VEC floats per lane (16-byte loads), LG
 // lanes per row, U positions per lane group per step.  Up to dh 128 a
@@ -267,15 +536,6 @@ template <int DH, int G>
 constexpr int decode_smem_bytes() {
   return ((decode_q_shared<DH, G>() ? G * DH : 0) +
           DecodeMap<DH>::NGR * G * (DH + 2)) * (int)sizeof(float);
-}
-
-// Sum over the LG lanes of one lane group (LG a power of two <= 32).
-template <int LG>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = LG / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <int VEC>
@@ -507,8 +767,8 @@ int att_flash(const float* q, const float* k, const float* v, float* o, int B,
   switch (dh) {
     case 16: return launch_flash<16>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 32: return launch_flash<32>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 64: return launch_flash<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 128: return launch_flash<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 64: return launch_flash_tiled<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 128: return launch_flash_tiled<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 256: return launch_flash<256>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }

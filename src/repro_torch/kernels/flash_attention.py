@@ -48,9 +48,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Replaces ``repro/kernels/flash_attention.py:flash_attention``.  Bound:
     operations (4*dh FLOPs per query-key pair the masks keep).  Design
-    (source header): a 256-thread block per (64 query rows, head, batch
-    row), key tiles of 64 in shared memory, online softmax in registers;
-    any S, causal or not, optional sliding window."""
+    (source header): a block per (64 query rows, head, batch row), key
+    tiles of 64 in shared memory, online softmax in registers; any S,
+    causal or not, optional sliding window.  Two templates: at dh 64 and
+    128, 128 threads, each with a 4 x 8 score tile and 4 x dh/8
+    accumulator fed by 16-byte shared loads, q, k and v staged with
+    16-byte global loads; at dh 16, 32 and 256, 256 threads with a 4 x 4
+    tile fed by scalar loads.  q, k and v must be 16-byte aligned."""
     _on_cuda(q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q: expected [B, S, H, dh], got {tuple(q.shape)}")
@@ -63,6 +67,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, "q", torch.float32, (B, S, H, dh))
     _check(k, "k", torch.float32, (B, S, KH, dh))
     _check(v, "v", torch.float32, (B, S, KH, dh))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
     out = torch.empty_like(q)
     _raise_on(library("attention").att_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,

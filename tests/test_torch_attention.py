@@ -99,6 +99,24 @@ def test_flash_twin_at_ragged_s(jax_side, S, causal, window):
     np.testing.assert_allclose(got, np.asarray(chunked), **TOL)
 
 
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window", [
+    (1, 12, 4, 100, 64, True, None), (1, 4, 4, 65, 64, False, None),
+    (2, 12, 4, 70, 64, True, 7), (1, 6, 2, 90, 128, True, None),
+    (1, 12, 4, 1, 64, True, None), (1, 4, 2, 66, 128, False, 9)])
+def test_flash_twin_at_tile_edges(jax_side, B, H, KH, S, dh, causal, window):
+    """The dh 64 / 128 kernel's tile edges (ragged last tile, G = 1 or 3,
+    a window narrower than 8 keys, S = 1): the twin, which the card-only
+    test holds the kernel to, against repro's oracle."""
+    jnp, _, jref, _ = jax_side
+    q, k, v = _qkv(B, H, KH, S, dh, seed=S)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                  window=window).numpy()
+    oracle = jref.flash_attention_ref(
+        *(jnp.asarray(_heads_first(x)) for x in (q, k, v)), causal=causal,
+        window=window)
+    np.testing.assert_allclose(got, _heads_first(np.asarray(oracle)), **TOL)
+
+
 def _count_calls(monkeypatch, name):
     """Count the calls of the twin ``ref.<name>`` (it still runs)."""
     calls, twin = [], getattr(ref, name)
@@ -209,7 +227,13 @@ CARD_FLASH = [(4, 12, 4, 32, 64, True, None), (2, 12, 4, 1000, 64, True, 256),
               (1, 12, 4, 512, 64, False, None), (2, 4, 2, 130, 32, True, 17),
               (1, 8, 8, 65, 16, False, 9), (1, 2, 1, 70, 128, True, None),
               (4, 10, 1, 2048, 256, True, 2048),
-              (2, 10, 1, 1037, 256, True, 300)]
+              (2, 10, 1, 1037, 256, True, 300)] + [
+    # the edges of the dh 64 / 128 template's 4 x 8 tile: a ragged last
+    # tile, one query head per kv head past one tile, a window narrower
+    # than a thread's 8 keys, G = 3 at dh 128, a single position
+    (1, 12, 4, 1000, 64, True, None), (1, 4, 4, 65, 64, False, None),
+    (2, 12, 4, 300, 64, True, 7), (1, 6, 2, 200, 128, True, None),
+    (1, 12, 4, 1, 64, True, None)]
 # (B, H, KH, L, dh, cache_len, window); at dh 256 the local ring (2048
 # slots, full and partly filled) and a ragged cache
 CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
@@ -259,6 +283,11 @@ def test_cuda_launchers_reject_what_the_kernels_do_not_take(hopper):
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(q[..., :24].contiguous(), k[..., :24]
                                 .contiguous(), v[..., :24].contiguous())
+    q64, k64, v64 = (x.to(hopper) for x in _t(*_qkv(1, 4, 2, 16, 64)))
+    shifted = torch.empty(q64.numel() + 1, device=hopper)[1:].view(q64.shape)
+    shifted.copy_(q64)                       # contiguous, 4 bytes off the grid
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(shifted, k64, v64)
     qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 10, 2, 16, 32)))
     with pytest.raises(ValueError):
         da.decode_attention_cuda(qd, kc, vc, 8)          # 5 heads per kv head
