@@ -46,10 +46,12 @@ Phases (each raises on failure; nothing is caught):
      their twins on the card at flaas-100m's heads (12 query / 4 kv heads,
      dh 64): prefill at the serve default (B=4, S=32), B=4 S=2048 causal,
      B=2 S=1000 window 256 and B=1 S=512 non-causal; decode at B=4 Lc=48
-     (cache_len 33 and 48), B=8 Lc=32768 (cache_len 32768 and 20000) and a
-     ragged Lc=5000; within rtol = atol = 2e-5 and bitwise from launch to
-     launch, with times beside the twin's, the bound and the
-     scaled_dot_product_attention yardstick (kv heads repeated);
+     (cache_len 33 and 48), B=8 Lc=32768 (cache_len 32768 and 20000), a
+     ragged Lc=5000 and the long serve's B=8 Lc=2112 at cache_len 2080;
+     within rtol = atol = 2e-5 and bitwise from launch to launch, with
+     times beside the twin's, the bound and the
+     scaled_dot_product_attention yardstick (kv heads repeated); each
+     decode case's split, split count, blocks and resident blocks per SM;
  12. serving full flaas-100m through repro_torch.launch.serve on the card
      at its defaults (B=4, prompt 32, gen 16): 12 flash launches and
      12 x 15 decode launches; prefill logits and teacher-forced decode
@@ -136,7 +138,7 @@ FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None),
 # (name, B, cache slots Lc, cache_len)
 DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-48", 4, 48, 48),
                 ("32k", 8, 32768, 32768), ("32k-20000", 8, 32768, 20000),
-                ("ragged", 4, 5000, 4999)]
+                ("ragged", 4, 5000, 4999), ("long-2080", 8, 2112, 2080)]
 RTOL_SERVE = 1e-4              # phases 12, 15: card vs CPU, of max |logit|
 RG_SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
 RG_REPLACES = "src/repro/kernels/rg_lru.py:43"
@@ -981,6 +983,9 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
         want = ref.decode_attention_ref(q, k, v, n)
         shape = f"H/KH/dh={H}/{KH}/{dh} B={B} Lc={Lc} cache_len={n} ({label})"
         err = _att_check("decode_attention " + shape, got, again, want)
+        split, nsplit, blocks, res = da.LAST_GRID["decode_attention"]
+        log(f"  decode_attention {shape}: split {split}, nsplit {nsplit}, "
+            f"blocks {blocks}, resident blocks per SM {res}")
         q4 = q[:, :, None]
         kr, vr = _repeat_kv(k[:, :n], G), _repeat_kv(v[:, :n], G)
         record("decode_attention", label, shape, err,

@@ -48,6 +48,7 @@ SIGNATURES = {
     "attention": {
         "att_flash": ((_P,) * 4 + (_I,) * 7 + (_F, _P), _I),
         "att_decode": ((_P,) * 7 + (_I,) * 9 + (_F, _P), _I),
+        "att_decode_residency": ((_I, _I), _I),
     },
     "rg_lru": {
         "rg_scan": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),

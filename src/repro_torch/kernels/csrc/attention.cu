@@ -30,7 +30,10 @@
 //     keep (QK^T and PV); at B=4, S=2048, H=12, dh=64, causal, 25.8 GFLOP,
 //     0.385 ms; its 67 MB of q/k/v/o take 0.02 ms.
 //   * decode: bytes.  The K and V read, 2*B*n*KH*dh*4 bytes for n valid
-//     positions: 537 MB, 0.160 ms at B=8, n=32768, KH=4, dh=64.
+//     positions: 537 MB, 0.160 ms at B=8, n=32768, KH=4, dh=64; 16.8 MB,
+//     0.0050 ms at recurrentgemma-2b's B=4, n=2048, KH=1, dh=256.  At the
+//     small shapes the two launches' fixed cost and the dh-256 loop's
+//     instruction latency, not the bytes, set the time.
 //
 // Design.
 //   * flash: one block per (tile of 64 query rows, query head, batch row);
@@ -73,24 +76,44 @@
 //       64, 167 at dh 128, no spills, so registers and shared memory alike
 //       hold three dh-64 blocks (12 warps) on an SM.
 //   * decode: the Pallas grid walks (b, query head) and reads each kv head
-//     G = H/KH times; here one block serves all G query heads of one kv head
-//     and reads the cache once.  B*KH blocks would fill few of 132 SMs, so
-//     the valid range is cut into splits of `split` positions, one block
-//     each (launch 1), and a second launch combines each head's partial
-//     (m, l, acc) in split order.  Inside a block, dh/4 lanes (dh <= 128)
-//     or a full warp with 8 floats a lane (dh 256) read one cache row with
-//     16-byte loads; the lane groups take positions round-robin, four (two
-//     at dh 256) at a time, with their own online softmax, and are merged
-//     in group order through dynamic shared memory.
+//     G = H/KH times; here a block serves the query heads of one kv head
+//     (all G of them, or at dh 256 half of recurrentgemma-2b's ten: two
+//     blocks of five fit an SM where one of ten did), so the cache is read
+//     once, or twice through L2.  Grid: the valid range is cut into
+//     splits, one block per (split, head group, batch row) (launch 1), and a
+//     second launch combines each head's partial (m, l, acc) in split order.
+//     The launcher sizes the splits (decode_attention.py::split_size) to the
+//     blocks the card holds at once: att_decode_residency asks the occupancy
+//     calculator how many split blocks fit an SM, and the split count is the
+//     most that fits residency x 132 in one wave (a partial second wave cost
+//     17% at B=8, n=32768), at most 64, each split a whole number of
+//     STEP-position iterations.  recurrentgemma-2b's 2048-position ring at
+//     B=4 then runs 256 blocks where a 256-position floor gave 32.  Inside a
+//     block, dh/4 lanes (dh <= 128) or a full warp with 8 floats a lane (dh
+//     256) read one cache row with 16-byte loads; the lane groups take
+//     positions round-robin, four (two at dh 256) at a time, with their own
+//     online softmax, and are merged in group order through dynamic shared
+//     memory (each head's merge weights computed once, by one thread).  An
+//     iteration forms every head's partial dot products first and then
+//     reduces all of them over the lane group together (group_sums), so
+//     their shuffles overlap: at dh 256 the loop is bound by dependent
+//     shuffles and expf, not by loads.  The combine takes the splits 8 at a
+//     time, loads before arithmetic, in blocks of up to 64 columns.  Tried
+//     on the card and removed (PERF.md, Findings): a two-stage cp.async ring
+//     of K/V rows (won at dh 64, lost 19% at dh 256), programmatic
+//     dependent launch of the combine, issuing the first step's loads before
+//     q is staged, and staging the combine's weights in shared memory.
 //
 // Instantiations: flash at dh 16, 32, 256 (flash_fwd_kernel) and 64, 128
 // (flash_fwd_tiled_kernel), any H/KH; decode at dh 16-128 with G = H/KH in
 // {1, 2, 3, 4, 6, 8}, and at dh 256 with G = 10 (recurrentgemma-2b's 10
 // query heads over 1 kv head).  Flash shared memory: 214,016 bytes at dh
 // 256 (one block per SM); 69,632 at dh 64 (three blocks per SM) and
-// 118,784 at dh 128 (one) in the tiled template.  The decode block at dh
-// 256 keeps q in shared memory (10 heads x 256 floats would take 80
-// registers a thread) beside its 82,560-byte merge buffer.
+// 118,784 at dh 128 (one) in the tiled template.  A decode block at dh 256
+// keeps its five heads' q in shared memory (5 x 8 floats a lane would take
+// 40 registers) beside a 41,280-byte merge buffer, 46,400 bytes in all.
+// ptxas (CUDA 12.8): 128 registers at dh 256 / G 10 (__launch_bounds__
+// asks for two blocks an SM) and 80 at dh 64 / G 3 (three), no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -512,30 +535,54 @@ int launch_flash_tiled(const float* q, const float* k, const float* v,
 
 // ------------------------------------------------------------ decode
 // Lane mapping of a cache row: VEC floats per lane (16-byte loads), LG
-// lanes per row, U positions per lane group per step.  Up to dh 128 a
-// lane takes 4 floats; at dh 256 a full warp takes a row, 8 floats a lane,
-// and two positions a step (fewer registers for the G = 10 accumulators).
+// lanes per row, U positions per lane group per step, STEP = NGR * U
+// positions per block iteration.  Up to dh 128 a lane takes 4 floats; at
+// dh 256 a full warp takes a row, 8 floats a lane, and two positions a
+// step (fewer registers for the G = 10 accumulators).  The launcher's
+// STEPS table (kernels/decode_attention.py) mirrors STEP.
 template <int DH>
 struct DecodeMap {
   static constexpr int VEC = DH > 128 ? 8 : 4;
   static constexpr int LG = DH / VEC;
   static constexpr int NGR = kThreads / LG;  // lane groups per block
   static constexpr int U = VEC == 8 ? 2 : 4;
+  static constexpr int STEP = NGR * U;
 };
 
-// q lives in shared memory when the G heads' slices would take more than
-// 32 registers a thread (dh 256, G 10); otherwise in registers.
+// Blocks a kv head's G query heads are shared among: two at dh 256, five
+// heads each (a warp's 8 columns of 10 heads' accumulators would hold one
+// block an SM by registers; 5 heads let two run), else one.  The
+// launcher's HEAD_GROUPS (kernels/decode_attention.py) mirrors it.
+template <int DH>
+__host__ __device__ constexpr int decode_head_groups() {
+  return DH > 128 ? 2 : 1;
+}
+
+// q lives in shared memory when a block's GB = G / head groups heads'
+// slices would take more than 32 registers a thread (dh 256); otherwise
+// in registers.
 template <int DH, int G>
 __host__ __device__ constexpr bool decode_q_shared() {
-  return G * DecodeMap<DH>::VEC > 32;
+  return G / decode_head_groups<DH>() * DecodeMap<DH>::VEC > 32;
+}
+
+// Blocks an SM the registers must allow: three (80 registers a thread)
+// where a block's heads are few at dh <= 128 (flaas-100m's G = 3), two at
+// dh 256 (128 registers), otherwise what ptxas needs.
+template <int DH, int G>
+__host__ __device__ constexpr int decode_min_blocks() {
+  return DH > 128 ? 2 : G <= 3 ? 3 : 1;
 }
 
 // Dynamic shared memory of one decode block: q (when shared), then each
-// lane group's (acc[G][DH], m[G], l[G]) for the in-order merge.
+// lane group's (acc[GB][DH], m[GB], l[GB]) for the in-order merge; at
+// most 46,400 bytes (dh 256), so no instantiation needs more than the
+// 48 KB a launch gets without asking.
 template <int DH, int G>
 constexpr int decode_smem_bytes() {
-  return ((decode_q_shared<DH, G>() ? G * DH : 0) +
-          DecodeMap<DH>::NGR * G * (DH + 2)) * (int)sizeof(float);
+  constexpr int GB = G / decode_head_groups<DH>();
+  return ((decode_q_shared<DH, G>() ? GB * DH : 0) +
+          DecodeMap<DH>::NGR * GB * (DH + 2)) * (int)sizeof(float);
 }
 
 template <int VEC>
@@ -551,43 +598,62 @@ __device__ __forceinline__ void load_vec(float (&dst)[VEC],
   }
 }
 
-// Launch 1: block (split, kv head, batch row) -> each of its G query
-// heads' (m, l, acc[dh]) over positions [lo + split*sp, ... + split) n [lo, hi).
+// group_sum<LG> of every v[g][u] at once: the same butterflies, level by
+// level across all of them, so the shuffles of independent sums overlap
+// instead of running head by head.
+template <int LG, int G, int U>
+__device__ __forceinline__ void group_sums(float (&v)[G][U]) {
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[g][u] += __shfl_xor_sync(0xffffffffu, v[g][u], off);
+}
+
+// Launch 1: block (split, head group of a kv head, batch row) -> each of
+// its GB query heads' (m, l, acc[dh]) over positions
+// [lo + split*sp, ... + split) n [lo, hi).
 template <int DH, int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, decode_min_blocks<DH, G>())
 decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc,
                     int L, int KH, int lo, int hi, int split, float scale) {
   using Map = DecodeMap<DH>;
   constexpr int VEC = Map::VEC, LG = Map::LG, NGR = Map::NGR, U = Map::U;
+  constexpr int HG = decode_head_groups<DH>(), GB = G / HG;
   constexpr bool kQShared = decode_q_shared<DH, G>();
   static_assert(DH % VEC == 0 && LG <= 32 && (32 % LG) == 0, "unsupported dh");
+  static_assert(G % HG == 0, "head groups must split G evenly");
   extern __shared__ float smem[];
-  float* sm_q = smem;                                       // [G][DH]
-  float* sm_acc = sm_q + (kQShared ? G * DH : 0);           // [NGR][G][DH]
-  float* sm_m = sm_acc + NGR * G * DH;                      // [NGR][G]
-  float* sm_l = sm_m + NGR * G;                             // [NGR][G]
+  float* sm_q = smem;                                       // [GB][DH]
+  float* sm_acc = sm_q + (kQShared ? GB * DH : 0);          // [NGR][GB][DH]
+  float* sm_m = sm_acc + NGR * GB * DH;                     // [NGR][GB]
+  float* sm_l = sm_m + NGR * GB;                            // [NGR][GB]
 
-  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y = kv head * HG + head group; its heads start at y * GB
+  const int sp = blockIdx.x, kvh = blockIdx.y / HG, b = blockIdx.z;
   const int nsplit = gridDim.x, H = KH * G;
   const int li = threadIdx.x % LG, gi = threadIdx.x / LG;
   const int start = lo + sp * split;
   const int end = min(hi, start + split);
-  const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * DH;  // G rows
+  const size_t bh0 = (size_t)b * H + (size_t)blockIdx.y * GB;  // first head
+  const float* qb = q + bh0 * DH;                               // GB rows
 
-  float qreg[kQShared ? 1 : G][VEC];
+  float qreg[kQShared ? 1 : GB][VEC];
   if constexpr (kQShared) {
-    for (int i = threadIdx.x; i < G * DH; i += kThreads) sm_q[i] = qb[i];
+    for (int i = threadIdx.x; i < GB * DH; i += kThreads) sm_q[i] = qb[i];
     __syncthreads();
   } else {
 #pragma unroll
-    for (int g = 0; g < G; ++g) load_vec<VEC>(qreg[g], qb + g * DH + li * VEC);
+    for (int g = 0; g < GB; ++g) load_vec<VEC>(qreg[g], qb + g * DH + li * VEC);
   }
 
-  float m[G], l[G], acc[G][VEC];
+  float m[GB], l[GB], acc[GB][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     m[g] = kNegInf;
     l[g] = 0.0f;
 #pragma unroll
@@ -598,7 +664,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
   const float* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
   // the trip count is the block's, so every lane reaches the shuffles
-  for (int it = start; it < end; it += NGR * U) {
+  for (int it = start; it < end; it += Map::STEP) {
     const int base = it + gi;
     float kk[U][VEC], vv[U][VEC];
 #pragma unroll
@@ -612,33 +678,35 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < VEC; ++e) kk[u][e] = vv[u][e] = 0.0f;
       }
     }
+    // every head's dot products first, then all GB*U lane-group sums at once
+    float s[GB][U];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       float qv[VEC];
       if constexpr (kQShared) {
 #pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-          const float4 t =
-              *reinterpret_cast<const float4*>(sm_q + g * DH + li * VEC + e);
-          qv[e] = t.x;
-          qv[e + 1] = t.y;
-          qv[e + 2] = t.z;
-          qv[e + 3] = t.w;
-        }
+        for (int e = 0; e < VEC; e += 4)
+          lds4(&qv[e], sm_q + g * DH + li * VEC + e);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qv[e] = qreg[g][e];
       }
-      float s[U];
-      float mx = kNegInf;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float d = qv[0] * kk[u][0];
 #pragma unroll
         for (int e = 1; e < VEC; ++e) d = __fmaf_rn(qv[e], kk[u][e], d);
-        d = group_sum<LG>(d);
-        s[u] = base + NGR * u < end ? d * scale : kNegInf;
-        mx = fmaxf(mx, s[u]);
+        s[g][u] = d;
+      }
+    }
+    group_sums<LG>(s);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[g][u] = base + NGR * u < end ? s[g][u] * scale : kNegInf;
+        mx = fmaxf(mx, s[g][u]);
       }
       const float m_new = fmaxf(m[g], mx);
       const float corr = expf(m[g] - m_new);
@@ -649,7 +717,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int u = 0; u < U; ++u) {
         // a position past `end` adds exactly nothing (what exp(-1e30 - m)
         // gives once m is a real score)
-        const float p = base + NGR * u < end ? expf(s[u] - m_new) : 0.0f;
+        const float p = base + NGR * u < end ? expf(s[g][u] - m_new) : 0.0f;
         l[g] += p;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[g][e] = __fmaf_rn(p, vv[u][e], acc[g][e]);
@@ -661,57 +729,100 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // merge the lane groups in group order (a group with no position has
   // m = -1e30, l = 0, acc = 0 and adds exactly nothing)
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     if (li == 0) {
-      sm_m[gi * G + g] = m[g];
-      sm_l[gi * G + g] = l[g];
+      sm_m[gi * GB + g] = m[g];
+      sm_l[gi * GB + g] = l[g];
     }
 #pragma unroll
     for (int e = 0; e < VEC; ++e)
-      sm_acc[(gi * G + g) * DH + li * VEC + e] = acc[g][e];
+      sm_acc[(gi * GB + g) * DH + li * VEC + e] = acc[g][e];
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < G * DH; t += kThreads) {
-    const int g = t / DH, d = t % DH;
+  // thread g < GB: head g's max, its sum and its weights exp(m_r - max),
+  // each computed once, in place of the m_r
+  if (threadIdx.x < GB) {
+    const int g = threadIdx.x;
     float mm = kNegInf;
-    for (int r = 0; r < NGR; ++r) mm = fmaxf(mm, sm_m[r * G + g]);
-    float ll = 0.0f, aa = 0.0f;
+    for (int r = 0; r < NGR; ++r) mm = fmaxf(mm, sm_m[r * GB + g]);
+    float ll = 0.0f;
     for (int r = 0; r < NGR; ++r) {
-      const float w = expf(sm_m[r * G + g] - mm);
-      ll = __fmaf_rn(sm_l[r * G + g], w, ll);
-      aa = __fmaf_rn(sm_acc[(r * G + g) * DH + d], w, aa);
+      const float w = expf(sm_m[r * GB + g] - mm);
+      ll = __fmaf_rn(sm_l[r * GB + g], w, ll);
+      sm_m[r * GB + g] = w;
     }
-    const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
-    part_acc[(bh * nsplit + sp) * DH + d] = aa;
-    if (d == 0) {
-      part_m[bh * nsplit + sp] = mm;
-      part_l[bh * nsplit + sp] = ll;
-    }
+    part_m[(bh0 + g) * nsplit + sp] = mm;
+    part_l[(bh0 + g) * nsplit + sp] = ll;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < GB * DH; t += kThreads) {
+    const int g = t / DH, d = t % DH;
+    float aa = 0.0f;
+    for (int r = 0; r < NGR; ++r)
+      aa = __fmaf_rn(sm_acc[(r * GB + g) * DH + d], sm_m[r * GB + g], aa);
+    part_acc[((bh0 + g) * nsplit + sp) * DH + d] = aa;
   }
 }
 
-// Launch 2: block (query head, batch row), one thread per output column:
-// merge the head's splits in order and normalise.
+// Launch 2: block (query head, batch row, chunk of up to 64 columns), one
+// thread per output column: merge the head's splits in order and
+// normalise.  A thread takes the splits 8 at a time, their loads issued
+// together before any of their arithmetic; the column chunks spread a
+// dh-256 head over 4 blocks (both cut the launch; PERF.md, Findings).
+constexpr int kCombineChunk = 8;
+
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
                                       float* __restrict__ o, int H,
                                       int nsplit, int dh) {
+  constexpr int CH = kCombineChunk;
   const size_t bh = (size_t)blockIdx.y * H + blockIdx.x;
   const float* pm = part_m + bh * nsplit;
   const float* pl = part_l + bh * nsplit;
   const float* pa = part_acc + bh * nsplit * dh;
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+  for (int d = blockIdx.z * blockDim.x + threadIdx.x; d < dh;
+       d += gridDim.z * blockDim.x) {
     float mm = kNegInf;
-    for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, pm[s]);
+    for (int s0 = 0; s0 < nsplit; s0 += CH) {
+      float xm[CH];
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        xm[j] = s0 + j < nsplit ? pm[s0 + j] : kNegInf;
+#pragma unroll
+      for (int j = 0; j < CH; ++j) mm = fmaxf(mm, xm[j]);
+    }
     float ll = 0.0f, aa = 0.0f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = expf(pm[s] - mm);
-      ll = __fmaf_rn(pl[s], w, ll);
-      aa = __fmaf_rn(pa[(size_t)s * dh + d], w, aa);
+    for (int s0 = 0; s0 < nsplit; s0 += CH) {
+      float xm[CH], xl[CH], xa[CH];
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const bool in = s0 + j < nsplit;
+        xm[j] = in ? pm[s0 + j] : kNegInf;
+        xl[j] = in ? pl[s0 + j] : 0.0f;
+        xa[j] = in ? pa[(size_t)(s0 + j) * dh + d] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        if (s0 + j < nsplit) {
+          const float w = expf(xm[j] - mm);
+          ll = __fmaf_rn(xl[j], w, ll);
+          aa = __fmaf_rn(xa[j], w, aa);
+        }
+      }
     }
     o[bh * dh + d] = aa / fmaxf(ll, 1e-20f);
   }
+}
+
+// Blocks of decode_split_kernel<DH, G> resident on one SM (registers,
+// shared memory and threads), or -cudaError_t.
+template <int DH, int G>
+int decode_residency() {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_split_kernel<DH, G>, kThreads, decode_smem_bytes<DH, G>());
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 template <int DH, int G>
@@ -719,21 +830,19 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
                   float* part_m, float* part_l, float* part_acc, int B,
                   int KH, int L, int lo, int hi, int split, int nsplit,
                   float scale, cudaStream_t stream) {
-  constexpr int smem = decode_smem_bytes<DH, G>();
-  if (smem > 48 * 1024) {  // above 48 KB it must be asked for (per device)
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<DH, G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)nsplit, (unsigned)KH, (unsigned)B);
-  decode_split_kernel<DH, G><<<grid, kThreads, smem, stream>>>(
-      q, k, v, part_m, part_l, part_acc, L, KH, lo, hi, split, scale);
+  static_assert(decode_smem_bytes<DH, G>() <= 48 * 1024,
+                "above 48 KB the launch would have to ask for it");
+  const dim3 grid((unsigned)nsplit,
+                  (unsigned)(KH * decode_head_groups<DH>()), (unsigned)B);
+  decode_split_kernel<DH, G><<<grid, kThreads, decode_smem_bytes<DH, G>(),
+                               stream>>>(q, k, v, part_m, part_l, part_acc, L,
+                                         KH, lo, hi, split, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<dim3((unsigned)(KH * G), (unsigned)B), DH, 0,
-                          stream>>>(part_m, part_l, part_acc, o, KH * G,
-                                    nsplit, DH);
+  constexpr int CT = DH < 64 ? DH : 64;  // columns a combine block takes
+  decode_combine_kernel<<<dim3((unsigned)(KH * G), (unsigned)B, DH / CT), CT,
+                          0, stream>>>(part_m, part_l, part_acc, o, KH * G,
+                                       nsplit, DH);
   return (int)cudaGetLastError();
 }
 
@@ -750,6 +859,19 @@ int launch_decode_g(int G, const float* q, const float* k, const float* v,
     case 6: return launch_decode<DH, 6>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
     case 8: return launch_decode<DH, 8>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int DH>
+int decode_residency_g(int G) {
+  switch (G) {
+    case 1: return decode_residency<DH, 1>();
+    case 2: return decode_residency<DH, 2>();
+    case 3: return decode_residency<DH, 3>();
+    case 4: return decode_residency<DH, 4>();
+    case 6: return decode_residency<DH, 6>();
+    case 8: return decode_residency<DH, 8>();
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 
@@ -784,7 +906,7 @@ int att_decode(const float* q, const float* k, const float* v, float* o,
   if (B <= 0) return (int)cudaGetLastError();
   if (KH <= 0 || H % KH != 0 || lo < 0 || hi > L || lo >= hi || split <= 0 ||
       nsplit <= 0 || (long long)split * nsplit < hi - lo || B > 65535 ||
-      KH > 65535)
+      KH > 32767)  // grid y holds KH x 2 head groups at dh 256
     return (int)cudaErrorInvalidValue;
   const int G = H / KH;
   switch (dh) {
@@ -796,6 +918,21 @@ int att_decode(const float* q, const float* k, const float* v, float* o,
       if (G != 10) return (int)cudaErrorInvalidValue;
       return launch_decode<256, 10>(q, k, v, o, part_m, part_l, part_acc, B, KH, L, lo, hi, split, nsplit, scale, stream);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of att_decode's split kernel for (dh, G = H/KH) that fit on one
+// SM at its dynamic shared memory size; -cudaError_t on failure.
+int att_decode_residency(int dh, int G) {
+  switch (dh) {
+    case 16: return decode_residency_g<16>(G);
+    case 32: return decode_residency_g<32>(G);
+    case 64: return decode_residency_g<64>(G);
+    case 128: return decode_residency_g<128>(G);
+    case 256:
+      return G == 10 ? decode_residency<256, 10>()
+                     : -(int)cudaErrorInvalidValue;
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 

@@ -4,14 +4,16 @@
 :func:`decode_attention_cuda` takes CUDA tensors only (float32,
 contiguous, 16-byte aligned) and raises on anything else; it adds one to
 ``LAUNCHES["decode_attention"]`` per call (two launches on the card: the
-splits, then their combination).  :func:`decode_attention` picks by the
+splits, then their combination) and leaves the call's grid in
+``LAST_GRID["decode_attention"]``.  :func:`decode_attention` picks by the
 device of ``q`` alone -- a CPU tensor runs the twin
 :func:`repro_torch.kernels.ref.decode_attention_ref`, a CUDA tensor the
-kernel -- with no flag and no fallback.  ``cache_len`` is a host int: the port's decode loop runs on the
-host.
+kernel -- with no flag and no fallback.  ``cache_len`` is a host int: the
+port's decode loop runs on the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -27,11 +29,21 @@ LAUNCHES = {"decode_attention": 0}
 GROUPS = {dh: (1, 2, 3, 4, 6, 8) for dh in (16, 32, 64, 128)}
 GROUPS[256] = (10,)                  # recurrentgemma-2b: 10 heads over 1
 SMS = 132                            # H100 SXM streaming multiprocessors
-MIN_SPLIT = 256                      # positions per block, at least
+NSPLIT_MAX = 64                      # splits per call, at most
+# Positions one block takes per loop iteration, by head dim: DecodeMap's
+# STEP = NGR * U in csrc/attention.cu (a split is a multiple of it).
+STEPS = {16: 256, 32: 128, 64: 64, 128: 32, 256: 16}
+# Blocks a kv head's query heads are shared among, by head dim
+# (decode_head_groups in csrc/attention.cu): five of recurrentgemma-2b's
+# ten heads a block at dh 256.
+HEAD_GROUPS = {16: 1, 32: 1, 64: 1, 128: 1, 256: 2}
+# The last call's (split, nsplit, blocks, resident blocks per SM).
+LAST_GRID: dict[str, tuple[int, int, int, int]] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES["decode_attention"] = 0
+    LAST_GRID.clear()
 
 
 def valid_range(cache_len: int, L: int, window: Optional[int]):
@@ -46,12 +58,28 @@ def valid_range(cache_len: int, L: int, window: Optional[int]):
     return max(0, hi - int(window)), hi
 
 
-def split_size(n: int, blocks_per_split: int) -> int:
-    """Positions per split: enough splits for about four blocks per SM,
-    each of at least :data:`MIN_SPLIT` positions, in multiples of 64."""
-    want = -(-4 * SMS // max(blocks_per_split, 1))
-    split = max(MIN_SPLIT, -(-n // want))
-    return -(-split // 64) * 64
+def split_size(n: int, blocks_per_split: int, residency: int,
+               step: int) -> int:
+    """Positions per split of ``n`` valid positions: as many splits as
+    fit, with ``blocks_per_split`` blocks each, into the ``residency *
+    SMS`` blocks the card holds at once (one wave: at B=8 over 32768
+    positions a partial second wave cost 17%), at most
+    :data:`NSPLIT_MAX`, each a whole number of ``step``-position
+    iterations (:data:`STEPS`)."""
+    want = max(1, min(NSPLIT_MAX, residency * SMS // max(blocks_per_split, 1)))
+    split = max(step, -(-n // want))
+    return -(-split // step) * step
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(dh: int, G: int) -> int:
+    """Blocks of the split kernel for (dh, G) that one SM holds at once
+    (``att_decode_residency``: registers, shared memory and threads),
+    asked of the card once per (dh, G)."""
+    n = library("attention").att_decode_residency(dh, G)
+    if n <= 0:
+        raise RuntimeError(f"att_decode_residency({dh}, {G}) returned {n}")
+    return n
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,8 +92,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Replaces ``repro/kernels/decode_attention.py:decode_attention``.
     Bound: bytes (the K and V rows read).  Design (source header): a block
     per (split of positions, kv head, batch row) serves all H/KH query
-    heads of its kv head, so the cache is read once; a second launch
-    merges the splits in order.  Any L."""
+    heads of its kv head, so the cache is read once (at dh 256 two blocks
+    of five heads each, :data:`HEAD_GROUPS`); the splits
+    (:func:`split_size`) fill the blocks the card holds at once
+    (:func:`resident_blocks`) in one wave, and a second launch merges
+    them in order.  Any L."""
     _on_cuda(q, k, v)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"expected q [B, H, dh] and k [B, L, KH, dh], got "
@@ -84,7 +115,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     lo, hi = valid_range(cache_len, L, window)
-    split = split_size(hi - lo, B * KH)
+    res = resident_blocks(dh, H // KH)
+    per_split = B * KH * HEAD_GROUPS[dh]
+    split = split_size(hi - lo, per_split, res, STEPS[dh])
     nsplit = -(-(hi - lo) // split)
     part_m = torch.empty(B * H * nsplit, dtype=torch.float32,
                          device=q.device)
@@ -98,6 +131,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         L, dh, lo, hi, split, nsplit, 1.0 / math.sqrt(dh), _stream(q)),
         "att_decode")
     LAUNCHES["decode_attention"] += 1
+    LAST_GRID["decode_attention"] = (split, nsplit, nsplit * per_split, res)
     return out
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
@@ -200,14 +201,66 @@ def test_decode_dispatch_runs_the_twin_on_the_cpu(monkeypatch):
             da.decode_attention(q, k, v, bad)
 
 
-@pytest.mark.parametrize("n,blocks", [(1, 16), (33, 16), (32768, 32),
-                                      (20000, 32), (5000, 1), (2049, 4)])
-def test_decode_splits_cover_the_valid_range(n, blocks):
-    split = da.split_size(n, blocks)
+# (n valid positions, blocks per split B * KH * head groups, resident
+# blocks per SM, step): the earlier six shapes, then recurrentgemma-2b's
+# long serve (B=4, KH=1, two head groups at dh 256: the ring full and half
+# full), its serve default (cache_len 33) and flaas-100m's long serve (B=8,
+# KH=4, dh 64, cache_len 2080), each at residency 1 and 2
+SPLIT_CASES = [(1, 16, 3, 64), (33, 16, 3, 64), (32768, 32, 3, 64),
+               (20000, 32, 3, 64), (5000, 1, 2, 32), (2049, 4, 1, 256)] + [
+    (n, blocks, r, step) for n, blocks, step in
+    [(2048, 8, 16), (1000, 8, 16), (33, 8, 16), (2080, 32, 64)]
+    for r in (1, 2)]
+
+
+@pytest.mark.parametrize("n,blocks,residency,step", SPLIT_CASES)
+def test_decode_splits_cover_the_valid_range(n, blocks, residency, step):
+    split = da.split_size(n, blocks, residency, step)
     nsplit = -(-n // split)
-    assert split % 64 == 0 and split >= da.MIN_SPLIT
+    assert split % step == 0 and split >= step
     assert (nsplit - 1) * split < n <= nsplit * split     # no empty split
-    assert nsplit == 1 or nsplit * blocks <= 4 * da.SMS + blocks
+    assert nsplit <= da.NSPLIT_MAX
+    # the grid reaches the residency * SMS slots wherever n allows it, in
+    # one wave: no more blocks than the slots, within one split's blocks of
+    # them, unless the cap, the splits' whole steps or n itself stop it
+    slots = residency * da.SMS
+    want = max(1, min(da.NSPLIT_MAX, slots // blocks))
+    assert nsplit <= want and (nsplit == 1 or nsplit * blocks <= slots)
+    assert split == step or -(-n // (split - step)) > want
+    if nsplit == want:
+        assert nsplit * blocks > min(slots, da.NSPLIT_MAX * blocks) - blocks
+
+
+# (n, blocks per split, residency, step, nsplit): the grids of the serve
+# shapes (recurrentgemma-2b's dh 256 kernel holds two blocks an SM, so
+# 256 of 264 at 2048 positions; flaas-100m's dh 64 kernel three, so 384
+# of 396 at 32768), and a 4096-position cache at the cap
+@pytest.mark.parametrize("n,blocks,residency,step,nsplit", [
+    (2048, 8, 2, 16, 32), (1000, 8, 2, 16, 32), (33, 8, 2, 16, 3),
+    (47, 8, 2, 16, 3), (2080, 32, 3, 64, 11), (32768, 32, 3, 64, 12),
+    (4096, 2, 2, 16, 64)])
+def test_decode_grids_at_the_serve_shapes(n, blocks, residency, step,
+                                          nsplit):
+    assert -(-n // da.split_size(n, blocks, residency, step)) == nsplit
+
+
+@pytest.mark.parametrize("dh", sorted(da.GROUPS))
+def test_decode_step_table_mirrors_the_kernel(dh):
+    """The launcher's STEPS equal the kernel's DecodeMap STEP = NGR * U,
+    and its HEAD_GROUPS the kernel's decode_head_groups, from the same
+    formulas as the source's; the head groups split every G evenly."""
+    src = (build.CSRC / "attention.cu").read_text()
+    for line in ("constexpr int kThreads = 256;",
+                 "VEC = DH > 128 ? 8 : 4;", "LG = DH / VEC;",
+                 "NGR = kThreads / LG;", "U = VEC == 8 ? 2 : 4;",
+                 "STEP = NGR * U;", "return DH > 128 ? 2 : 1;"):
+        assert line in src, line
+    vec = 8 if dh > 128 else 4
+    ngr = 256 // (dh // vec)
+    assert da.STEPS[dh] == ngr * (2 if vec == 8 else 4)
+    assert da.HEAD_GROUPS[dh] == (2 if dh > 128 else 1)
+    assert all(G % da.HEAD_GROUPS[dh] == 0 for G in da.GROUPS[dh])
+    assert set(da.STEPS) == set(da.HEAD_GROUPS) == set(da.GROUPS)
 
 
 def test_decode_valid_range():
@@ -242,7 +295,14 @@ CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
                (3, 6, 3, 257, 32, 1, None),
                (4, 10, 1, 2048, 256, 2048, None),
                (4, 10, 1, 2048, 256, 1000, None),
-               (3, 10, 1, 1037, 256, 1037, None)]
+               (3, 10, 1, 1037, 256, 1037, None)] + [
+    # the split edges at dh 256: exactly one 16-position step, one
+    # past it, a window whose lo falls inside a split, B=1 over 4096
+    # positions (64 splits, the cap); flaas-100m's long serve (2080 of
+    # 2112 slots)
+    (4, 10, 1, 48, 256, 16, None), (4, 10, 1, 48, 256, 17, None),
+    (4, 10, 1, 2048, 256, 1500, 695), (1, 10, 1, 4096, 256, 4096, None),
+    (8, 12, 4, 2112, 64, 2080, None)]
 
 
 @pytest.mark.cuda
@@ -269,6 +329,13 @@ def test_cuda_decode_matches_twin(hopper, B, H, KH, L, dh, n, window):
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)
     assert da.LAUNCHES == {"decode_attention": 2}
+    lo, hi = da.valid_range(n, L, window)
+    res = da.resident_blocks(dh, H // KH)
+    per_split = B * KH * da.HEAD_GROUPS[dh]
+    split = da.split_size(hi - lo, per_split, res, da.STEPS[dh])
+    nsplit = -(-(hi - lo) // split)
+    assert da.LAST_GRID["decode_attention"] == (split, nsplit,
+                                                nsplit * per_split, res)
 
 
 @pytest.mark.cuda
