@@ -15,13 +15,21 @@ Phases (each raises on failure; nothing is caught):
      yardstick where one exists, and the bound; rowmax's and matvec's
      cluster size and block count per launch; the launch floor (an empty
      kernel launched back to back) beside the card's name and power limit;
+     dual_step's ascent mode (the whole SP1 loop in one launch) at the
+     paper, large and ragged shapes against the per-iteration loop over
+     its step mode (iteration counts equal, lam bitwise), and its time
+     per iteration beside that loop's and the launch floor;
   4. the paper episode (SimConfig(seed=0): 6 analysts x 25 pipelines,
      100 devices, K=2000, 10 rounds) through run_episode on the card, cold
      and warm SP1, every kernel's launch count above 0, and agreement with
-     the same episode on the CPU;
+     the same episode on the CPU; each round's SP1 exactly one dual_step
+     launch with no host sync inside it (torch.cuda sync debug mode
+     "error"), its iteration count and lam equal to the per-iteration
+     loop's on the same operands;
   5. one round at the largest sched_scale geometry (M=32, N=32, K=16384,
-     refine on), with its invariants and a swap sweep of C=256 candidates
-     per analyst;
+     refine on), with its invariants, a swap sweep of C=256 candidates
+     per analyst, and SP1 as in phase 4 (one launch, the loop's count and
+     lam);
   6. where the time goes: SP1 and SP2 spans per round and, from
      torch.profiler, the card's kernel time and busy share (separate
      traced runs, after the untimed checks);
@@ -373,6 +381,112 @@ def kernel_cases(d, M, N, K, C):
     }
 
 
+def parent_ascent(args, beta, **kw):
+    """SP1 as the parent ran it on the card: one ``dual_step`` launch an
+    iteration (step mode), the update in torch, the stop rule on the host
+    (``ref.dual_ascent_ref`` over ``ba.dual_step``)."""
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.kernels import ref
+    return ref.dual_ascent_ref(*args, beta, **kw, step=ba.dual_step)
+
+
+def check_ascent(name, got, want):
+    """Raise unless two ascents ran the same count and reached the same lam
+    bit for bit; returns the count."""
+    (lam, n), (lam_p, n_p) = got, want
+    n, n_p = int(n), int(n_p)
+    if n != n_p or not torch.equal(lam.view(torch.int32),
+                                   lam_p.view(torch.int32)):
+        raise AssertionError(
+            f"{name}: ascent {n} iterations, per-iteration loop {n_p}; lam "
+            f"max abs diff {float((lam - lam_p).abs().max()):.3e}")
+    return n
+
+
+def ascent_case(d, shape, M, K, floor, card):
+    """dual_step's ascent mode at one shape: checked against the
+    per-iteration loop (cold, 200 iterations; adaptive, 4000 or the stop
+    rule), then timed per iteration with the stop rule off (tol 0),
+    beside the loop's time per iteration and the launch floor."""
+    from repro_torch.kernels import budget_alloc as ba
+    args = (d["gamma"], d["lam"], d["w_pow"], d["xcap"], d["mask"], d["cap"],
+            torch.clamp(d["cap"], min=1e-12))
+    counts = []
+    for adaptive, max_iters, tol in ((False, 200, 0.0), (True, 4000, 1e-6)):
+        kw = dict(adaptive=adaptive, max_iters=max_iters, tol=tol)
+        counts.append(check_ascent(f"dual_ascent {shape} {kw}",
+                                   ba.dual_ascent(*args, 2.2, **kw),
+                                   parent_ascent(args, 2.2, **kw)))
+    n = 4000 if shape == "paper" else 1000
+    kw = dict(adaptive=False, max_iters=n, tol=0.0)
+    ms = time_ms(lambda: ba.dual_ascent(*args, 2.2, **kw), 2, 3)
+    loop_n = 50
+    kw_loop = dict(adaptive=False, max_iters=loop_n, tol=0.0)
+    loop_ms = time_ms(lambda: parent_ascent(args, 2.2, **kw_loop), 1, 3)
+    per_iter_ops = 4 * M * K + 8 * K + 4 * M
+    it_bound_us = bound_ms(0, per_iter_ops)[0] * 1e3
+    us = ms * 1e3 / n
+    log(f"  dual_ascent {shape:6s} M={M} K={K}: cs={ba.dual_split(M, K)}; "
+        f"matches the per-iteration loop (lam bitwise; iterations "
+        f"{counts[0]} cold, {counts[1]} adaptive); {n} iterations in one "
+        f"launch {ms:.4f} ms = {us:.4f} us/iter; per-iteration loop "
+        f"{loop_ms * 1e3 / loop_n:.4f} us/iter; launch floor "
+        f"{floor * 1e3:.4f} us; bound {it_bound_us:.6f} us/iter "
+        f"(operations, {card})")
+    return dict(ascent_us_per_iter=us, ascent_loop_us_per_iter=loop_ms * 1e3
+                / loop_n, ascent_bound_us_per_iter=it_bound_us,
+                ascent_cs=ba.dual_split(M, K))
+
+
+class AscentRecorder:
+    """Within the block, every ``hotpath.dual_ascent`` call keeps a copy of
+    its operands and its result, so each SP1 solve of a run can be
+    replayed through the per-iteration loop afterwards; and every
+    ``alpha_fair_waterfill`` of the scheduler runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside an
+    SP1 solve raises."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from repro_torch.core import hotpath
+        from repro_torch.core import scheduler as sch
+        orig_asc, orig_wf = hotpath.dual_ascent, sch.alpha_fair_waterfill
+
+        def asc(*args, **kw):
+            out = orig_asc(*args, **kw)
+            self.calls.append(([a.clone() if torch.is_tensor(a) else a
+                                for a in args], kw, out))
+            return out
+
+        def wf(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig_wf(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        hotpath.dual_ascent, sch.alpha_fair_waterfill = asc, wf
+        try:
+            yield self
+        finally:
+            hotpath.dual_ascent, sch.alpha_fair_waterfill = orig_asc, orig_wf
+
+    def replay(self, label):
+        """Each recorded solve against the per-iteration loop on the same
+        operands: equal counts and lam bitwise.  Returns the counts."""
+        counts = []
+        for r, (args, kw, out) in enumerate(self.calls):
+            c, lam, w_pow, beta, xcap, mask, cap, cap_safe = args
+            counts.append(check_ascent(
+                f"{label} solve {r}", out,
+                parent_ascent((c, lam, w_pow, xcap, mask, cap, cap_safe),
+                              beta, **kw)))
+        return counts
+
+
 def phase_kernels(card):
     log("[3] kernels against their twins on the card")
     from repro_torch.kernels import budget_alloc as ba
@@ -412,6 +526,10 @@ def phase_kernels(card):
         d = make_inputs(M, N, K, C)
         measure(shape, f"M={M} N={N} K={K} C={C}", kernel_cases(d, M, N, K, C),
                 slow=() if shape == "paper" else ("boost_scan", "swap_eval"))
+        rows["dual_step"]["by_shape"][shape].update(
+            ascent_case(d, shape, M, K, floor, card))
+        if shape == "large":
+            rows["dual_step"].update(rows["dual_step"]["by_shape"][shape])
         del d
     shape, M, K = PROD
     d = make_dense_inputs(M, K)
@@ -431,24 +549,32 @@ def phase_episode():
     ep_gpu = generate_episode(sim, device="cuda")
     ep_cpu = generate_episode(sim, device="cpu")
     launches = None
+    R = sim.n_rounds
     for warm in (False, True):
         cfg = SchedulerConfig(sp1_warm_start=warm)
         torch.cuda.synchronize()
         ba.reset_launches()
-        t0 = time.perf_counter()
-        out = run_episode(ep_gpu, cfg)          # validate: conservation
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        rec = AscentRecorder()
+        with rec():
+            t0 = time.perf_counter()
+            out = run_episode(ep_gpu, cfg)      # validate: conservation
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         counts = dict(ba.LAUNCHES)
         if launches is None:
             launches = counts
         assert all(v > 0 for v in counts.values()), \
             f"a kernel never launched on the main path: {counts}"
+        # one SP1 solve a round, each one dual_step launch (ascent mode)
+        assert len(rec.calls) == R and counts["dual_step"] == R, \
+            (len(rec.calls), counts)
+        loop_iters = rec.replay(f"{'warm' if warm else 'cold'} episode")
         assert float(out["overdraw"].max()) <= 1e-4
         assert float(out["conservation_gap"].max()) <= 1e-4
         ref = run_episode(ep_cpu, cfg)
         g = {k: v.cpu() for k, v in out.items()}
-        R = sim.n_rounds
+        assert g["sp1_iters"].tolist() == loop_iters, \
+            (g["sp1_iters"].tolist(), loop_iters)
         assert torch.equal(g["n_allocated"], ref["n_allocated"]), \
             (g["n_allocated"], ref["n_allocated"])
         assert torch.equal(g["selected"], ref["selected"])
@@ -458,8 +584,10 @@ def phase_episode():
         iters = g["sp1_iters"].tolist()
         log(f"  {'warm' if warm else 'cold'} SP1: {R / wall:.2f} rounds/s "
             f"({wall:.3f} s for {R} rounds), SP1 iters per round {iters} "
-            f"(CPU run: {ref['sp1_iters'].tolist()}), n_allocated "
-            f"{g['n_allocated'].tolist()}, launches {counts}")
+            f"(CPU run: {ref['sp1_iters'].tolist()}; the per-iteration loop "
+            f"on the card: equal, lam bitwise), n_allocated "
+            f"{g['n_allocated'].tolist()}, launches {counts}, no host sync "
+            f"inside SP1")
     return launches
 
 
@@ -492,11 +620,18 @@ def phase_large_round():
         schedule_round(rnd, cfg)               # warm-up (allocator)
         torch.cuda.synchronize()
         ba.reset_launches()
-        t0 = time.perf_counter()
-        res = schedule_round(rnd, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = counts or dict(ba.LAUNCHES)
+        rec = AscentRecorder()
+        with rec():
+            t0 = time.perf_counter()
+            res = schedule_round(rnd, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = dict(ba.LAUNCHES)
+        counts = counts or launched
+        assert len(rec.calls) == 1 and launched["dual_step"] == 1, \
+            (len(rec.calls), launched)
+        loop_iters = rec.replay(f"large round capacity {cap}")
+        assert loop_iters == [int(res.sp1_iters)], loop_iters
         c = rnd.capacity
         assert float((res.consumed - c).max()) <= 1e-4, "overdraw"
         assert float((c - res.consumed - res.leftover).abs().max()) <= 1e-4
@@ -510,10 +645,11 @@ def phase_large_round():
             ba.LAST_GRID["swap_eval"] == (M, 256), \
             (ba.LAUNCHES, ba.LAST_GRID)
         log(f"  capacity {cap}: wall {wall:.3f} s, n_allocated "
-            f"{int(res.n_allocated)}, SP1 iters {int(res.sp1_iters)}, "
+            f"{int(res.n_allocated)}, SP1 iters {int(res.sp1_iters)} in one "
+            f"launch (the per-iteration loop: equal, lam bitwise), "
             f"efficiency {float(res.efficiency):.6g}, swap sweep grid "
             f"(analysts, candidates) {ba.LAST_GRID['swap_eval']}, launches "
-            f"{dict(ba.LAUNCHES)}")
+            f"{launched}")
     return counts
 
 

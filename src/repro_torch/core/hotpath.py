@@ -44,6 +44,16 @@ def dual_step(c, lam, w_pow, beta: float, xcap, mask, cap, cap_safe):
     return (ref.dual_step_ref if _cpu(*args) else ba.dual_step)(*args, beta)
 
 
+def dual_ascent(c, lam, w_pow, beta: float, xcap, mask, cap, cap_safe, *,
+                adaptive: bool, max_iters: int, tol: float):
+    """SP1's dual ascent from ``lam``, :func:`dual_step` sweeps until the
+    KKT error is at most ``tol`` or ``max_iters`` ran: ``(lam [K], iters
+    int32 scalar)``.  On the card one launch, no host sync."""
+    args = (c, lam, w_pow, xcap, mask, cap, cap_safe)
+    fn = ref.dual_ascent_ref if _cpu(*args) else ba.dual_ascent
+    return fn(*args, beta, adaptive=adaptive, max_iters=max_iters, tol=tol)
+
+
 def boost_scan(g_ord, sel_ord, leftover, kappa_max: float):
     """SP2's sequential proportional boost, one selection per analyst:
     ``g_ord [M, N, K]``, ``sel_ord [M, N]``, ``leftover [M, K]``.  Returns

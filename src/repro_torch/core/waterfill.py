@@ -9,23 +9,23 @@ with the KKT closed form x_i(lambda) = [(mu_i a_i)^(1-beta) / sum_k
 lambda_k c_ik]^(1/beta) (paper Appendix B, Eq 39) and projected
 multiplicative dual ascent lambda_k <- lambda_k exp(eta g_k).
 
-Each iteration is one :func:`repro_torch.core.hotpath.dual_step` (the
-``dual_step`` kernel on the card) plus the update and the KKT error, and
-the stop rule is checked on the host every iteration (one device sync per
-iteration), so the iteration count is ``repro``'s exactly.  The step size
-is host arithmetic in float32 with ``repro``'s rounding.
+The ascent with its stop rule is one
+:func:`repro_torch.core.hotpath.dual_ascent`: on the card the ``dual_step``
+kernel's ascent mode, one launch that runs every iteration and the stop
+rule there, as ``repro``'s ``lax.while_loop`` does, so a solve makes no
+host sync and ``iters`` stays on the device; on the CPU the twin's loop
+(:func:`repro_torch.kernels.ref.dual_ascent_ref`), with the same iteration
+count and lam.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from . import hotpath
 
 _EPS = 1e-12
-_F32 = np.float32
 
 
 class WaterfillResult(NamedTuple):
@@ -41,13 +41,6 @@ def _x_of_lambda(lam, c, w_pow, beta, xcap, mask):
     x = (w_pow / denom) ** (1.0 / beta)
     x = torch.minimum(x, xcap)
     return torch.where(mask, x, torch.zeros_like(x))
-
-
-def _kkt(lam_new, g) -> float:
-    """KKT error max(primal infeasibility, complementary slackness)."""
-    feas = torch.amax(torch.clamp(g, min=0.0))
-    comp = torch.amax(lam_new * torch.abs(g))
-    return torch.maximum(feas, comp).item()
 
 
 def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
@@ -70,7 +63,7 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     w_pow = torch.where(mask, w ** (1.0 - beta), torch.zeros_like(w))
 
     # x_i <= min_k cap_k / c_ik is necessary for feasibility.
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
     ratio = torch.where(c > _EPS, cap[None, :] / torch.clamp(c, min=_EPS),
                         inf)
     xcap = torch.amin(ratio, dim=1)
@@ -83,23 +76,9 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     else:
         lam = torch.clamp(lam0.to(c.dtype), 1e-12, 1e12)
     cap_safe = torch.clamp(cap, min=_EPS)
-    mask_i32 = mask.to(torch.int32)
-    tol32 = float(_F32(tol))
-
-    it, viol = 0, float("inf")
-    eta, viol_prev = _F32(0.5), _F32(np.inf)
-    while it < max_iters and viol > tol32:
-        _, g = hotpath.dual_step(c, lam, w_pow, beta, xcap, mask_i32, cap,
-                                 cap_safe)
-        if not adaptive:    # decaying step; XLA fuses 1 + 0.001 * it
-            eta = _F32(0.5) / _F32(np.float64(_F32(0.001)) * it + 1.0)
-        lam = torch.clamp(lam * torch.exp(float(eta) * g), 1e-12, 1e12)
-        viol = _kkt(lam, g)
-        if adaptive:
-            eta = (min(eta * _F32(1.2), _F32(1.5)) if _F32(viol) <= viol_prev
-                   else max(eta * _F32(0.7), _F32(0.2)))
-            viol_prev = _F32(viol)
-        it += 1
+    lam, iters = hotpath.dual_ascent(
+        c, lam, w_pow, beta, xcap, mask.to(torch.int32), cap, cap_safe,
+        adaptive=adaptive, max_iters=max_iters, tol=tol)
     x = _x_of_lambda(lam, c, w_pow, beta, xcap, mask)
 
     # Final exact projection: uniform scale-down of any residual overshoot
@@ -111,6 +90,4 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     x = x * torch.amin(ratio)
     violation = torch.amax(
         torch.clamp(hotpath.matvec_t(c, x) - cap, min=0.0) / cap_safe)
-    return WaterfillResult(x=x, lam=lam, violation=violation,
-                           iters=torch.tensor(it, dtype=torch.int32,
-                                              device=dev))
+    return WaterfillResult(x=x, lam=lam, violation=violation, iters=iters)

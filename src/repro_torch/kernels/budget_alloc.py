@@ -30,6 +30,8 @@ LAST_GRID: dict[str, tuple[int, int]] = {}
 ROW_SPLIT_MAX = 8
 ROW_SPLIT_MIN_CHUNK = 2048
 ROW_SPLIT_BLOCKS = 264
+# dual_split's least stripe of columns a block of the dual cluster keeps.
+DUAL_MIN_STRIPE = 128
 
 
 def _lib():
@@ -159,6 +161,40 @@ def matvec_t(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return load
 
 
+def dual_split(M: int, K: int) -> int:
+    """Blocks (the cluster size cs) of :func:`dual_step` and
+    :func:`dual_ascent` on an [M, K] matrix: each call is one cluster.
+
+    cs starts at 1 and doubles while cs < ROW_SPLIT_MAX (8, the portable
+    cluster size) and K >= 2 * cs * DUAL_MIN_STRIPE (each block's stripe
+    of columns would still hold 128, half a column a thread).  M does not
+    enter: a block with no row of its own still takes its stripe of
+    columns."""
+    cs = 1
+    while cs < ROW_SPLIT_MAX and K >= 2 * cs * DUAL_MIN_STRIPE:
+        cs *= 2
+    return cs
+
+
+def _dual_operands(c, lam, w_pow, xcap, mask, cap, cap_safe, beta):
+    """Check the operands of a dual launch; ``(M, K, cs, 1/beta as
+    float32)``."""
+    _on_cuda(c, lam, w_pow, xcap, mask, cap, cap_safe)
+    M, K = c.shape
+    _check(c, "c", _F32, (M, K))
+    for t, n in ((lam, "lam"), (cap, "cap"), (cap_safe, "cap_safe")):
+        _check(t, n, _F32, (K,))
+    for t, n in ((w_pow, "w_pow"), (xcap, "xcap")):
+        _check(t, n, _F32, (M,))
+    _check(mask, "mask", _I32, (M,))
+    rows = _lib().ba_dual_smem_limit() // 4
+    if M > rows:
+        raise ValueError(f"dual_step keeps x in shared memory: M={M} rows "
+                         f"exceed {rows}")
+    inv_beta = float(torch.tensor(1.0 / float(beta), dtype=_F32))
+    return M, K, dual_split(M, K), inv_beta
+
+
 def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     """One SP1 dual-ascent sweep: ``(x [M], g [K])``.
 
@@ -168,28 +204,61 @@ def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
 
     Replaces ``repro/kernels/budget_alloc.py:dual_step``, whose TPU grid
     carried the K-long load through VMEM scratch row tile by row tile.
-    Bound: bytes (c is read twice, once per launch; the second read mostly
-    hits the 50 MB L2 at the scheduler's sizes).  Design: two launches in
-    one C call -- a block per row for the denominator and x, then a thread
-    per column for the row-ordered FMA load -- so g is bitwise the twin's
-    given the same x, and x agrees to 1e-5 relative."""
-    _on_cuda(c, lam, w_pow, xcap, mask, cap, cap_safe)
-    M, K = c.shape
-    _check(c, "c", _F32, (M, K))
-    for t, n in ((lam, "lam"), (cap, "cap"), (cap_safe, "cap_safe")):
-        _check(t, n, _F32, (K,))
-    for t, n in ((w_pow, "w_pow"), (xcap, "xcap")):
-        _check(t, n, _F32, (M,))
-    _check(mask, "mask", _I32, (M,))
+    Bound: bytes (c is read twice, the second time from the 50 MB L2 at
+    the scheduler's sizes).  Design: ``dual_kernel`` in step mode, one
+    cluster of ``cs = dual_split(M, K)`` blocks (see :func:`dual_ascent`):
+    a block of 256 threads per row for the denominator and x, x shared
+    through distributed shared memory, then the row-ordered FMA load of
+    each block's stripe of columns, 8 columns a thread (16-byte loads where
+    the rows are 16-byte aligned) -- so g is bitwise the twin's given the
+    same x, and x agrees to 1e-5 relative."""
+    M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
+                                        cap_safe, beta)
     x = torch.empty(M, dtype=_F32, device=c.device)
     g = torch.empty(K, dtype=_F32, device=c.device)
-    inv_beta = float(torch.tensor(1.0 / float(beta), dtype=_F32))
     _raise_on(_lib().ba_dual_step(
         c.data_ptr(), lam.data_ptr(), w_pow.data_ptr(), xcap.data_ptr(),
         mask.data_ptr(), cap.data_ptr(), cap_safe.data_ptr(), x.data_ptr(),
-        g.data_ptr(), M, K, inv_beta, _stream(c)), "ba_dual_step")
+        g.data_ptr(), M, K, inv_beta, cs, _stream(c)), "ba_dual_step")
     LAUNCHES["dual_step"] += 1
     return x, g
+
+
+def dual_ascent(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float, *,
+                adaptive: bool, max_iters: int, tol: float):
+    """The whole SP1 dual ascent from ``lam``: ``(lam [K], iters)``, with
+    ``iters`` an int32 scalar on the card.  Never synchronises.
+
+    Each iteration is :func:`dual_step`'s sweep, then ``lam = clamp(lam *
+    exp(eta * g), 1e-12, 1e12)`` and the KKT error ``max(max(g, 0), lam
+    * |g|)``; the loop runs while ``it < max_iters`` and the error exceeds
+    ``tol`` (float32).  ``eta`` is ``0.5 / (1 + 0.001 it)``, or with
+    ``adaptive`` starts at 0.5 and grows x1.2 while the error does not
+    rise, else shrinks x0.7, kept in [0.2, 1.5].  This is
+    :func:`repro_torch.kernels.ref.dual_ascent_ref`'s loop (``repro``'s
+    ``lax.while_loop``), bitwise equal to that loop run over
+    :func:`dual_step` launches on the card.
+
+    Design: ``dual_kernel`` in ascent mode, one launch of one cluster of
+    ``cs = dual_split(M, K)`` blocks that keeps the loop and its stop
+    rule on the card: two cluster barriers an iteration, the KKT error
+    combined through distributed shared memory, lam updated in place in
+    the output.  Bound per iteration: 4 * M * K operations; c (in L2 at
+    the scheduler's sizes) is read twice an iteration by the cluster's cs
+    SMs alone, and their L2 reads set the time at M=32, K=16384."""
+    M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
+                                        cap_safe, beta)
+    lam_out = torch.empty(K, dtype=_F32, device=c.device)
+    iters = torch.empty((), dtype=_I32, device=c.device)
+    tol32 = float(torch.tensor(float(tol), dtype=_F32))
+    _raise_on(_lib().ba_dual_ascent(
+        c.data_ptr(), lam.data_ptr(), w_pow.data_ptr(), xcap.data_ptr(),
+        mask.data_ptr(), cap.data_ptr(), cap_safe.data_ptr(),
+        lam_out.data_ptr(), iters.data_ptr(), M, K, inv_beta,
+        int(max_iters), tol32, int(bool(adaptive)), cs, _stream(c)),
+        "ba_dual_ascent")
+    LAUNCHES["dual_step"] += 1
+    return lam_out, iters
 
 
 def _boost_sweep(g_ord, sel, left, kappa_max: float, keep_left: bool):

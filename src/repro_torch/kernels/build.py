@@ -36,7 +36,9 @@ SIGNATURES = {
         "ba_rowmax": ((_P, _P, _I, _I, _I, _P), _I),
         "ba_matvec": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "ba_matvec_t": ((_P, _P, _P, _I, _I, _P), _I),
-        "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _P), _I),
+        "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _I, _P), _I),
+        "ba_dual_ascent": ((_P,) * 9 + (_I, _I, _F, _I, _F, _I, _I, _P), _I),
+        "ba_dual_smem_limit": ((), _Z),
         "ba_boost_sweep": ((_P,) * 5 + (_I, _I, _I, _I, _F, _P), _I),
         "ba_boost_smem_limit": ((), _Z),
     },

@@ -262,43 +262,295 @@ __global__ void matvec_t_kernel(const float* __restrict__ c,
 }
 
 // ------------------------------------------------------------- dual_step
-// Launch 1: one block per row i forms the denominator sum_k c_ik lam_k,
-// then x_i = min((w_pow_i / max(denom, 1e-12))^(1/beta), xcap_i), masked.
-__global__ void dual_x_kernel(const float* __restrict__ c,
-                              const float* __restrict__ lam,
-                              const float* __restrict__ w_pow,
-                              const float* __restrict__ xcap,
-                              const int* __restrict__ mask,
-                              float* __restrict__ x, int K, float inv_beta) {
-  __shared__ float sh[32];
-  const int i = blockIdx.x;
-  const float* row = c + (size_t)i * K;
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    acc = __fmaf_rn(row[k], lam[k], acc);
-  acc = block_reduce<SumOp>(acc, sh);
-  if (threadIdx.x == 0) {
-    const float denom = fmaxf(acc, kDualEps);
-    float xi = powf(w_pow[i] / denom, inv_beta);
-    xi = fminf(xi, xcap[i]);
-    x[i] = mask[i] != 0 ? xi : 0.0f;
+// repro's dual_step (pallas_call at budget_alloc.py:165) is one SP1
+// iteration, and repro runs the SP1 loop around it on the device, as a
+// lax.while_loop whose stop rule never leaves the chip
+// (repro/core/waterfill.py).  dual_kernel is one thread-block cluster of
+// cs blocks (cs from repro_torch/kernels/budget_alloc.py:dual_split) that
+// runs either one iteration (step mode: x and g out) or the whole loop with
+// its stop rule (ascent mode: lam and the iteration count out), so an SP1
+// solve is one launch with no host round trip.  Bound: not the card's
+// rates (4*M*K operations an iteration) but the cluster's cs SMs alone:
+// each iteration reads c (M*K*4 bytes, in L2 at the scheduler's sizes)
+// twice from L2, which sets the time at M=32, K=16384, and at the paper's
+// size the latency of those reads and of two cluster barriers does.
+//
+// One iteration:
+//  1. Denominators.  Row i belongs to block rank i % cs.  A thread runs an
+//     FMA chain over k = t, t + 256, ... and a block tree sum gives sum_k
+//     c_ik lam_k in dual_step's original order (a block of 256 threads per
+//     row), so x is bitwise what that order gives; kDualRows rows of a block
+//     run interleaved.  x_i goes into every block's shared memory
+//     (distributed shared memory).
+//  2. Cluster barrier: x is everywhere, and every read of lam is done.
+//  3. Load.  Block rank b owns the columns [4 floor(b Q / cs), 4 floor((b
+//     + 1) Q / cs)), Q = ceil(K / 4); a thread sums c_ik x_i over rows
+//     0..M-1 in order, one FMA each, for kDualCols columns at once, read 16
+//     bytes at a time where the rows of c are 16-byte aligned (load_step);
+//     g_k = (load_k - cap_k) / cap_safe_k, bitwise the twin's given x.
+// Ascent mode goes on:
+//  4. lam_k = clamp(lam_k exp(eta g_k), 1e-12, 1e12) on the block's own
+//     columns, into the output (the input is read only in the first
+//     iteration), and the block's part of the KKT error max(max(g, 0),
+//     lam |g|), with NaN propagated as torch's clamp and amax propagate it.
+//     Every block stores its part into every block's shared memory.
+//  5. Cluster barrier.  It releases and acquires at cluster scope, so the
+//     lam stripes written to global memory are seen by every block's next
+//     step 1 (which reads lam through L2, never a stale L1 line).  Each
+//     block combines the cs parts itself and applies the stop rule (it <
+//     max_iters and viol > tol) and the step size: the same values and the
+//     same code in every block, so the blocks stay in lockstep without a
+//     broadcast or a third barrier.
+// Remote stores into a block's shared memory happen only between barriers
+// that the block takes part in, so no block exits while another still
+// writes to it.
+// Loads in flight a thread: kDualRows rows x kDualSteps columns in step 1,
+// kDualLoadRows rows (half as many with 4-byte loads) x kDualCols columns
+// in step 3; each depth the fastest tried on an H100.
+constexpr int kDualRows = 4;
+constexpr int kDualSteps = 8;
+constexpr int kDualLoadRows = 8;
+constexpr int kDualCols = 8;
+constexpr float kLamMin = 1e-12f, kLamMax = 1e12f;
+// x (M floats) lives in dynamic shared memory, at most this many bytes.
+constexpr size_t kSmemXMax = 200 * 1024;
+
+struct DualArgs {
+  const float* c;
+  const float* lam_in;
+  const float* w_pow;
+  const float* xcap;
+  const int* mask;
+  const float* cap;
+  const float* cap_safe;
+  float* x;           // step mode: x [M] and g [K]; null in ascent mode
+  float* g;
+  float* lam;         // ascent mode: lam [K] and the iteration count; null
+  int* iters;         //   in step mode
+  int M, K;
+  float inv_beta;
+  int max_iters;
+  float tol;
+  int adaptive;
+};
+
+// max and clamp that return NaN when an operand is NaN (torch.amax,
+// torch.maximum and torch.clamp do; fmaxf and fminf drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float nan_clamp(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+struct NanMaxOp {
+  __device__ static float id() { return -INFINITY; }
+  __device__ static float op(float a, float b) { return nan_max(a, b); }
+};
+
+// A barrier over the cluster (one block: over the block) that releases
+// every thread's earlier stores, global and shared, and acquires them.
+__device__ __forceinline__ void cluster_barrier(int cs) {
+  if (cs > 1) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
   }
 }
 
-// Launch 2: one thread per column k sums the load over rows 0..M-1 in
-// order (the TPU kernel's sequential grid carry, turned into a loop inside
-// the thread), then g_k = (load_k - cap_k) / cap_safe_k.
-__global__ void dual_g_kernel(const float* __restrict__ c,
-                              const float* __restrict__ x,
-                              const float* __restrict__ cap,
-                              const float* __restrict__ cap_safe,
-                              float* __restrict__ g, int M, int K) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  float load = 0.0f;
-  for (int i = 0; i < M; ++i)
-    load = __fmaf_rn(c[(size_t)i * K + k], x[i], load);
-  g[k] = (load - cap[k]) / cap_safe[k];
+// v[r] = block_reduce<SumOp>(v[r]) for r < n <= R at once: the same warp
+// and block trees, so each row's sum is bitwise what block_reduce gives.
+// The totals land in every thread of warp 0 (R <= 32).
+template <int R>
+__device__ void block_sum_rows(float (&v)[R], int n, float (*sh)[32]) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n) break;
+    v[r] = warp_reduce<SumOp>(v[r]);
+    if (lane == 0) sh[r][wid] = v[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n) break;
+    v[r] = (threadIdx.x < nwarps) ? sh[r][threadIdx.x] : SumOp::id();
+    if (wid == 0) v[r] = warp_reduce<SumOp>(v[r]);
+  }
+  __syncthreads();
+}
+
+// Steps 3 and 4 on this block's columns [k0, k1) (multiples of 4 apart
+// from K): a thread takes kDualCols columns a pass, as two quads of 4
+// adjacent columns read with 16-byte loads where every row of c is 16-byte
+// aligned (kVec), else as columns 256 apart read one float at a time.  Rows
+// in order, kRows of them loaded before their FMAs.  Writes g (step mode)
+// or lam (ascent mode); returns the thread's part of the KKT error.
+template <bool kVec>
+__device__ __forceinline__ float load_step(const DualArgs& a,
+                                           const float* xs,
+                                           const float* lam_src, int k0,
+                                           int k1, float eta) {
+  constexpr int kRows = kVec ? kDualLoadRows : kDualLoadRows / 2;
+  const int M = a.M, K = a.K;
+  const bool ascent = a.lam != nullptr;
+  float part = NanMaxOp::id();
+  for (int kb = k0 + (kVec ? 4 : 1) * (int)threadIdx.x; kb < k1;
+       kb += kDualCols * kThreads) {
+    int col[kDualCols];
+    float ld[kDualCols], cp[kDualCols], cps[kDualCols], lo[kDualCols];
+#pragma unroll
+    for (int j = 0; j < kDualCols; ++j) {        // the columns' own operands
+      col[j] = kVec ? kb + (j / 4) * 4 * kThreads + j % 4 : kb + j * kThreads;
+      const bool in = col[j] < k1;
+      ld[j] = 0.0f;
+      cp[j] = in ? a.cap[col[j]] : 0.0f;
+      cps[j] = in ? a.cap_safe[col[j]] : 1.0f;
+      lo[j] = (ascent && in) ? lam_src[col[j]] : 0.0f;
+    }
+    for (int i0 = 0; i0 < M; i0 += kRows) {
+      float v[kRows][kDualCols], xi[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        const float* row = a.c + (size_t)i * K;
+        xi[r] = i < M ? xs[i] : 0.0f;
+        if constexpr (kVec) {
+#pragma unroll
+          for (int h = 0; h < kDualCols / 4; ++h) {
+            const int k = col[4 * h];
+            const float4 f = (i < M && k < k1)
+                ? __ldg(reinterpret_cast<const float4*>(row + k))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            v[r][4 * h] = f.x;
+            v[r][4 * h + 1] = f.y;
+            v[r][4 * h + 2] = f.z;
+            v[r][4 * h + 3] = f.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kDualCols; ++j)
+            v[r][j] = (i < M && col[j] < k1) ? __ldg(row + col[j]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (i0 + r >= M) break;
+#pragma unroll
+        for (int j = 0; j < kDualCols; ++j)
+          ld[j] = __fmaf_rn(v[r][j], xi[r], ld[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDualCols; ++j) {
+      const int k = col[j];
+      if (k >= k1) continue;
+      const float gk = (ld[j] - cp[j]) / cps[j];
+      if (!ascent) {
+        a.g[k] = gk;
+        continue;
+      }
+      const float step = eta * gk;
+      const float ln = nan_clamp(lo[j] * expf(step), kLamMin, kLamMax);
+      a.lam[k] = ln;
+      const float feas = gk != gk ? gk : fmaxf(gk, 0.0f);
+      part = nan_max(part, nan_max(feas, ln * fabsf(gk)));
+    }
+  }
+  return part;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dual_kernel(DualArgs a) {
+  extern __shared__ float xs[];                  // x, all M rows
+  __shared__ float sh[kDualRows][32];
+  __shared__ float parts[kMaxCluster];           // the blocks' KKT parts
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, M = a.M, K = a.K;
+  // this block's columns [k0, k1): its share of the Q quads of 4 columns
+  const int Q = (K + 3) / 4;
+  const int k0 = 4 * (int)((long long)rank * Q / cs);
+  const int k1 = min(4 * (int)((long long)(rank + 1) * Q / cs), K);
+  const bool vec = K % 4 == 0 && (reinterpret_cast<size_t>(a.c) & 15) == 0;
+  const bool ascent = a.lam != nullptr;
+  if (ascent && a.max_iters <= 0) {              // no iteration: lam = lam0
+    for (int k = k0 + t; k < k1; k += kThreads) a.lam[k] = a.lam_in[k];
+    if (rank == 0 && t == 0) *a.iters = 0;
+    return;
+  }
+  cluster_barrier(cs);                           // every block runs
+  const float* lam_src = a.lam_in;
+  int it = 0;
+  float eta = 0.5f, viol_prev = INFINITY;
+  for (;;) {
+    if (ascent && !a.adaptive)                   // 0.5 / (1 + 0.001 it)
+      eta = 0.5f / __fmaf_rn(0.001f, (float)it, 1.0f);
+    // 1. denominators and x of this block's rows
+    for (int i0 = rank; i0 < M; i0 += kDualRows * cs) {
+      const int nr = min(kDualRows, (M - i0 + cs - 1) / cs);
+      float acc[kDualRows];
+#pragma unroll
+      for (int r = 0; r < kDualRows; ++r) acc[r] = 0.0f;
+      // kDualSteps of a thread's columns are loaded before their FMAs
+      for (int kb = t; kb < K; kb += kDualSteps * kThreads) {
+        float l[kDualSteps], v[kDualRows][kDualSteps];
+#pragma unroll
+        for (int u = 0; u < kDualSteps; ++u) {
+          const int k = kb + u * kThreads;
+          l[u] = k < K ? __ldcg(lam_src + k) : 0.0f;
+#pragma unroll
+          for (int r = 0; r < kDualRows; ++r)
+            v[r][u] = (k < K && r < nr)
+                          ? __ldg(a.c + (size_t)(i0 + r * cs) * K + k)
+                          : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kDualSteps; ++u) {
+          if (kb + u * kThreads >= K) break;
+#pragma unroll
+          for (int r = 0; r < kDualRows; ++r)
+            acc[r] = __fmaf_rn(v[r][u], l[u], acc[r]);
+        }
+      }
+      block_sum_rows<kDualRows>(acc, nr, sh);
+#pragma unroll
+      for (int r = 0; r < kDualRows; ++r) {
+        if (t != r || r >= nr) continue;
+        const int i = i0 + r * cs;
+        const float denom = fmaxf(acc[r], kDualEps);
+        float xi = powf(a.w_pow[i] / denom, a.inv_beta);
+        xi = fminf(xi, a.xcap[i]);
+        xi = a.mask[i] != 0 ? xi : 0.0f;
+        for (int q = 0; q < cs; ++q) cluster.map_shared_rank(xs, q)[i] = xi;
+        if (!ascent) a.x[i] = xi;
+      }
+    }
+    // 2. x is in every block; lam is no longer read
+    cluster_barrier(cs);
+    // 3. load and g on this block's columns; 4. the update and the KKT part
+    float part = vec ? load_step<true>(a, xs, lam_src, k0, k1, eta)
+                     : load_step<false>(a, xs, lam_src, k0, k1, eta);
+    if (!ascent) return;
+    part = block_reduce<NanMaxOp>(part, sh[0]);
+    if (t == 0)
+      for (int q = 0; q < cs; ++q) cluster.map_shared_rank(parts, q)[rank] = part;
+    // 5. lam and every block's part are published
+    cluster_barrier(cs);
+    float viol = parts[0];
+    for (int q = 1; q < cs; ++q) viol = nan_max(viol, parts[q]);
+    ++it;
+    if (a.adaptive) {
+      eta = viol <= viol_prev ? fminf(eta * 1.2f, 1.5f)
+                              : fmaxf(eta * 0.7f, 0.2f);
+      viol_prev = viol;
+    }
+    lam_src = a.lam;
+    if (!(it < a.max_iters && viol > a.tol)) break;
+  }
+  if (rank == 0 && t == 0) *a.iters = it;
 }
 
 // ----------------------------------------------------------- boost sweep
@@ -380,6 +632,38 @@ int launch_row_clusters(void (*kernel)(Params...), int M, int cs,
   return (int)cudaGetLastError();
 }
 
+// One cluster of cs blocks running dual_kernel, x in M * 4 bytes of
+// dynamic shared memory.
+int launch_dual(const DualArgs& a, int cs, cudaStream_t stream) {
+  if (cs != 1 && cs != 2 && cs != 4 && cs != kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (a.M < 0 || a.K < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.M * sizeof(float);
+  if (smem > kSmemXMax) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemXMax);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, dual_kernel, a);
+  if (e != cudaSuccess) {
+    cudaGetLastError();                  // clear it for the next launch
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -405,20 +689,33 @@ int ba_matvec_t(const float* c, const float* x, float* load, int M, int K,
   return (int)cudaGetLastError();
 }
 
+// dual_kernel on one cluster of cs blocks (1, 2, 4 or 8; the caller picks
+// it, dual_split).  x needs M * 4 <= ba_dual_smem_limit() bytes of shared
+// memory.
 int ba_dual_step(const float* c, const float* lam, const float* w_pow,
                  const float* xcap, const int* mask, const float* cap,
                  const float* cap_safe, float* x, float* g, int M, int K,
-                 float inv_beta, cudaStream_t stream) {
-  if (M > 0)
-    dual_x_kernel<<<M, kThreads, 0, stream>>>(c, lam, w_pow, xcap, mask, x,
-                                              K, inv_beta);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  if (K > 0)
-    dual_g_kernel<<<cdiv(K, kThreads), kThreads, 0, stream>>>(
-        c, x, cap, cap_safe, g, M, K);
-  return (int)cudaGetLastError();
+                 float inv_beta, int cs, cudaStream_t stream) {
+  const DualArgs a = {c, lam, w_pow, xcap, mask, cap, cap_safe, x, g,
+                      nullptr, nullptr, M, K, inv_beta, 0, 0.0f, 0};
+  return launch_dual(a, cs, stream);
 }
+
+// The whole SP1 dual ascent from lam0 = lam: lam_out [K] and *iters.  tol
+// is float32; adaptive is 0 (step 0.5 / (1 + 0.001 it)) or 1 (x1.2 while
+// the KKT error does not rise, else x0.7, kept in [0.2, 1.5]).
+int ba_dual_ascent(const float* c, const float* lam, const float* w_pow,
+                   const float* xcap, const int* mask, const float* cap,
+                   const float* cap_safe, float* lam_out, int* iters, int M,
+                   int K, float inv_beta, int max_iters, float tol,
+                   int adaptive, int cs, cudaStream_t stream) {
+  const DualArgs a = {c, lam, w_pow, xcap, mask, cap, cap_safe, nullptr,
+                      nullptr, lam_out, iters, M, K, inv_beta, max_iters,
+                      tol, adaptive};
+  return launch_dual(a, cs, stream);
+}
+
+size_t ba_dual_smem_limit(void) { return kSmemXMax; }
 
 // kappa_cap is kappa_max - 1, rounded to float32 by the caller.  left_out
 // may be null only when K * 4 <= ba_boost_smem_limit() (the leftover then

@@ -13,9 +13,11 @@ loads accumulate in index order.
 Bitwise contracts (kernel == twin == ``repro``): ``rowmax_ref``,
 ``matvec_t_ref`` (``repro``'s jnp ``x @ c``), ``dual_residual_ref`` (the
 ``g`` of ``dual_step_ref`` given ``x``), ``boost_scan_ref`` and
-``swap_eval_ref``.  ``matvec_ref`` and the ``x`` of ``dual_step_ref`` hold
-to 1e-5 relative: their K-long sums are tree reductions whose order is
-the device's, and ``pow`` differs by an ulp between libraries.
+``swap_eval_ref``.  ``dual_ascent_ref`` run over the card's ``dual_step``
+is bitwise the card's ``dual_ascent``.  ``matvec_ref`` and the ``x`` of
+``dual_step_ref`` hold to 1e-5 relative: their K-long sums are tree
+reductions whose order is the device's, and ``pow`` differs by an ulp
+between libraries.
 
 DP clip: ``clip_accumulate_ref`` is bitwise the kernel's (rows in order,
 each step a correctly rounded FMA, :func:`repro_torch.fp.fma_exact`);
@@ -39,6 +41,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..fp import fma, fma_exact, seq_dot
@@ -78,6 +81,47 @@ def dual_step_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     x = torch.minimum(x, xcap.float())
     x = torch.where(mask.bool(), x, torch.zeros_like(x))
     return x, dual_residual_ref(c, x, cap, cap_safe)
+
+
+def _kkt(lam_new, g) -> float:
+    """KKT error max(primal infeasibility, complementary slackness)."""
+    feas = torch.amax(torch.clamp(g, min=0.0))
+    comp = torch.amax(lam_new * torch.abs(g))
+    return torch.maximum(feas, comp).item()
+
+
+def dual_ascent_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float,
+                    *, adaptive: bool, max_iters: int, tol: float,
+                    step=dual_step_ref):
+    """The SP1 dual ascent from ``lam`` (``repro``'s ``lax.while_loop`` in
+    ``alpha_fair_waterfill``): ``(lam [K], iters)``, ``iters`` an int32
+    scalar.
+
+    Each iteration is one ``step`` (:func:`dual_step_ref`, or the card's
+    ``dual_step`` launcher to replay the per-iteration loop there), then
+    ``lam = clamp(lam * exp(eta * g), 1e-12, 1e12)`` and the KKT error;
+    the stop rule ``it < max_iters and error > tol`` is checked on the host
+    every iteration (one device sync each), so the iteration count is
+    ``repro``'s exactly.  The step size is host arithmetic in float32 with
+    ``repro``'s rounding: ``0.5 / (1 + 0.001 it)``, or with ``adaptive``
+    0.5 grown x1.2 while the error does not rise, else shrunk x0.7, kept
+    in [0.2, 1.5]."""
+    F32 = np.float32
+    tol32 = float(F32(tol))
+    it, viol = 0, float("inf")
+    eta, viol_prev = F32(0.5), F32(np.inf)
+    while it < max_iters and viol > tol32:
+        _, g = step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta)
+        if not adaptive:    # decaying step; XLA fuses 1 + 0.001 * it
+            eta = F32(0.5) / F32(np.float64(F32(0.001)) * it + 1.0)
+        lam = torch.clamp(lam * torch.exp(float(eta) * g), 1e-12, 1e12)
+        viol = _kkt(lam, g)
+        if adaptive:
+            eta = (min(eta * F32(1.2), F32(1.5)) if F32(viol) <= viol_prev
+                   else max(eta * F32(0.7), F32(0.2)))
+            viol_prev = F32(viol)
+        it += 1
+    return lam, torch.tensor(it, dtype=torch.int32, device=lam.device)
 
 
 def boost_sweep_ref(g_ord, sel, left, kappa_max: float):

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, and no hidden device
 fallback.
 
-* Neither ``chip_smoke.py`` nor any module under ``src/repro_torch/``
-  imports ``jax`` or ``repro`` (checked on the syntax tree, so a lazy
-  import inside a function counts too).
+* Neither ``chip_smoke.py``, the A/B scripts, nor any module under
+  ``src/repro_torch/`` imports ``jax`` or ``repro`` (checked on the syntax
+  tree, so a lazy import inside a function counts too).
 * The input constructors default to CUDA and raise when it is unavailable.
 * ``chip_smoke.py`` exits nonzero and prints no verdict without CUDA, and
   outside a checkout of the repository.
@@ -31,6 +31,8 @@ from repro_torch.training import TrainConfig, make_state
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the kernel A/B scripts, run on the card beside chip_smoke.py
+AB_SCRIPTS = [ROOT / "decode_ab.py", ROOT / "dual_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -44,7 +46,7 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
+@pytest.mark.parametrize("path", PORT_FILES + AB_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
