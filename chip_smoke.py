@@ -13,7 +13,10 @@ Phases (each raises on failure; nothing is caught):
      1e-5 relative otherwise; matvec also bitwise from launch to launch),
      with CUDA-event times beside the twin's, a one-call PyTorch
      yardstick where one exists, and the bound; rowmax's and matvec's
-     cluster size and block count per launch; the launch floor (an empty
+     cluster size and block count per launch, and the boost sweeps'
+     cluster size, tile and block count; the sweeps alone at the large
+     round's M, N, K with C=8 (the swap beam's few candidates) and at a
+     K whose leftover stays in device memory; the launch floor (an empty
      kernel launched back to back) beside the card's name and power limit;
      dual_step's ascent mode (the whole SP1 loop in one launch) at the
      paper, large and ragged shapes against the per-iteration loop over
@@ -28,11 +31,13 @@ Phases (each raises on failure; nothing is caught):
      loop's on the same operands;
   5. one round at the largest sched_scale geometry (M=32, N=32, K=16384,
      refine on), with its invariants, a swap sweep of C=256 candidates
-     per analyst, and SP1 as in phase 4 (one launch, the loop's count and
-     lam);
+     per analyst, SP1 as in phase 4 (one launch, the loop's count and
+     lam), and repro's n_allocated, selected pairs and efficiency for the
+     same round (REPRO_LARGE);
   6. where the time goes: SP1 and SP2 spans per round and, from
-     torch.profiler, the card's kernel time and busy share (separate
-     traced runs, after the untimed checks);
+     torch.profiler, the card's kernel time and busy share, and the boost
+     sweep kernel's time and share of it (separate traced runs, after the
+     untimed checks); SP2's card time in the M=32 round by stage;
   7. the DP clip kernels (rownorms, clip_accumulate) against their twins
      on the card at the FL path's shapes (B=6 and B=8 rows of P =
      124,668,672 flaas-100m parameters), a ragged P and B=1, with a zero
@@ -173,7 +178,19 @@ REPLACES = {
 # (name, M analysts, N pipelines, K blocks, C swap candidates per analyst)
 SHAPES = [("paper", 6, 25, 2000, 156),
           ("large", 32, 32, 16384, 256),
-          ("ragged", 5, 7, 53257, 11)]   # K*4 > 200 KB: leftover in HBM
+          ("ragged", 5, 7, 53257, 11)]   # K % 4 != 0: 4-byte loads
+# boost_scan and swap_eval alone: the large round's M, N, K with the swap
+# beam's few candidates, and a K whose leftover stripes exceed 8 x 200 KB
+# of shared memory (they stay in device memory)
+SWEEP_SHAPES = [("beam", 32, 32, 16384, 8), ("spill", 1, 3, 450_000, 2)]
+# repro's own values for phase 5's round (seed 0, beta 2.2, refine on),
+# computed with repro's jnp path on a CPU: capacity -> (n_allocated,
+# efficiency, selected (analyst, pipeline) pairs); at 3.0 analysts 9 and
+# 24 get all 32 pipelines
+REPRO_LARGE = {1.0: (0, None, []),
+               3.0: (64, 0.7299625,
+                     [[i, n] for i in (9, 24) for n in range(32)])}
+REPRO_EFF_RTOL = 1e-5
 # (name, M, K): the regime repro/kernels/budget_alloc.py was written for
 # ("M ~ 10^3 analysts, K ~ 10^5 live blocks"), 512 MB of float32, beyond
 # the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
@@ -346,8 +363,11 @@ def kernel_cases(d, M, N, K, C):
     cap_safe = torch.clamp(d["cap"], min=1e-12)
     dual_args = (d["gamma"], d["lam"], d["w_pow"], d["xcap"], d["mask"],
                  d["cap"], cap_safe)
-    n_sel = int(d["sel"].sum())
-    n_sel_c = int(d["sel_c"].sum())
+    # the sweeps' work is a divide, a min and an FMA per nonzero demand
+    # entry of a selected visit: count what these inputs need
+    nnz = (d["g_ord"] != 0).sum(-1).double()                   # [M, N]
+    sweep_ops = int(4 * (d["sel"].double() * nnz).sum())
+    sweep_ops_c = int(4 * (d["sel_c"].double() * nnz[:, None, :]).sum())
 
     def cmp_dual(got, want):
         xk, gk = got
@@ -370,14 +390,14 @@ def kernel_cases(d, M, N, K, C):
                        lambda: ref.boost_scan_ref(d["g_ord"], d["sel"],
                                                   d["left"], kmax),
                        None, cmp_pair,
-                       4 * (M * N * K + 2 * M * N + 2 * M * K), 6 * n_sel * K),
+                       4 * (M * N * K + 2 * M * N + 2 * M * K), sweep_ops),
         "swap_eval": (lambda: ba.swap_eval(d["g_ord"], d["sel_c"],
                                            d["left_c"], kmax),
                       lambda: ref.swap_eval_ref(d["g_ord"], d["sel_c"],
                                                 d["left_c"], kmax),
                       None, lambda g, w: check("swap_eval", g, w, True),
                       4 * (M * N * K + 2 * M * C * N + M * C * K),
-                      6 * n_sel_c * K),
+                      sweep_ops_c),
     }
 
 
@@ -500,15 +520,20 @@ def phase_kernels(card):
             got = run()
             torch.cuda.synchronize()
             err = cmp(got, twin())
-            grid = ba.LAST_GRID.get(name) if name in ("rowmax", "matvec") \
-                else None
-            geo = "" if grid is None else \
-                f"cs={grid[0]} blocks={grid[0] * grid[1]}  "
+            grid = geo = None
+            if name in ("rowmax", "matvec"):
+                grid = dict(cs=ba.LAST_GRID[name][0],
+                            blocks=ba.LAST_GRID[name][0] * ba.LAST_GRID[name][1])
+            elif name in ("boost_scan", "swap_eval"):
+                grid = dict(zip(("cs", "T", "blocks"),
+                                ba.LAST_GRID["boost_sweep"]))
+            if grid is not None:
+                geo = " ".join(f"{k}={v}" for k, v in grid.items()) + "  "
             ms = time_ms(run, 3 if name in slow else 20)
             plain = time_ms(twin, 1 if name in slow else plain_reps)
             lib_ms = time_ms(lib, 20) if lib is not None else None
             b, by = bound_ms(nbytes, flops)
-            log(f"  {name:10s} {shape:6s} {dims}: {geo}max_abs_err {err:.3e}"
+            log(f"  {name:10s} {shape:6s} {dims}: {geo or ''}max_abs_err {err:.3e}"
                 f"  kernel {ms:.4f} ms  twin {plain:.4f} ms  yardstick "
                 f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
                 f"{b:.6f} ms ({by}, {card})")
@@ -517,7 +542,7 @@ def phase_kernels(card):
             nums = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         library_ms=lib_ms, shape=dims)
             if grid is not None:
-                nums.update(cs=grid[0], blocks=grid[0] * grid[1])
+                nums.update(grid)
             r["by_shape"][shape] = nums
             if shape == "large":     # the JSON line's top level: large round
                 r.update(nums)
@@ -530,6 +555,13 @@ def phase_kernels(card):
             ascent_case(d, shape, M, K, floor, card))
         if shape == "large":
             rows["dual_step"].update(rows["dual_step"]["by_shape"][shape])
+        del d
+    for shape, M, N, K, C in SWEEP_SHAPES:
+        d = make_inputs(M, N, K, C)
+        cases = kernel_cases(d, M, N, K, C)
+        measure(shape, f"M={M} N={N} K={K} C={C}",
+                {k: cases[k] for k in ("boost_scan", "swap_eval")},
+                slow=("boost_scan", "swap_eval"))
         del d
     shape, M, K = PROD
     d = make_dense_inputs(M, K)
@@ -641,14 +673,23 @@ def phase_large_round():
         for f in ("efficiency", "fairness", "platform", "jain"):
             assert bool(torch.isfinite(getattr(res, f))), f
         assert cap == 1.0 or int(res.n_allocated) > 0
+        n_ref, eff_ref, sel_ref = REPRO_LARGE[cap]
+        assert int(res.n_allocated) == n_ref, (int(res.n_allocated), n_ref)
+        assert torch.nonzero(res.selected).tolist() == sel_ref, \
+            torch.nonzero(res.selected).tolist()
+        if eff_ref is not None:
+            assert abs(float(res.efficiency) - eff_ref) <= \
+                REPRO_EFF_RTOL * eff_ref, (float(res.efficiency), eff_ref)
         assert ba.LAUNCHES["swap_eval"] == 1 and \
             ba.LAST_GRID["swap_eval"] == (M, 256), \
             (ba.LAUNCHES, ba.LAST_GRID)
         log(f"  capacity {cap}: wall {wall:.3f} s, n_allocated "
             f"{int(res.n_allocated)}, SP1 iters {int(res.sp1_iters)} in one "
             f"launch (the per-iteration loop: equal, lam bitwise), "
-            f"efficiency {float(res.efficiency):.6g}, swap sweep grid "
-            f"(analysts, candidates) {ba.LAST_GRID['swap_eval']}, launches "
+            f"efficiency {float(res.efficiency):.7g} (repro: n_allocated, "
+            f"efficiency and selected pairs equal), swap sweep grid "
+            f"(analysts, candidates) {ba.LAST_GRID['swap_eval']} at (cs, T) "
+            f"{ba.sweep_split(*ba.LAST_GRID['swap_eval'], K)}, launches "
             f"{launched}")
     return counts
 
@@ -709,6 +750,35 @@ def _device_kernels(fn):
         wall = (time.perf_counter() - t0) * 1e3
     rows = _kernel_rows(prof)
     return sum(r[1] for r in rows), rows, wall
+
+
+def _stage_device_ms(fn, targets):
+    """Card time of the kernels launched inside each ``(module, attribute,
+    label)`` of ``targets`` while ``fn()`` runs: each target runs inside a
+    ``torch.profiler.record_function(label)`` range, and a range's device
+    time totals its kernels'.  Returns ``{label: ms}``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    orig = {label: getattr(mod, attr) for mod, attr, label in targets}
+
+    def labelled(label):
+        def run(*a, **k):
+            with record_function(label):
+                return orig[label](*a, **k)
+        return run
+
+    for mod, attr, label in targets:
+        setattr(mod, attr, labelled(label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, label in targets:
+            setattr(mod, attr, orig[label])
+    return {e.key: getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)) / 1e3
+            for e in prof.key_averages() if e.key in orig}
 
 
 def _host_ops(fn):
@@ -774,6 +844,9 @@ def phase_trace():
     from repro_torch.core import (SchedulerConfig, SimConfig,
                                   generate_episode, run_episode,
                                   schedule_round)
+    from repro_torch.core import hotpath
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core import swap
     ep = generate_episode(SimConfig(seed=0), device="cuda")
     big = _round(32, 16384, 32, cap=3.0)
     cases = [
@@ -798,9 +871,24 @@ def phase_trace():
             top = ", ".join(f"{n[:40]} {ms:.2f}" for n, ms in rows[:5])
             busy = (f"{dev_ms / (wall * 1e3):.4f}" if dev_ms > 0
                     else "not measured (profiler saw no device time)")
+            sweep = sum(ms for n, ms in rows if "sweep_tile_kernel" in n)
             line += (f"; card busy {dev_ms / rounds:.2f} ms/round, busy "
-                     f"share {busy}; top kernels (ms): {top}")
+                     f"share {busy}; top kernels (ms): {top}; boost sweep "
+                     f"(sweep_tile_kernel) {sweep / rounds:.4f} ms/round, "
+                     f"{sweep / dev_ms if dev_ms > 0 else 0.0:.4f} of card "
+                     f"time")
         log(line)
+    # SP2's card time in the M=32 round by stage: the candidates' selection
+    # sums (swap._selection_sums, elementwise), the two sweeps, the rest
+    label, _, fn, _ = cases[-1]
+    ms = _stage_device_ms(fn, [(sch, "pack_all", "sp2"),
+                               (swap, "_selection_sums", "selection sums"),
+                               (hotpath, "swap_eval", "swap_eval"),
+                               (hotpath, "boost_scan", "boost_scan")])
+    rest = ms["sp2"] - sum(v for k, v in ms.items() if k != "sp2")
+    log(f"  {label}: SP2 card time {ms['sp2']:.3f} ms, of which "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items() if k != "sp2")
+        + f", the rest {rest:.3f} (torch.profiler record_function ranges)")
 
 
 def _dp_inputs(B, P, seed=0):

@@ -21,8 +21,9 @@ from .build import library
 LAUNCHES = {"rowmax": 0, "matvec": 0, "matvec_t": 0, "dual_step": 0,
             "boost_scan": 0, "swap_eval": 0}
 # Geometry of the last launch: "rowmax" and "matvec" (cs, M), blocks per
-# row's cluster and rows; "swap_eval" (analysts, candidates).
-LAST_GRID: dict[str, tuple[int, int]] = {}
+# row's cluster and rows; "swap_eval" (analysts, candidates);
+# "boost_sweep" (cs, T, blocks) of the last boost_scan or swap_eval.
+LAST_GRID: dict[str, tuple[int, ...]] = {}
 
 # row_split's constants: the portable cluster size limit, the fewest
 # floats a block of a split row reads (8 KB), and the grid it aims for
@@ -32,6 +33,15 @@ ROW_SPLIT_MIN_CHUNK = 2048
 ROW_SPLIT_BLOCKS = 264
 # dual_split's least stripe of columns a block of the dual cluster keeps.
 DUAL_MIN_STRIPE = 128
+# The boost sweep (csrc kSweepTileMax, kSweepSmemMax): candidates a tile,
+# and the dynamic shared memory a block may take with its leftover
+# stripes in it (past it they stay in device memory).  sweep_split aims a
+# block at SWEEP_SMEM_TARGET, so three of them fit in an SM's 228 KB: the
+# sweep waits on each visit's reductions, and more warps on the same
+# resident leftover hide more of that wait (PERF.md, the boost sweep).
+SWEEP_TILE_MAX = 8
+SWEEP_SMEM_MAX = 200 * 1024
+SWEEP_SMEM_TARGET = 72 * 1024
 
 
 def _lib():
@@ -261,24 +271,76 @@ def dual_ascent(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float, *,
     return lam_out, iters
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sweep_smem(K: int, cs: int, T: int) -> int:
+    """Bytes of dynamic shared memory of a boost-sweep block holding its T
+    leftover stripes: ``T * ls * 4`` with ``ls = 4 * ceil(ceil(K / 4) /
+    cs)``, plus its 8 warps' lists of (offset, g) pairs, 128 * V a warp,
+    where V (float4s a thread holds) is 2 for stripes of up to 2048 floats
+    and 8 above.  Mirrors ``sweep_smem`` in csrc/budget_alloc.cu; above
+    SWEEP_SMEM_MAX the leftover stays in device memory."""
+    ls = 4 * _cdiv(_cdiv(K, 4), cs)
+    v = 2 if ls <= 2048 else 8
+    return 4 * T * ls + 8 * 8 * 128 * v
+
+
+def sweep_split(M: int, C: int, K: int) -> tuple[int, int]:
+    """``(cs, T)`` of the boost sweep over M analysts x C candidates of K
+    blocks: each tile of T candidates of one analyst runs on a cluster of
+    cs blocks, block r keeping the r-th stripe of the T leftover rows.
+
+    T starts at min(C, SWEEP_TILE_MAX) (1 for :func:`boost_scan`), cs at
+    1.  First, while a block would take more than SWEEP_SMEM_TARGET bytes
+    (:func:`sweep_smem`): cs doubles where it may, else T halves, until
+    both are at their limit.  Then, while the grid, M * ceil(C / T) * cs
+    blocks, is under ROW_SPLIT_BLOCKS (two an SM): the same steps.  cs may
+    double while cs < ROW_SPLIT_MAX (8) and K >= 2 * cs *
+    ROW_SPLIT_MIN_CHUNK (each stripe keeps 2048 floats); T halves
+    (rounding up) while T > 1.  N does not enter: a tile meets every visit
+    in turn whatever their number."""
+    T = max(1, min(C, SWEEP_TILE_MAX))
+    cs = 1
+
+    def step() -> bool:
+        nonlocal cs, T
+        if cs < ROW_SPLIT_MAX and K >= 2 * cs * ROW_SPLIT_MIN_CHUNK:
+            cs *= 2
+        elif T > 1:
+            T = (T + 1) // 2
+        else:
+            return False
+        return True
+
+    while sweep_smem(K, cs, T) > SWEEP_SMEM_TARGET and step():
+        pass
+    while M * _cdiv(C, T) * cs < ROW_SPLIT_BLOCKS and step():
+        pass
+    return cs, T
+
+
 def _boost_sweep(g_ord, sel, left, kappa_max: float, keep_left: bool):
     """Launch the boost sweep on ``g_ord [B, N, K]``, ``sel [B, C, N]``
-    int32, ``left [B, C, K]``; returns ``(extras, left_after or None)``."""
+    int32, ``left [B, C, K]`` at ``sweep_split(B, C, K)``; returns
+    ``(extras, left_after or None)``."""
     B, N, K = g_ord.shape
     C = sel.shape[1]
     _check(g_ord, "g_ord", _F32, (B, N, K))
     _check(sel, "sel", _I32, (B, C, N))
     _check(left, "left", _F32, (B, C, K))
-    lib = _lib()
+    cs, T = sweep_split(B, C, K)
     extras = torch.empty((B, C, N), dtype=_F32, device=g_ord.device)
-    spill = K * 4 > lib.ba_boost_smem_limit()
+    spill = sweep_smem(K, cs, T) > SWEEP_SMEM_MAX
     left_out = (torch.empty((B, C, K), dtype=_F32, device=g_ord.device)
                 if keep_left or spill else None)
     kappa_cap = float(torch.tensor(kappa_max - 1.0, dtype=_F32))
-    _raise_on(lib.ba_boost_sweep(
+    _raise_on(_lib().ba_boost_sweep(
         g_ord.data_ptr(), sel.data_ptr(), left.data_ptr(), extras.data_ptr(),
         None if left_out is None else left_out.data_ptr(), B, C, N, K,
-        kappa_cap, _stream(g_ord)), "ba_boost_sweep")
+        kappa_cap, cs, T, _stream(g_ord)), "ba_boost_sweep")
+    LAST_GRID["boost_sweep"] = (cs, T, B * _cdiv(C, T) * cs)
     return extras, left_out
 
 
@@ -288,10 +350,12 @@ def boost_scan(g_ord, sel_ord, leftover, kappa_max: float):
     leftover_after [M, K])``.
 
     Replaces ``repro/kernels/budget_alloc.py:boost_scan`` (batched there by
-    vmap; here the analyst axis is the grid).  Bound: at paper size, the
-    N-step dependency chain per analyst (latency, not bytes: M blocks on
-    132 SMs).  Design: the boost-sweep kernel (see :func:`swap_eval`) with
-    one candidate per analyst; bitwise equal to the twin."""
+    vmap; here the analyst axis is the grid).  Bound: bytes (g and the
+    leftover read once), but the N-step chain per analyst sets the time.
+    Design: the boost-sweep kernel (see :func:`swap_eval`) with tiles of
+    one candidate, each analyst's row split over a cluster of cs blocks
+    (``sweep_split``: up to 8 while the grid is under two blocks an SM);
+    bitwise equal to the twin."""
     _on_cuda(g_ord, sel_ord, leftover)
     M, N, K = g_ord.shape
     extras, left = _boost_sweep(g_ord, sel_ord.reshape(M, 1, N),
@@ -307,12 +371,16 @@ def swap_eval(g_ord, sel_c, leftover_c, kappa_max: float):
 
     Replaces ``repro/kernels/budget_alloc.py:swap_eval`` (the O(N^3 K)
     term of a round).  Bound: bytes -- each candidate's leftover row is
-    read once (M*C*K*4), the analyst's demand rows are shared by its C
-    blocks through L2.  Design: one block per (analyst, candidate); the
-    leftover row stays in dynamic shared memory while K*4 <= 200 KB (in a
-    device buffer above that); per selected visit a block-wide min of
-    left/g over live blocks, the clip, and an FMA debit; unselected
-    visits are skipped.  Bitwise equal to the twin."""
+    read once (M*C*K*4); the analyst's demand rows are shared through L2.
+    Design (``sweep_tile_kernel``): tiles of T candidates of one analyst
+    on clusters of cs blocks, ``(cs, T) = sweep_split(M, C, K)``; each
+    block keeps its stripe of the T leftover rows in shared memory (in a
+    device buffer past SWEEP_SMEM_MAX), and per visit that a candidate of
+    the tile selects loads its stripe of the demand row once (prefetched
+    during the previous visit), lists the nonzero entries, and takes each
+    selecting candidate's min of left/g, the clip and the FMA debit over
+    that list; block minima meet through distributed shared memory.
+    Bitwise equal to the twin."""
     _on_cuda(g_ord, sel_c, leftover_c)
     extras, _ = _boost_sweep(g_ord, sel_c, leftover_c, kappa_max, False)
     LAUNCHES["swap_eval"] += 1

@@ -39,7 +39,7 @@ SIGNATURES = {
         "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _I, _P), _I),
         "ba_dual_ascent": ((_P,) * 9 + (_I, _I, _F, _I, _F, _I, _I, _P), _I),
         "ba_dual_smem_limit": ((), _Z),
-        "ba_boost_sweep": ((_P,) * 5 + (_I, _I, _I, _I, _F, _P), _I),
+        "ba_boost_sweep": ((_P,) * 5 + (_I,) * 4 + (_F, _I, _I, _P), _I),
         "ba_boost_smem_limit": ((), _Z),
     },
     "dp_clip_noise": {

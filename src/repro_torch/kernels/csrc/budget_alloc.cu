@@ -45,17 +45,10 @@ constexpr int kMaxCluster = 8;                // portable cluster size
 constexpr float kNegInit = -1e30f;            // rowmax accumulator start
 constexpr float kDualEps = 1e-12f;
 constexpr float kBoostEps = 1e-9f;
-// Leftover rows up to this many bytes stay in dynamic shared memory for
-// the whole boost sweep; longer rows are updated in the output buffer.
-constexpr size_t kSmemLeftMax = 200 * 1024;
 
 struct MaxOp {
   __device__ static float id() { return -INFINITY; }
   __device__ static float op(float a, float b) { return fmaxf(a, b); }
-};
-struct MinOp {
-  __device__ static float id() { return INFINITY; }
-  __device__ static float op(float a, float b) { return fminf(a, b); }
 };
 struct SumOp {
   __device__ static float id() { return 0.0f; }
@@ -554,98 +547,402 @@ dual_kernel(DualArgs a) {
 }
 
 // ----------------------------------------------------------- boost sweep
-// One block per (batch b, candidate c).  The candidate's leftover row lives
-// in dynamic shared memory (or, when K*4 bytes exceed kSmemLeftMax, in its
-// row of left_out) for the whole N-step sweep; each thread owns the same
-// strided columns at every step, so the leftover needs no barrier of its
-// own.  A selected visit j takes a block-wide min of left_k / max(g_jk,
-// 1e-9) over live k (g_jk > 1e-9), clips it to [0, kappa_max - 1] and
-// debits left_k = fma(-extra, g_jk, left_k).  An unselected visit is
-// skipped: bitwise the same as the reference's debit of 0 * g_j.
-__global__ void boost_sweep_kernel(const float* __restrict__ g_ord,
-                                   const int* __restrict__ sel,
-                                   const float* __restrict__ left_in,
-                                   float* __restrict__ extras,
-                                   float* __restrict__ left_out,
-                                   int C, int N, int K, float kappa_cap,
-                                   int left_in_smem) {
-  extern __shared__ float smem_left[];
-  __shared__ float sh[32];
-  const size_t bc = blockIdx.x;
-  const float* g = g_ord + (bc / C) * (size_t)N * K;
-  const int* s = sel + bc * N;
-  const float* lin = left_in + bc * K;
-  float* left = left_in_smem ? smem_left : left_out + bc * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) left[k] = lin[k];
-  for (int j = 0; j < N; ++j) {
-    if (s[j] == 0) {                     // same branch for the whole block
-      if (threadIdx.x == 0) extras[bc * N + j] = 0.0f;
-      continue;
+// repro's boost_scan and swap_eval (pallas_call at budget_alloc.py:233 and
+// :305) are one computation, the SP2 boost sweep: for each (analyst b,
+// candidate c) a chain over the N visit-ordered demand rows g_j of b; a
+// visit that c selects takes extra = clip(min over live k (g_jk > 1e-9) of
+// left_k / g_jk, 0, kappa_max - 1) and debits left_k = fma(-extra, g_jk,
+// left_k).  Bound: bytes -- the leftover stack M*C*K*4 (512 MB at M=32,
+// C=256, K=16384) read once; the demand rows are shared by an analyst's
+// candidates, and the work is one divide and one FMA per nonzero g_jk of
+// a selected visit (rows are ~10% dense).  Yet each visit waits on the
+// previous one's debit, so the time is that chain's latency times the
+// visits, over the tiles an SM holds at once.  The first port (one block
+// per candidate) streamed g_j from L2 twice a visit, one 4-byte load in
+// flight a thread, and divided at every k.
+//
+// sweep_tile_kernel runs a tile of T candidates of one analyst (T = 1 for
+// boost_scan; cs and T from repro_torch/kernels/budget_alloc.py:
+// sweep_split) on a thread-block cluster of cs blocks.  Block rank r keeps
+// the stripe [k0, k1) of the tile's T leftover rows in shared memory (in
+// left_out when the stripes and lists would exceed kSweepSmemMax: the
+// spill path).  Per visit that a candidate of the tile selects:
+//  1. the block's stripe of g_j, loaded while the previous visit was
+//     reduced (16-byte loads where the rows are aligned), is compacted by
+//     each warp into a list of its nonzero entries in shared memory (a zero
+//     entry is dead for the min, and its debit fma(-e, +0, l) is l);
+//  2. each lane walks its warp's list for every selecting candidate: the
+//     min of left / g over live entries; one redux.sync per warp; the
+//     block's warps after one __syncthreads; and with cs > 1 warp i stores
+//     candidate i's block minimum into every block of the cluster with
+//     st.async, which completes bytes on the target's mbarrier, so no
+//     cluster barrier (and no fence waiting on the loads in flight) is
+//     taken.  min is order-free, so extra is bitwise the twin's;
+//  3. the same list debits every selecting candidate, one __fmaf_rn each.
+// A visit no candidate of the tile selects costs nothing.  A warp's list
+// holds only the warp's own stripe elements, so the leftover is ordered by
+// __syncwarp alone.  Measured and dropped on an H100 (PERF.md): a
+// cluster barrier a visit, per-thread bit masks instead of the lists, every
+// warp storing its own minimum, and finding the min by exact products in
+// double before one divide.
+constexpr int kWarps = kThreads / 32;
+constexpr int kSweepTileMax = 8;             // candidates a tile (mask bits)
+static_assert(kSweepTileMax <= kWarps, "one warp per candidate combines");
+// Dynamic shared memory a sweep block may take: its T leftover stripes
+// and its warps' lists.  Past it the leftover stays in left_out.
+constexpr size_t kSweepSmemMax = 200 * 1024;
+
+struct SweepArgs {
+  const float* g_ord;       // [B, N, K] visit-ordered demand rows
+  const int* sel;           // [B, C, N] selections (nonzero = selected)
+  const float* left_in;     // [B, C, K] initial leftovers
+  float* extras;            // [B, C, N]
+  float* left_out;          // [B, C, K]; null: the leftover is dropped
+  int C, N, K;
+  int T, tiles;             // candidates a tile, tiles an analyst
+  int ls;                   // floats of a candidate's stripe in smem
+  float kappa_cap;
+};
+
+// Offset in the block's stripe of element w of float4 u of chunk ch of
+// this thread: kVec, quads t, t + 256, ...; else floats t, t + 256, ...
+// A chunk is 4 * V * kThreads floats; each warp owns fixed elements.
+template <int V, bool kVec>
+__device__ __forceinline__ int stripe_pos(int ch, int u, int w) {
+  const int t = threadIdx.x;
+  return kVec ? 4 * ((ch * V + u) * kThreads + t) + w
+              : ((ch * V + u) * 4 + w) * kThreads + t;
+}
+
+// This thread's elements of chunk ch of the stripe g[0, L), 0 past L.
+template <int V, bool kVec>
+__device__ __forceinline__ void load_chunk(float4 (&d)[V],
+                                           const float* __restrict__ g,
+                                           int L, int ch) {
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    if constexpr (kVec) {
+      const int p = stripe_pos<V, true>(ch, u, 0);
+      d[u] = p < L ? __ldg(reinterpret_cast<const float4*>(g + p))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      float v[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const int p = stripe_pos<V, false>(ch, u, w);
+        v[w] = p < L ? __ldg(g + p) : 0.0f;
+      }
+      d[u] = make_float4(v[0], v[1], v[2], v[3]);
     }
-    const float* gj = g + (size_t)j * K;
-    float m = INFINITY;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const float d = gj[k];
-      const float r = d > kBoostEps ? left[k] / fmaxf(d, kBoostEps) : INFINITY;
-      m = fminf(m, r);
-    }
-    m = block_reduce<MinOp>(m, sh);
-    const float e = fminf(fmaxf(m, 0.0f), kappa_cap);
-    for (int k = threadIdx.x; k < K; k += blockDim.x)
-      left[k] = __fmaf_rn(-e, gj[k], left[k]);
-    if (threadIdx.x == 0) extras[bc * N + j] = e;
   }
-  if (left_in_smem && left_out != nullptr)
-    for (int k = threadIdx.x; k < K; k += blockDim.x)
-      left_out[bc * K + k] = left[k];
+}
+
+// The warp's nonzero elements of a loaded chunk as (stripe offset, g)
+// pairs into its list; returns their count (the same in every lane).
+template <int V, bool kVec>
+__device__ __forceinline__ int compact(const float4 (&d)[V], float2* list,
+                                       int ch) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  int n = 0;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const float v[4] = {d[u].x, d[u].y, d[u].z, d[u].w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const bool nz = __float_as_uint(v[w]) != 0u;      // +0 only is skipped
+      const unsigned bal = __ballot_sync(0xffffffffu, nz);
+      if (nz)
+        list[n + __popc(bal & below)] =
+            make_float2(__int_as_float(stripe_pos<V, kVec>(ch, u, w)), v[w]);
+      n += __popc(bal);
+    }
+  }
+  return n;
+}
+
+// Copy L floats (16 bytes at a time with kVec: L % 4 == 0, both aligned).
+template <bool kVec>
+__device__ __forceinline__ void copy_stripe(float* __restrict__ dst,
+                                            const float* __restrict__ src,
+                                            int L) {
+  if constexpr (kVec) {
+#pragma unroll 4
+    for (int q = threadIdx.x; q < L / 4; q += kThreads)
+      reinterpret_cast<float4*>(dst)[q] =
+          reinterpret_cast<const float4*>(src)[q];
+  } else {
+#pragma unroll 4
+    for (int k = threadIdx.x; k < L; k += kThreads) dst[k] = src[k];
+  }
+}
+
+// The tile's visits in order, 32 at a time: lane l holds the selection
+// bits (bit i: candidate i of the tile) of visit j0 + l.  Every warp of
+// the cluster walks the same sequence; the block that writes extras
+// stores 0 for every visit a candidate does not select.
+struct VisitCursor {
+  const int* sel;       // the tile's first selection row
+  float* extras;        // the tile's first extras row, or null
+  int N, nt, j0;
+  unsigned bits, pending;
+
+  __device__ void fill(int j) {
+    const int lane = threadIdx.x & 31;
+    j0 = j;
+    bits = 0;
+    if (j0 + lane < N)
+      for (int i = 0; i < nt; ++i)
+        bits |= (unsigned)(__ldg(sel + (size_t)i * N + j0 + lane) != 0) << i;
+    pending = __ballot_sync(0xffffffffu, bits != 0);
+    if (extras != nullptr && j0 + lane < N)
+      for (int i = 0; i < nt; ++i)
+        if (!((bits >> i) & 1u)) extras[(size_t)i * N + j0 + lane] = 0.0f;
+  }
+
+  // The next visit some candidate selects, and its bits; false at the end.
+  __device__ bool next(int& j, unsigned& m) {
+    while (pending == 0) {
+      if (j0 + 32 >= N) return false;
+      fill(j0 + 32);
+    }
+    const int p = __ffs(pending) - 1;
+    pending &= pending - 1;
+    j = j0 + p;
+    m = __shfl_sync(0xffffffffu, bits, p);
+    return true;
+  }
+};
+
+// A block's minima reach every block of its cluster by st.async into
+// distributed shared memory, each store completing bytes on the target
+// block's mbarrier (no cluster barrier, so no fence waits on the loads in
+// flight).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "{ .reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1; }"
+      ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned addr, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A float as an int of the same order (for every non-NaN float, -0 below
+// +0), so a warp's min is one redux.sync.
+__device__ __forceinline__ int ordered(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float unordered(int o) {
+  return __int_as_float(o ^ ((o >> 31) & 0x7fffffff));
+}
+
+__device__ __forceinline__ float min8(const float* v) {
+  const float4 a = reinterpret_cast<const float4*>(v)[0];
+  const float4 b = reinterpret_cast<const float4*>(v)[1];
+  return fminf(fminf(fminf(a.x, a.y), fminf(a.z, a.w)),
+               fminf(fminf(b.x, b.y), fminf(b.z, b.w)));
+}
+static_assert(kWarps == 8 && kMaxCluster == 8,
+              "min8 combines one value a warp, or a block");
+
+// Grid: B * tiles clusters of cs blocks; kSmem: the leftover stripes live
+// in shared memory (else in left_out); V float4s a thread per chunk; kT,
+// the tile's candidates rounded up to a power of two, bounds every loop
+// over the tile.
+template <int V, bool kVec, bool kSmem, int kT>
+__global__ void __launch_bounds__(kThreads)
+sweep_tile_kernel(SweepArgs a) {
+  extern __shared__ float4 sweep_shared[];
+  __shared__ __align__(16) float wpart[2][kT][kWarps];
+  __shared__ __align__(16) float cpart[2][kT][kMaxCluster];
+  __shared__ __align__(8) unsigned long long mbar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int N = a.N, K = a.K;
+  const int tile = blockIdx.x / cs;
+  const int b = tile / a.tiles, c0 = (tile % a.tiles) * a.T;
+  const int nt = min(a.T, a.C - c0);                 // the tile's candidates
+  const int Q = (K + 3) / 4;                         // this block's stripe
+  const int k0 = 4 * (int)((long long)rank * Q / cs);
+  const int L = max(min(4 * (int)((long long)(rank + 1) * Q / cs), K) - k0, 0);
+  const size_t row0 = (size_t)b * a.C + c0;
+  float* smem = reinterpret_cast<float*>(sweep_shared);
+  float* left;                                       // candidate i's stripe
+  size_t stride;                                     //   at left + i*stride
+  if constexpr (kSmem) {
+    left = smem;
+    stride = (size_t)a.ls;
+  } else {
+    left = a.left_out + row0 * K + k0;
+    stride = (size_t)K;
+  }
+  float2* list = reinterpret_cast<float2*>(
+                     smem + (kSmem ? (size_t)a.T * a.ls : 0)) +
+                 warp * (4 * V * 32);
+  for (int i = 0; i < nt; ++i)
+    copy_stripe<kVec>(left + i * stride, a.left_in + (row0 + i) * K + k0, L);
+  if (cs > 1) {                     // ranks past cs stay +inf in min8
+    for (int k = t; k < 2 * kT * kMaxCluster; k += kThreads)
+      (&cpart[0][0][0])[k] = INFINITY;
+    if (t == 0) {
+      mbar_init(smem_u32(&mbar[0]));
+      mbar_init(smem_u32(&mbar[1]));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  cluster_barrier(cs);              // leftovers in place, every block runs
+  unsigned parity = 0;              // bit b: the phase mbar[b] is in
+  const float* g = a.g_ord + (size_t)b * N * K + k0;
+  const int chunk = 4 * V * kThreads;
+  const int nch = (L + chunk - 1) / chunk;
+  VisitCursor vc{a.sel + row0 * N,
+                 rank == 0 && warp == 0 ? a.extras + row0 * N : nullptr, N,
+                 nt, 0, 0u, 0u};
+  vc.fill(0);
+  float4 d[V];
+  int j;
+  unsigned m;
+  bool have = vc.next(j, m);
+  if (have) load_chunk<V, kVec>(d, g + (size_t)j * K, L, 0);
+  int buf = 0, n = 0;
+  while (have) {
+    const int jv = j;
+    const unsigned mv = m;
+    const float* gj = g + (size_t)jv * K;
+    float mn[kT];
+#pragma unroll
+    for (int i = 0; i < kT; ++i) mn[i] = INFINITY;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) load_chunk<V, kVec>(d, gj, L, ch);
+      __syncwarp();                 // the list's last readers are done
+      n = compact<V, kVec>(d, list, ch);
+      __syncwarp();
+      if (nch == 1) {               // the next visit's stripe, in flight
+        have = vc.next(j, m);       //   while this one is reduced
+        if (have) load_chunk<V, kVec>(d, g + (size_t)j * K, L, 0);
+      }
+      for (int e = lane; e < n; e += 32) {
+        const float2 en = list[e];
+        const int p = __float_as_int(en.x);
+        const bool live = en.y > kBoostEps;
+#pragma unroll
+        for (int i = 0; i < kT; ++i) {
+          if (!((mv >> i) & 1u)) continue;
+          const float r = live ? left[i * stride + p] / fmaxf(en.y, kBoostEps)
+                               : INFINITY;
+          mn[i] = fminf(mn[i], r);
+        }
+      }
+    }
+    // the tile's minima: warps, then the block, then the cluster
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      if (!((mv >> i) & 1u)) continue;
+      const int v = __reduce_min_sync(0xffffffffu, ordered(mn[i]));
+      if (lane == 0) wpart[buf][i][warp] = unordered(v);
+    }
+    __syncthreads();
+    if (cs > 1) {                   // every block's minima into every block
+      const unsigned bar = smem_u32(&mbar[buf]);
+      if (t == 0) mbar_expect(bar, 4u * cs * __popc(mv));
+      if (warp < kT && ((mv >> warp) & 1u) && lane < cs)
+        st_async(map_rank(smem_u32(&cpart[buf][warp][rank]), lane),
+                 min8(wpart[buf][warp]), map_rank(bar, lane));
+      mbar_wait(bar, (parity >> buf) & 1u);
+      parity ^= 1u << buf;
+    }
+    float ex[kT];
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      ex[i] = 0.0f;
+      if (!((mv >> i) & 1u)) continue;
+      const float v = min8(cs == 1 ? wpart[buf][i] : cpart[buf][i]);
+      ex[i] = fminf(fmaxf(v, 0.0f), a.kappa_cap);
+      if (rank == 0 && t == i) a.extras[(row0 + i) * N + jv] = ex[i];
+    }
+    buf ^= 1;
+    // the debit, chunk by chunk (a stripe of one chunk keeps its list)
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) {
+        load_chunk<V, kVec>(d, gj, L, ch);
+        __syncwarp();
+        n = compact<V, kVec>(d, list, ch);
+        __syncwarp();
+      }
+      for (int e = lane; e < n; e += 32) {
+        const float2 en = list[e];
+        const int p = __float_as_int(en.x);
+#pragma unroll
+        for (int i = 0; i < kT; ++i) {
+          if (!((mv >> i) & 1u)) continue;
+          float* q = left + i * stride + p;
+          *q = __fmaf_rn(-ex[i], en.y, *q);
+        }
+      }
+    }
+    if (nch != 1) {
+      have = vc.next(j, m);
+      if (have) load_chunk<V, kVec>(d, g + (size_t)j * K, L, 0);
+    }
+  }
+  if constexpr (kSmem) {
+    if (a.left_out != nullptr) {
+      __syncthreads();
+      for (int i = 0; i < nt; ++i)
+        copy_stripe<kVec>(a.left_out + (row0 + i) * K + k0, left + i * stride,
+                          L);
+    }
+  }
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Launch `kernel(args...)` on a 1-D grid of cs * M blocks in clusters of
-// cs (cudaLaunchAttributeClusterDimension), so the cs blocks of row i are
-// one cluster; M is not held to gridDim.y's 65,535.
+// Launch `kernel(args...)` on a 1-D grid of `blocks` blocks in clusters
+// of cs (cudaLaunchAttributeClusterDimension; 1, 2, 4 or 8, the portable
+// sizes) with `smem` bytes of dynamic shared memory.  Returns the launch's
+// cudaError_t, cleared so the next launch does not see it.
 template <typename... Params, typename... Args>
-int launch_row_clusters(void (*kernel)(Params...), int M, int cs,
-                        cudaStream_t stream, Args... args) {
+int launch_clusters(void (*kernel)(Params...), long long blocks, int cs,
+                    size_t smem, cudaStream_t stream, Args... args) {
   if (cs != 1 && cs != 2 && cs != 4 && cs != kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  if (M <= 0) return (int)cudaGetLastError();
-  if ((long long)M * cs > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(M * cs));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) {
-    cudaGetLastError();                  // clear it for the next launch
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
-}
-
-// One cluster of cs blocks running dual_kernel, x in M * 4 bytes of
-// dynamic shared memory.
-int launch_dual(const DualArgs& a, int cs, cudaStream_t stream) {
-  if (cs != 1 && cs != 2 && cs != 4 && cs != kMaxCluster)
-    return (int)cudaErrorInvalidValue;
-  if (a.M < 0 || a.K < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)a.M * sizeof(float);
-  if (smem > kSmemXMax) return (int)cudaErrorInvalidValue;
+  if (blocks <= 0) return (int)cudaGetLastError();
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
-      dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemXMax);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cs);
+  cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -656,12 +953,54 @@ int launch_dual(const DualArgs& a, int cs, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, dual_kernel, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) {
     cudaGetLastError();                  // clear it for the next launch
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// One cluster of cs blocks running dual_kernel, x in M * 4 bytes of
+// dynamic shared memory.
+int launch_dual(const DualArgs& a, int cs, cudaStream_t stream) {
+  if (a.M < 0 || a.K < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.M * sizeof(float);
+  if (smem > kSmemXMax) return (int)cudaErrorInvalidValue;
+  return launch_clusters(dual_kernel, cs, cs, smem, stream, a);
+}
+
+// Dynamic shared memory of a sweep block with its leftover stripes in it,
+// and the float4s a thread holds per chunk (V): 2 for stripes of up to
+// 2048 floats, else 8.  Mirrored by budget_alloc.py:sweep_smem.
+struct SweepSmem {
+  int V;
+  size_t left, lists;
+};
+SweepSmem sweep_smem(int K, int cs, int T) {
+  const int ls = 4 * cdiv(cdiv(K, 4), cs);
+  const int V = ls <= 4 * 2 * kThreads ? 2 : 8;
+  return {V, (size_t)T * ls * sizeof(float),
+          (size_t)kWarps * 4 * V * 32 * sizeof(float2)};
+}
+
+template <int V, bool kVec, bool kSmem>
+int launch_sweep(const SweepArgs& a, long long blocks, int cs, size_t smem,
+                 cudaStream_t stream) {
+  switch (a.T <= 1 ? 1 : a.T <= 2 ? 2 : a.T <= 4 ? 4 : 8) {
+    case 1:
+      return launch_clusters(sweep_tile_kernel<V, kVec, kSmem, 1>, blocks,
+                             cs, smem, stream, a);
+    case 2:
+      return launch_clusters(sweep_tile_kernel<V, kVec, kSmem, 2>, blocks,
+                             cs, smem, stream, a);
+    case 4:
+      return launch_clusters(sweep_tile_kernel<V, kVec, kSmem, 4>, blocks,
+                             cs, smem, stream, a);
+    default:
+      return launch_clusters(sweep_tile_kernel<V, kVec, kSmem, 8>, blocks,
+                             cs, smem, stream, a);
+  }
 }
 
 }  // namespace
@@ -673,12 +1012,14 @@ extern "C" {
 // returns its error code; there is no other geometry to fall back to.
 int ba_rowmax(const float* g, float* out, int M, int K, int cs,
               cudaStream_t stream) {
-  return launch_row_clusters(rowmax_kernel, M, cs, stream, g, out, K);
+  return launch_clusters(rowmax_kernel, (long long)M * cs, cs, 0, stream,
+                         g, out, K);
 }
 
 int ba_matvec(const float* c, const float* v, float* y, int M, int K, int cs,
               cudaStream_t stream) {
-  return launch_row_clusters(matvec_kernel, M, cs, stream, c, v, y, K);
+  return launch_clusters(matvec_kernel, (long long)M * cs, cs, 0, stream,
+                         c, v, y, K);
 }
 
 int ba_matvec_t(const float* c, const float* x, float* load, int M, int K,
@@ -717,28 +1058,41 @@ int ba_dual_ascent(const float* c, const float* lam, const float* w_pow,
 
 size_t ba_dual_smem_limit(void) { return kSmemXMax; }
 
-// kappa_cap is kappa_max - 1, rounded to float32 by the caller.  left_out
-// may be null only when K * 4 <= ba_boost_smem_limit() (the leftover then
-// stays in shared memory and is not written back).
+// kappa_cap is kappa_max - 1, rounded to float32 by the caller.  cs (1,
+// 2, 4 or 8) and T (1..8) are the caller's (sweep_split).  The leftover
+// stays in shared memory when the T stripes and the warps' lists take at
+// most ba_boost_smem_limit() bytes; left_out may be null only then (the
+// leftover after the sweep is not written).
 int ba_boost_sweep(const float* g_ord, const int* sel, const float* left_in,
                    float* extras, float* left_out, int B, int C, int N, int K,
-                   float kappa_cap, cudaStream_t stream) {
-  const size_t row_bytes = (size_t)K * sizeof(float);
-  const int in_smem = row_bytes <= kSmemLeftMax;
+                   float kappa_cap, int cs, int T, cudaStream_t stream) {
+  if (B < 0 || C < 0 || N < 0 || K < 0 || T < 1 || T > kSweepTileMax)
+    return (int)cudaErrorInvalidValue;
+  if (cs != 1 && cs != 2 && cs != 4 && cs != kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  const SweepSmem sm = sweep_smem(K, cs, T);
+  const bool in_smem = sm.left + sm.lists <= kSweepSmemMax;
   if (!in_smem && left_out == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = in_smem ? row_bytes : 0;
-  int err = (int)cudaFuncSetAttribute(
-      boost_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemLeftMax);
-  if (err != 0) return err;
-  const long long blocks = (long long)B * C;
-  if (blocks > 0)
-    boost_sweep_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-        g_ord, sel, left_in, extras, left_out, C, N, K, kappa_cap,
-        in_smem);
-  return (int)cudaGetLastError();
+  const size_t smem = (in_smem ? sm.left : 0) + sm.lists;
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<size_t>(p) & 15) == 0;
+  };
+  const bool vec = K % 4 == 0 && aligned(g_ord) && aligned(left_in) &&
+                   aligned(left_out);
+  const int tiles = cdiv(C, T);
+  const SweepArgs a = {g_ord, sel, left_in, extras, left_out, C, N, K, T,
+                       tiles, 4 * cdiv(cdiv(K, 4), cs), kappa_cap};
+  const long long blocks = (long long)B * tiles * cs;
+  if (!in_smem)                        // spills only with V = 8
+    return vec ? launch_sweep<8, true, false>(a, blocks, cs, smem, stream)
+               : launch_sweep<8, false, false>(a, blocks, cs, smem, stream);
+  if (sm.V == 2)
+    return vec ? launch_sweep<2, true, true>(a, blocks, cs, smem, stream)
+               : launch_sweep<2, false, true>(a, blocks, cs, smem, stream);
+  return vec ? launch_sweep<8, true, true>(a, blocks, cs, smem, stream)
+             : launch_sweep<8, false, true>(a, blocks, cs, smem, stream);
 }
 
-size_t ba_boost_smem_limit(void) { return kSmemLeftMax; }
+size_t ba_boost_smem_limit(void) { return kSweepSmemMax; }
 
 }  // extern "C"

@@ -291,6 +291,74 @@ def test_row_split_edges(M, K, head):
     _check_row_split(M, K, head)
 
 
+# ------------------------------------------- sweep split (boost sweeps)
+
+# (M, C, K) -> (cs, T): paper swap_eval / boost_scan, large, ragged, the
+# beam's few candidates, and a K whose stripes stay in device memory
+SWEEP_SPLITS = [((6, 156, 2000), (1, 2)), ((6, 1, 2000), (1, 1)),
+                ((32, 256, 16384), (8, 4)), ((32, 1, 16384), (8, 1)),
+                ((5, 11, 53257), (8, 1)), ((5, 1, 53257), (8, 1)),
+                ((32, 8, 16384), (8, 4)), ((1, 2, 450_000), (8, 1))]
+
+
+@pytest.mark.parametrize("MCK,geo", SWEEP_SPLITS)
+def test_sweep_split_at_the_main_path_shapes(MCK, geo):
+    assert ba.sweep_split(*MCK) == geo
+    M, C, K = MCK
+    spills = ba.sweep_smem(K, *geo) > ba.SWEEP_SMEM_MAX
+    assert spills == (K == 450_000)          # only the spill shape spills
+
+
+def test_sweep_smem_counts_stripes_and_lists():
+    """T stripes of 4 * ceil(ceil(K / 4) / cs) floats, and 8 warps' lists
+    of 128 * V eight-byte pairs, V = 2 up to 2048-float stripes, else 8."""
+    assert ba.sweep_smem(16384, 8, 8) == 8 * 2048 * 4 + 8 * 128 * 2 * 8
+    assert ba.sweep_smem(2000, 1, 2) == 2 * 2000 * 4 + 8 * 128 * 2 * 8
+    assert ba.sweep_smem(53257, 8, 1) == 6660 * 4 + 8 * 128 * 8 * 8
+    assert ba.sweep_smem(2049, 1, 1) == 2052 * 4 + 8 * 128 * 8 * 8
+    # the spill boundary at T = 1, cs = 8: 136 KB of stripe with the lists
+    assert ba.sweep_smem(278_528, 8, 1) == ba.SWEEP_SMEM_MAX
+    assert ba.sweep_smem(278_529, 8, 1) > ba.SWEEP_SMEM_MAX
+
+
+def _check_sweep_split(M, C, K):
+    cs, T = ba.sweep_split(M, C, K)
+    assert cs in (1, 2, 4, 8) and 1 <= T <= min(max(C, 1), ba.SWEEP_TILE_MAX)
+    if C == 1:
+        assert T == 1                        # boost_scan
+    if cs > 1:                               # stripes keep 2048 floats
+        assert K >= cs * ba.ROW_SPLIT_MIN_CHUNK
+    can_split = cs < ba.ROW_SPLIT_MAX and K >= 2 * cs * ba.ROW_SPLIT_MIN_CHUNK
+    # a block over its target, or a grid under two blocks an SM, only
+    # where neither cs nor T can move further
+    if ba.sweep_smem(K, cs, T) > ba.SWEEP_SMEM_TARGET:
+        assert not can_split and T == 1
+    if M * -(-C // T) * cs < ba.ROW_SPLIT_BLOCKS:
+        assert not can_split and T == 1
+    # within the hard limit unless even T = 1 on a full cluster is over it
+    if ba.sweep_smem(K, cs, T) > ba.SWEEP_SMEM_MAX:
+        assert T == 1 and not can_split
+
+
+@pytest.mark.parametrize("M,C,K", [(1, 1, 1), (1, 9, 4095), (1, 9, 4096),
+                                   (264, 1, 1 << 20), (33, 8, 16384),
+                                   (7, 300, 7), (2, 3, 278_529),
+                                   (1024, 256, 131072)])
+def test_sweep_split_edges(M, C, K):
+    _check_sweep_split(M, C, K)
+
+
+if given is not None:
+    @settings(max_examples=400, deadline=None)
+    @given(M=st.integers(1, 2048), C=st.integers(1, 512),
+           K=st.integers(1, 1 << 20))
+    def test_sweep_split_property(M, C, K):
+        """cs a portable cluster size, T within the tile limit and C, the
+        block within its target and the grid at two blocks an SM wherever
+        cs or T could still move."""
+        _check_sweep_split(M, C, K)
+
+
 # ------------------------------------------------ CUDA kernels (card only)
 
 def _dev(d, dev):
@@ -323,19 +391,72 @@ def test_cuda_dense_kernels_match_twins(hopper, M, K):
                                boost_scan=0, swap_eval=0)
 
 
+# (M, N, K, C, (cs, T) forced, or None for sweep_split's own): the CPU
+# shapes, cs 1 to 8, C not a multiple of T, 16-byte and 4-byte loads (K % 4),
+# stripes of several chunks, the shared-memory boundary at T = 1 and the
+# spill path (stripes past 8 x 200 KB stay in device memory)
+SWEEP_CASES = ([(3, N, K, C, None) for N, K, C in SHAPES_NKC]
+               + [(3, 9, 4096, 13, (1, 8)), (3, 9, 16384, 13, (8, 4)),
+                  (3, 9, 16411, 13, (8, 8)), (2, 7, 9001, 5, (2, 2)),
+                  (2, 7, 4093, 3, (4, 1)), (2, 5, 53257, 3, (1, 1)),
+                  (5, 7, 53257, 11, None), (1, 3, 278_528, 1, None),
+                  (1, 3, 278_529, 1, None), (1, 3, 450_000, 2, None)])
+
+
+def _sweep_case(M, N, K, C, seed=0):
+    """_nkc_case with a visit that no candidate selects (visit 1) and
+    negative leftovers, as infeasible candidates have."""
+    d = _nkc_case(N, K, C, seed, M=M)
+    if N > 1:
+        d["sel_c"][:, :, 1] = False
+        d["sel"][:, 1] = False
+    d["left_c"][:, 1::3] -= 0.3
+    d["left"][0] -= 0.3
+    return d
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,K,C", SHAPES_NKC + [(5, 53257, 3)])
-def test_cuda_boost_sweeps_match_twins_bitwise(hopper, N, K, C):
-    """Includes a K whose leftover row (> 200 KB) lives in device memory."""
-    d = _dev(_nkc_case(N, K, C, M=3), hopper)
+@pytest.mark.parametrize("M,N,K,C,geo", SWEEP_CASES)
+def test_cuda_boost_sweeps_match_twins_bitwise(hopper, monkeypatch, M, N, K,
+                                               C, geo):
+    """boost_scan's extras and leftover and swap_eval's extras equal the
+    twins' bit for bit at every geometry, and from launch to launch; an
+    all-zero demand row and a candidate that selects nothing included."""
+    if geo is not None:
+        monkeypatch.setattr(ba, "sweep_split",
+                            lambda m, c, k: (geo[0], min(geo[1], c)))
+    d = _dev(_sweep_case(M, N, K, C), hopper)
     ba.reset_launches()
-    ex, left = ba.boost_scan(d["g"], d["sel"], d["left"], 2.0)
+    runs = [ba.boost_scan(d["g"], d["sel"], d["left"], 2.0) for _ in "ab"]
     ex_r, left_r = ref.boost_scan_ref(d["g"], d["sel"], d["left"], 2.0)
-    assert torch.equal(ex, ex_r) and torch.equal(left, left_r)
-    assert torch.equal(ba.swap_eval(d["g"], d["sel_c"], d["left_c"], 2.0),
-                       ref.swap_eval_ref(d["g"], d["sel_c"], d["left_c"],
-                                         2.0))
-    assert ba.LAUNCHES["boost_scan"] == 1 and ba.LAUNCHES["swap_eval"] == 1
+    for ex, left in runs:
+        assert torch.equal(ex.view(torch.int32), ex_r.view(torch.int32))
+        assert torch.equal(left.view(torch.int32), left_r.view(torch.int32))
+    cs, T = ba.sweep_split(M, 1, K)
+    assert ba.LAST_GRID["boost_sweep"] == (cs, 1, M * cs)
+    sw = [ba.swap_eval(d["g"], d["sel_c"], d["left_c"], 2.0) for _ in "ab"]
+    sw_r = ref.swap_eval_ref(d["g"], d["sel_c"], d["left_c"], 2.0)
+    for ex in sw:
+        assert torch.equal(ex.view(torch.int32), sw_r.view(torch.int32))
+    cs, T = ba.sweep_split(M, C, K)
+    assert ba.LAST_GRID["boost_sweep"] == (cs, T, M * -(-C // T) * cs)
+    assert ba.LAST_GRID["swap_eval"] == (M, C)
+    assert ba.LAUNCHES["boost_scan"] == 2 and ba.LAUNCHES["swap_eval"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_refused_sweep_launch_raises(hopper, monkeypatch):
+    """A geometry the kernel does not take (a cluster of 3, a tile of 9)
+    returns a nonzero cudaError_t and raises; nothing falls back or
+    counts.  The launcher's shared-memory limit is the package's."""
+    assert ba._lib().ba_boost_smem_limit() == ba.SWEEP_SMEM_MAX
+    d = _dev(_sweep_case(2, 5, 4096, 9), hopper)
+    ba.reset_launches()
+    for geo in ((3, 1), (1, 9)):
+        monkeypatch.setattr(ba, "sweep_split", lambda m, c, k: geo)
+        with pytest.raises(RuntimeError, match="ba_boost_sweep"):
+            ba.swap_eval(d["g"], d["sel_c"], d["left_c"], 2.0)
+    assert ba.LAUNCHES["swap_eval"] == 0 and "boost_sweep" not in ba.LAST_GRID
 
 
 @pytest.mark.cuda
