@@ -81,13 +81,17 @@ Phases (each raises on failure; nothing is caught):
  14. the RG-LRU scan (rglru_scan) against its twin on the card, bitwise
      and bitwise from launch to launch, at recurrentgemma-2b's width (D =
      2560): the serve default's prefill (B=4, S=32), a long prefill with
-     h0 (B=4, S=2048), the decode step (B=4, S=1, h0) and a ragged B=3,
-     S=1000, D=2597; then both attention kernels at recurrentgemma-2b's
-     heads (10 query / 1 kv head, dh 256), at the serve defaults' shapes
-     (prefill B=4 S=32 window 2048; decode B=4 Lc=48 at cache_len 33 and
-     47) and the long serve's (prefill B=4 S=2048 window 2048; decode B=4
-     Lc=2048 at cache_len 2048 and 1000); times beside the twin's, the
-     bound and (attention) the SDPA yardstick;
+     h0 (B=4, S=2048), the decode step (B=4, S=1, h0), a ragged B=3,
+     S=1000, D=2597 and one sequence's long prefill (B=1, S=2048), each
+     with its geometry (ring steps or the direct path, channels a block,
+     the bytes in flight the ring is sized for), its share of the bound
+     and, beside the decode step, the launch floor; then both attention
+     kernels at recurrentgemma-2b's heads (10 query / 1 kv head, dh 256),
+     at the serve defaults' shapes (prefill B=4 S=32 window 2048; decode
+     B=4 Lc=48 at cache_len 33 and 47) and the long serve's (prefill B=4
+     S=2048 window 2048; decode B=4 Lc=2048 at cache_len 2048 and 1000);
+     times beside the twin's, the bound and (attention) the SDPA
+     yardstick;
  15. serving recurrentgemma-2b through repro_torch.launch.serve: card vs
      CPU at full width with depth cut to one group (rec, rec, local),
      logits within RTOL_SERVE and greedy tokens as in phase 12; the full
@@ -157,9 +161,10 @@ RG_SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
 RG_REPLACES = "src/repro/kernels/rg_lru.py:43"
 RG_HEADS = (10, 1, 256)        # recurrentgemma-2b: query heads, kv heads, dh
 # (name, B, S, D, with h0): the serve default's prefill, the long run's
-# prefill, the decode step, a ragged shape
+# prefill, the decode step, a ragged shape, a single sequence's long prefill
 RG_CASES = [("serve", 4, 32, 2560, False), ("2k", 4, 2048, 2560, True),
-            ("decode", 4, 1, 2560, True), ("ragged", 3, 1000, 2560 + 37, True)]
+            ("decode", 4, 1, 2560, True), ("ragged", 3, 1000, 2560 + 37, True),
+            ("b1-2k", 1, 2048, 2560, False)]
 # the serve defaults' shapes (prompt 32; a 48-slot ring at cache_len 33..47)
 # and the long serve's (prompt 2048; the 2048-slot ring full, and half full)
 RG_FLASH_CASES = [("rg-serve", 4, 32, True, 2048),
@@ -1421,8 +1426,10 @@ def phase_rglru(card, att_rows):
     log("[14] rglru_scan against its twin on the card; attention at "
         "recurrentgemma-2b's heads")
     from repro_torch.kernels import ref, rg_lru
+    from repro_torch.kernels.decode_attention import SMS
     gen = torch.Generator(device="cuda").manual_seed(0)
     row = {"max_abs_err": 0.0, "by_shape": {}}
+    floor = time_ms(lambda: torch.cuda._sleep(1), 100)
     for label, B, S, D, with_h0 in RG_CASES:
         a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.499 + 0.5
         b = torch.randn((B, S, D), generator=gen, device="cuda")
@@ -1442,9 +1449,21 @@ def phase_rglru(card, att_rows):
         plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, 3)
         nbytes = 4 * (3 * B * S * D + (B * D if with_h0 else 0))
         bnd, by = bound_ms(nbytes, 2 * B * S * D)
+        channels = rg_lru.SCAN_CHANNELS
+        stage = rg_lru.scan_geometry(B, S, D)   # fresh, so 16-byte aligned
+        ring = rg_lru.SCAN_STAGES * stage
+        flight = (rg_lru.SCAN_STAGES - 1) * stage * 8 * B * D
+        blocks = B * -(-D // channels)
+        geo = (f"ring of {ring} steps ({flight} B in flight by design), "
+               f"{channels} channels a block, at most "
+               f"{-(-blocks // SMS) * channels} channels an SM"
+               if stage else
+               f"direct path (no ring), {channels} channels a block")
         log(f"  rglru_scan       {shape}: bitwise, stable  kernel "
             f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
-            f"{card}); no single PyTorch call computes it")
+            f"{card}), share {bnd / ms:.3f}; {geo}"
+            + (f"; launch floor {floor:.4f} ms" if S == 1 else "")
+            + "; no single PyTorch call computes it")
         nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                     library_ms=None, shape=shape)
         row["max_abs_err"] = max(row["max_abs_err"], err)

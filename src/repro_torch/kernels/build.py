@@ -53,7 +53,7 @@ SIGNATURES = {
         "att_decode_residency": ((_I, _I), _I),
     },
     "rg_lru": {
-        "rg_scan": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+        "rg_scan_at": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
     },
 }
 

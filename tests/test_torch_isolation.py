@@ -32,7 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # the kernel A/B scripts, run on the card beside chip_smoke.py
-AB_SCRIPTS = [ROOT / "decode_ab.py", ROOT / "dual_ab.py"]
+AB_SCRIPTS = [ROOT / "decode_ab.py", ROOT / "dual_ab.py",
+              ROOT / "sweep_ab.py", ROOT / "scan_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
