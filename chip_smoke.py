@@ -102,7 +102,27 @@ Phases (each raises on failure; nothing is caught):
  16. where recurrentgemma-2b's serving time goes at B=4, prompt 2048: the
      card's busy share, kernel time by name and the scan's share over a
      traced prefill and 8 traced decode steps (torch.profiler), and a
-     host-side profile of 8 decode steps as in phase 13.
+     host-side profile of 8 decode steps as in phase 13;
+ 17. the paper's comparison: dpbalance, dpf, dpk and fcfs through
+     run_episode on the paper episode at beta 0.5, 2.2 and 5.0 (Figs. 6,
+     2 / 4-5, 6), card against CPU (selections and n_allocated equal,
+     every row within RTOL_PAPER), each scheduler's budget kernels and no
+     other launched; at beta 2.2 run_simulation on the card against
+     repro's values (REPRO_PAPER) and the legacy FlaasSimulator on the
+     card against the engine, with ms per round (host clock, synchronised)
+     and the card's busy share per scheduler;
+ 18. fleets: every scenario's fleet of FLEET_SEEDS episodes through
+     run_fleet on the card for each scheduler, each row equal to
+     run_episode's, the fleets' wall time per scheduler, and one fleet with
+     diagnostics=True;
+ 19. the certified swap beam (swap_beam=8): the paper episode and phase
+     5's round bitwise the full sweep (per-round certificates printed);
+     the reference's fleet-scale round (N=1000 pipelines, K=100,000 blocks,
+     capacity 0.25) certifies and holds repro's n_allocated, efficiency
+     and selections (REPRO_BEAM), its swap_eval launch (M=1, C=8) bitwise
+     its twin on the same operands with times and bound, and the round's
+     wall, card time, launches and peak device memory beside the same
+     round with refine off.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -196,6 +216,36 @@ REPRO_LARGE = {1.0: (0, None, []),
                3.0: (64, 0.7299625,
                      [[i, n] for i in (9, 24) for n in range(32)])}
 REPRO_EFF_RTOL = 1e-5
+# phase 17: the paper's comparison (SimConfig(seed=0)) at the betas of its
+# Figs. 6 (0.5), 2 / 4-5 (2.2) and 6 (5.0); every continuous row card vs
+# CPU within RTOL_PAPER relative and absolute
+PAPER_BETAS = (0.5, 2.2, 5.0)
+RTOL_PAPER = 1e-5
+# repro's own run_simulation at beta 2.2 (engine path, on a CPU): per
+# scheduler, n_allocated per round, final cumulative_efficiency and final
+# cumulative_fairness_norm (float32)
+REPRO_PAPER = {
+    "dpbalance": ([25, 0, 0, 18, 20, 4, 0, 48, 0, 0], 2.9366531, 4.0074286),
+    "dpf": ([25, 0, 0, 24, 25, 0, 0, 63, 0, 0], 2.4883106, 4.0065427),
+    "dpk": ([25, 0, 0, 24, 25, 0, 0, 61, 0, 0], 2.5449417, 4.0065427),
+    "fcfs": ([25, 0, 0, 24, 25, 0, 0, 35, 0, 0], 2.5413046, 4.0056357),
+}
+# the budget kernels each scheduler's round launches
+PATH_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t", "dual_step",
+                              "boost_scan", "swap_eval"),
+                "dpf": ("rowmax",), "dpk": ("rowmax",), "fcfs": ("rowmax",)}
+# phase 18: seeds per scenario in each fleet
+FLEET_SEEDS = 2
+# phase 19: the reference's fleet-scale round
+# (bench_scheduler_scale.py:_round(1, 100_000, 1000, cap=0.25): M, K, N,
+# capacity), beta 2.2, refine on, a beam of 8; repro's values for it
+# (jnp path, on a CPU): n_allocated, efficiency and the selected
+# pipelines, with the beam and with refine off
+BEAM_ROUND = (1, 100_000, 1000, 0.25)
+BEAM_WIDTH = 8
+REPRO_BEAM = {"beam": (8, 0.17649494, [71, 209, 292, 328, 357, 495, 503, 979]),
+              "no_refine": (8, 0.17099118,
+                            [71, 209, 292, 322, 328, 357, 495, 503])}
 # (name, M, K): the regime repro/kernels/budget_alloc.py was written for
 # ("M ~ 10^3 analysts, K ~ 10^5 live blocks"), 512 MB of float32, beyond
 # the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
@@ -1598,6 +1648,294 @@ def phase_serve_hybrid_trace(model):
     _log_host_ops(lambda: decode(tok, cache, prompt + 2 * steps), steps)
 
 
+def _launched(label, counts, need):
+    """Raise unless every kernel in ``need`` launched and no other budget
+    kernel did."""
+    missing = [k for k in need if counts[k] == 0]
+    extra = [k for k, v in counts.items() if v and k not in need]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels {missing} never launched, "
+                             f"{extra} launched off the path: {counts}")
+
+
+def _episodes_equal(label, got, want, rtol):
+    """Selections, n_allocated and final_done equal; every continuous row
+    within ``rtol`` relative and absolute (``rtol`` 0: bitwise)."""
+    for k in ("selected", "n_allocated", "final_done"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), (label, k)
+    for k in ("round_efficiency", "round_fairness", "round_fairness_norm",
+              "round_jain", "leftover", "cumulative_efficiency",
+              "cumulative_fairness", "cumulative_fairness_norm",
+              "final_capacity"):
+        g, w = got[k].cpu(), want[k].cpu()
+        ok = torch.equal(g, w) if rtol == 0 else torch.allclose(
+            g, w, rtol=rtol, atol=rtol)
+        assert ok, (label, k, float((g.double() - w.double()).abs().max()))
+
+
+def phase_paper_comparison():
+    """DPBalance against DPF, DPK and FCFS on the paper's episode at three
+    betas, card against CPU; at beta 2.2 against repro's values and the
+    legacy simulator."""
+    log("[17] the paper comparison: dpbalance, dpf, dpk, fcfs on "
+        "SimConfig(seed=0) at beta 0.5 / 2.2 / 5.0, card vs CPU")
+    from repro_torch.core import (SCHEDULER_NAMES, SchedulerConfig,
+                                  SimConfig, generate_episode, run_episode,
+                                  run_simulation)
+    from repro_torch.kernels import budget_alloc as ba
+    sim = SimConfig(seed=0)
+    R = sim.n_rounds
+    ep_gpu = generate_episode(sim, device="cuda")
+    ep_cpu = generate_episode(sim, device="cpu")
+    launches = {}
+    for beta in PAPER_BETAS:
+        cfg = SchedulerConfig(beta=beta)
+        for name in SCHEDULER_NAMES:
+            torch.cuda.synchronize()
+            ba.reset_launches()
+            out = run_episode(ep_gpu, cfg, name)
+            torch.cuda.synchronize()
+            counts = dict(ba.LAUNCHES)
+            _launched(f"{name} beta {beta}", counts, PATH_KERNELS[name])
+            _episodes_equal(f"{name} beta {beta} card vs CPU", out,
+                            run_episode(ep_cpu, cfg, name), RTOL_PAPER)
+            if beta == 2.2:
+                launches[name] = {k: v / R for k, v in counts.items()}
+            log(f"  beta {beta} {name:9s}: n_allocated "
+                f"{out['n_allocated'].tolist()}, cumulative efficiency "
+                f"{float(out['cumulative_efficiency'][-1]):.7g}, fairness "
+                f"(normalized) {float(out['cumulative_fairness_norm'][-1]):.7g}"
+                f", SP1 iterations {out['sp1_iters'].tolist()}; the CPU run: "
+                f"selections and n_allocated equal, rows within {RTOL_PAPER}")
+    cfg = SchedulerConfig(beta=2.2)
+    for name in SCHEDULER_NAMES:
+        eng = run_simulation(name, sim, cfg, device="cuda")
+        legacy = run_simulation(name, sim, cfg, engine=False, device="cuda")
+        n_ref, eff_ref, fair_ref = REPRO_PAPER[name]
+        assert eng["n_allocated"].tolist() == n_ref, (name, eng["n_allocated"])
+        for got, want in ((eng["cumulative_efficiency"][-1], eff_ref),
+                          (eng["cumulative_fairness_norm"][-1], fair_ref)):
+            assert abs(float(got) - want) <= REPRO_EFF_RTOL * abs(want), \
+                (name, float(got), want)
+        assert legacy["n_allocated"].tolist() == n_ref, name
+        for k, v in eng.items():
+            assert np.allclose(legacy[k], v, rtol=RTOL_PAPER,
+                               atol=RTOL_PAPER), (name, k, legacy[k], v)
+        ep_fn = (lambda n=name: run_episode(ep_gpu, cfg, n))
+        wall = _wall(ep_fn)
+        dev_ms, _, traced = _device_kernels(ep_fn)
+        log(f"  beta 2.2 {name:9s}: repro's n_allocated, cumulative "
+            f"efficiency and fairness (REPRO_PAPER) equal; legacy "
+            f"FlaasSimulator on the card within {RTOL_PAPER} of the engine; "
+            f"{wall / R * 1e3:.2f} ms/round untraced, card busy "
+            f"{dev_ms / R:.3f} ms/round, busy share "
+            f"{dev_ms / (wall * 1e3):.4f} (traced wall {traced / R:.2f} "
+            f"ms/round); budget-kernel launches per round "
+            f"{launches[name]}")
+    return launches
+
+
+def phase_fleets():
+    """Every scenario's fleet of FLEET_SEEDS episodes through run_fleet on
+    the card for each scheduler, each row equal to run_episode's."""
+    from repro_torch.core import (SCENARIOS, SCHEDULER_NAMES,
+                                  SchedulerConfig, generate_episode,
+                                  make_fleet, run_episode, run_fleet,
+                                  scenario_config)
+    log(f"[18] fleets: {len(SCENARIOS)} scenarios x {FLEET_SEEDS} seeds x "
+        f"4 schedulers, run_fleet against run_episode on the card")
+    cfg = SchedulerConfig(beta=2.2)
+    fleets = {n: make_fleet(n, FLEET_SEEDS, device="cuda")
+              for n in SCENARIOS}
+    singles = {n: [generate_episode(scenario_config(n, seed=s),
+                                    device="cuda")
+                   for s in range(FLEET_SEEDS)] for n in SCENARIOS}
+    for name in SCHEDULER_NAMES:
+        wall, alloc = 0.0, 0
+        for scen, fleet in fleets.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_fleet(fleet, cfg, name)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            alloc += int(out["n_allocated"].sum())
+            for e, ep in enumerate(singles[scen]):
+                one = run_episode(ep, cfg, name)
+                for k, v in one.items():
+                    assert torch.equal(out[k][e], v), (name, scen, e, k)
+        log(f"  {name:9s}: {len(fleets)} fleets of {FLEET_SEEDS} episodes "
+            f"in {wall:.3f} s ({wall / len(fleets) / FLEET_SEEDS * 1e3:.1f} "
+            f"ms an episode), {alloc} pipelines allocated; every row equal "
+            f"to run_episode's")
+    diag = run_fleet(fleets["paper_default"], cfg, "dpbalance",
+                     diagnostics=True)
+    M, N = diag["selected"].shape[-2:]
+    K = diag["final_capacity"].shape[-1]
+    assert diag["granted_i"].shape == (FLEET_SEEDS, 10, M, K)
+    for k in ("utility", "a_i", "gamma_i", "mu_i", "x_analyst", "granted_i",
+              "cap_frac"):
+        assert bool(torch.isfinite(diag[k]).all()), k
+    log(f"  diagnostics=True (paper_default, dpbalance): per-round "
+        f"utility, analyst_mask, a_i, gamma_i, mu_i, x_analyst, "
+        f"sp1_violation, granted_i, cap_frac, selected; finite, granted_i "
+        f"{tuple(diag['granted_i'].shape)}")
+
+
+def phase_beam(card):
+    """The certified swap beam: bitwise the full sweep on the paper
+    episode and the M=32 round; the fleet-scale round certifies and holds
+    repro's values, and its swap_eval launch equals its twin."""
+    log(f"[19] the certified swap beam (swap_beam={BEAM_WIDTH})")
+    from repro_torch.core import (SchedulerConfig, SimConfig,
+                                  generate_episode, run_episode,
+                                  schedule_round)
+    from repro_torch.core import hotpath
+    from repro_torch.core import scheduler as sch
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.kernels import ref
+    # 1. the paper episode, beam against the full sweep
+    ep = generate_episode(SimConfig(seed=0), device="cuda")
+    certs, orig = [], sch.pack_all_pruned
+
+    def recorded(*a, **k):
+        out = orig(*a, **k)
+        certs.append((bool(out[1]), float(out[2])))
+        return out
+
+    sch.pack_all_pruned = recorded
+    try:
+        beam = run_episode(ep, SchedulerConfig(swap_beam=BEAM_WIDTH))
+    finally:
+        sch.pack_all_pruned = orig
+    full = run_episode(ep, SchedulerConfig())
+    assert set(beam) == set(full) and len(certs) == ep.n_rounds
+    for k, v in full.items():
+        assert torch.equal(beam[k], v), k
+    log(f"  paper episode: every row bitwise the full sweep's; per round "
+        f"swap_cert_ok {[c for c, _ in certs]}, margin "
+        f"{[f'{m:.4g}' for _, m in certs]}")
+    # 2. phase 5's round
+    for cap in (1.0, 3.0):
+        rnd = _round(32, 16384, 32, cap=cap)
+        a = schedule_round(rnd, SchedulerConfig(beta=2.2))
+        b = schedule_round(rnd, SchedulerConfig(beta=2.2,
+                                                swap_beam=BEAM_WIDTH))
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if f in ("swap_cert_ok", "swap_cert_margin"):
+                assert x is None and y is not None, f
+            else:
+                assert (x is None and y is None) or torch.equal(x, y), f
+        assert int(b.n_allocated) == REPRO_LARGE[cap][0]
+        log(f"  M=32 N=32 K=16384 capacity {cap}: bitwise phase 5's round "
+            f"(n_allocated {int(b.n_allocated)}); swap_cert_ok "
+            f"{bool(b.swap_cert_ok)}, margin {float(b.swap_cert_margin):.4g}")
+        del rnd, a, b
+    # 3. the fleet-scale round
+    M, K, N, cap = BEAM_ROUND
+    t0 = time.perf_counter()
+    rnd = _round(M, K, N, cap=cap)
+    log(f"  fleet-scale round M={M} N={N} K={K} capacity {cap}: drawn and "
+        f"copied in {time.perf_counter() - t0:.2f} s")
+    cfg = SchedulerConfig(beta=2.2, swap_beam=BEAM_WIDTH)
+    calls, orig_se = [], hotpath.swap_eval
+
+    def captured(*a):
+        calls.append(a)
+        return orig_se(*a)
+
+    hotpath.swap_eval = captured
+    try:
+        res = schedule_round(rnd, cfg)         # also the warm-up
+    finally:
+        hotpath.swap_eval = orig_se
+    assert len(calls) == 1, len(calls)
+    g_ord, sel_c, left_c, kmax = calls.pop()
+    C = sel_c.shape[1]
+    assert tuple(sel_c.shape) == (M, BEAM_WIDTH, N), tuple(sel_c.shape)
+    err = check("swap_eval (fleet-scale beam)",
+                ba.swap_eval(g_ord, sel_c, left_c, kmax),
+                ref.swap_eval_ref(g_ord, sel_c, left_c, kmax), True)
+    geo = ba.LAST_GRID["boost_sweep"]
+    ms = time_ms(lambda: ba.swap_eval(g_ord, sel_c, left_c, kmax), 3)
+    plain = time_ms(lambda: ref.swap_eval_ref(g_ord, sel_c, left_c, kmax),
+                    1, 3)
+    # the data-dependent work: only rows some candidate selects are read,
+    # and only their nonzero entries cost operations
+    nnz = (g_ord != 0).sum(-1).double()
+    ops = int(4 * (sel_c.double() * nnz[:, None, :]).sum())
+    rows_read = int((sel_c != 0).any(1).sum())
+    b_ms, by = bound_ms(4 * (rows_read * K + 2 * M * C * N + M * C * K), ops)
+    row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+               library_ms=None, max_abs_err=err,
+               shape=f"M={M} N={N} K={K} C={C}",
+               **dict(zip(("cs", "T", "blocks"), geo)))
+    log(f"  swap_eval M={M} C={C} N={N} K={K} (the beam's own operands): "
+        f"bitwise its twin, cs={geo[0]} T={geo[1]} blocks={geo[2]}, kernel "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.6f} ms ({by}: "
+        f"{rows_read} selected demand rows of {M * N}, {card})")
+    del g_ord, sel_c, left_c, nnz
+    n_ref, eff_ref, sel_ref = REPRO_BEAM["beam"]
+    assert bool(res.swap_cert_ok), "the fleet-scale round did not certify"
+    assert int(res.n_allocated) == n_ref, int(res.n_allocated)
+    assert abs(float(res.efficiency) - eff_ref) <= REPRO_EFF_RTOL * eff_ref, \
+        float(res.efficiency)
+    assert torch.nonzero(res.selected[0])[:, 0].tolist() == sel_ref
+    del res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ba.reset_launches()
+    t0 = time.perf_counter()
+    res = schedule_round(rnd, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ba.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    _launched("fleet-scale beam round", counts, PATH_KERNELS["dpbalance"])
+    assert bool(res.swap_cert_ok) and int(res.n_allocated) == n_ref
+    del res
+    dev_ms, rows, traced = _device_kernels(lambda: schedule_round(rnd, cfg))
+    # the host loops over N=1000 pipelines, as synchronised spans (nested:
+    # the selection sums run inside the beam, the boosts inside it and in
+    # the finish)
+    from repro_torch.core import packing, swap
+    spans = {}
+    with _timed_spans([(sch, "alpha_fair_waterfill", "SP1"),
+                       (packing, "greedy_cover", "greedy_cover"),
+                       (swap, "swap_refine_beam", "swap_refine_beam"),
+                       (swap, "_selection_sums", "_selection_sums"),
+                       (packing, "proportional_boost", "proportional_boost")],
+                      spans):
+        span_wall = _wall(lambda: schedule_round(rnd, cfg))
+    off = SchedulerConfig(beta=2.2, refine=False)
+    res_off = schedule_round(rnd, off)
+    n_off, eff_off, sel_off = REPRO_BEAM["no_refine"]
+    assert int(res_off.n_allocated) == n_off
+    assert abs(float(res_off.efficiency) - eff_off) <= \
+        REPRO_EFF_RTOL * eff_off, float(res_off.efficiency)
+    assert torch.nonzero(res_off.selected[0])[:, 0].tolist() == sel_off
+    del res_off
+    wall_off = _wall(lambda: schedule_round(rnd, off))
+    top = ", ".join(f"{n[:40]} {v:.2f}" for n, v in rows[:6])
+    log(f"  fleet-scale round, beam: swap_cert_ok True, n_allocated "
+        f"{n_ref}, efficiency and selected pipelines equal repro's "
+        f"(REPRO_BEAM); wall {wall * 1e3:.1f} ms (refine off: "
+        f"{wall_off * 1e3:.1f} ms, also repro's values), card time "
+        f"{dev_ms:.2f} ms (traced wall {traced:.1f} ms, busy share "
+        f"{dev_ms / (wall * 1e3):.4f}), peak device memory "
+        f"{peak / 2**30:.3f} GiB above the round's inputs "
+        f"({base / 2**30:.3f} GiB); launches {counts}; top kernels (ms): "
+        f"{top}")
+    log(f"  fleet-scale round, beam, synchronised host spans (ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spans.items())
+        + f" of {span_wall * 1e3:.1f}")
+    del rnd
+    torch.cuda.empty_cache()
+    return counts, row
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -1616,8 +1954,17 @@ def main() -> int:
     rg_launches, rg_long_launches, rg_model = phase_serve_hybrid()
     phase_serve_hybrid_trace(rg_model)
     del rg_model
+    paper = phase_paper_comparison()
+    phase_fleets()
+    beam_launches, beam_row = phase_beam(smi)
+    rows["swap_eval"]["by_shape"]["fleet-beam"] = beam_row
+    rows["swap_eval"]["max_abs_err"] = max(rows["swap_eval"]["max_abs_err"],
+                                           beam_row["max_abs_err"])
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
+                    launches_per_round_paper_comparison={
+                        n: c[k] for n, c in paper.items()},
+                    launches_fleet_beam_round=beam_launches[k],
                     **rows[k]) for k in REPLACES]
     kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
                      replaces=DP_REPLACES[k], launches=dp_launches[k],

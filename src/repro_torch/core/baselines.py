@@ -1,0 +1,101 @@
+"""Baseline privacy-budget schedulers from the paper's evaluation (§VI):
+
+* DPF  [Luo et al., OSDI'21] -- grant the pending pipeline with the smallest
+  dominant share first (max-min fairness at the pipeline level).
+* DPK  [Tholoniat et al., "Packing privacy budget"] -- grant the pipelines
+  with the smallest total normalized demand first (packing oriented).
+* FCFS -- grant in arrival order.
+
+All three grant whole pipelines (x_ij = 1, no boost), as the paper
+characterises them in Fig. 2, and return the DPBalance ``RoundResult``
+schema so every metric compares directly.  The grant-if-fits sweep visits
+all M * N pipelines in one order across analysts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..fp import seq_dot, tree_sum
+from . import demand as dm
+from . import utility as ut
+from .blockaxis import grant_fits_scan
+from .scheduler import RoundResult, SchedulerConfig
+
+_EPS = 1e-9
+_FEAS = 1e-6
+_BIG = 1e30
+
+
+def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
+                      key_fn) -> RoundResult:
+    """Flatten the pipelines, sort them by ``key_fn`` ascending (stable:
+    ties keep index order, as ``jnp.argsort``), grant each that fits."""
+    M, N, K = rnd.demand.shape
+    gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
+    mu_ij = dm.pipeline_max_share(gamma)
+    cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
+
+    active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac, _FEAS)
+    key = key_fn(rnd, gamma, mu_ij)                         # [M, N]
+    key = torch.where(active, key, torch.full_like(key, _BIG)).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    # pre-permuted into visit order
+    g_ord = gamma.reshape(M * N, K)[order]
+    a_ord = active.reshape(-1)[order]
+
+    _, taken = grant_fits_scan(g_ord, a_ord, cap_frac, _FEAS)
+    sel = torch.zeros_like(a_ord).scatter_(0, order, taken).reshape(M, N)
+    x_ij = sel.to(gamma.dtype)
+
+    grants = rnd.demand * x_ij[..., None]
+    consumed = seq_dot(rnd.demand.reshape(M * N, K), x_ij.reshape(M * N, 1),
+                       0)
+    leftover = torch.clamp(rnd.capacity - consumed, min=0.0)
+
+    # the masked round keeps the optional tier weight, so the Eq 8-10
+    # metrics are weighted like DPBalance's (the grant order is not)
+    view = dm.AnalystView.build(dataclasses.replace(rnd, active=active),
+                                cfg.tau)
+    realized = seq_dot(gamma, x_ij[..., None], 1)
+    mu_real = torch.amax(realized, dim=-1)
+    util = mu_real * view.a_i * view.mask
+    return RoundResult(
+        x_analyst=torch.zeros_like(mu_real), x_pipeline=x_ij, selected=sel,
+        grants=grants, consumed=consumed, utility=util,
+        efficiency=ut.dominant_efficiency(util, view.mask),
+        fairness=ut.dominant_fairness(util, cfg.beta, view.mask),
+        platform=ut.platform_utility(util, cfg.beta, cfg.effective_lambda(),
+                                     view.mask),
+        jain=ut.jain_index(util, view.mask),
+        n_allocated=torch.sum(sel).to(torch.int32), leftover=leftover,
+        sp1_violation=torch.zeros((), dtype=gamma.dtype,
+                                  device=gamma.device),
+        # no SP1/SP2 stages: only the realized dominant share is meaningful
+        mu_real=mu_real)
+
+
+def _dpf_key(rnd, gamma, mu_ij):
+    return mu_ij                                   # smallest dominant share
+
+
+def _dpk_key(rnd, gamma, mu_ij):
+    # total normalized demand, summed in XLA's order: it is a sort key
+    return tree_sum(gamma, -1)                     # lowest demand packs first
+
+
+def _fcfs_key(rnd, gamma, mu_ij):
+    return rnd.arrival                             # earliest arrival first
+
+
+def dpf_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _dpf_key)
+
+
+def dpk_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _dpk_key)
+
+
+def fcfs_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _fcfs_key)

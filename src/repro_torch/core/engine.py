@@ -3,14 +3,18 @@
 1. :func:`generate_episode` pre-generates a whole episode as static-shape
    arrays from a seed, replaying ``repro``'s numpy RNG call order draw for
    draw, so its arrays equal ``repro.core.engine.generate_episode``'s.
-2. :func:`run_episode` applies :func:`~repro_torch.core.scheduler.
-   schedule_round` round after round on the episode's device, carrying
-   ``(capacity, done[, lam])`` -- ``repro``'s ``lax.scan`` body written as
-   a Python loop.
+2. :func:`run_episode` applies any scheduler's round function
+   (:func:`repro_torch.core.registry.get_round_fn`) round after round on
+   the episode's device, carrying ``(capacity, done[, lam])`` --
+   ``repro``'s ``lax.scan`` body written as a Python loop.
+3. :func:`run_fleet` runs a stacked fleet of episodes
+   (:func:`stack_episodes`) one episode after another -- ``repro``'s
+   ``map`` mode -- and stacks their rows.  SP1 couples the analysts of one
+   round through block capacity, so a fleet cannot fold into the analyst
+   axis; ``repro``'s lockstep ``vmap`` mode is not ported.
 
 Static-shape convention: every pipeline (i, j) has a fixed slot for the
-whole episode.  Fleets, diagnostics and the baseline schedulers are not
-ported yet.
+whole episode.
 """
 from __future__ import annotations
 
@@ -21,9 +25,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..fp import seq_dot
 from . import utility as ut
-from .demand import DemandView, RoundInputs
-from .scheduler import SchedulerConfig, schedule_round
+from .demand import (AnalystView, DemandView, RoundInputs,
+                     infeasible_pipelines, normalized_demand)
+from .registry import get_round_fn
+from .scheduler import SchedulerConfig
+
+_EPS = 1e-9
 
 ROUND_SECONDS = 10.0
 
@@ -63,6 +72,10 @@ class Episode:
                    block_budget=put(block_budget, np.float32),
                    block_round=put(block_round, np.int32),
                    n_rounds=int(n_rounds))
+
+
+_FIELDS = ("demand", "loss", "arrival", "spawn_round", "block_budget",
+           "block_round")
 
 
 def generate_episode(cfg, device="cuda") -> Episode:
@@ -121,20 +134,46 @@ def generate_episode(cfg, device="cuda") -> Episode:
                               block_budget, block_round, R, device=device)
 
 
+def round_diagnostics(rnd: RoundInputs, res,
+                      cfg: SchedulerConfig) -> Dict[str, torch.Tensor]:
+    """Per-round SP1-level diagnostics (what the fairness-axiom tests
+    consume).  Repeats the scheduler's own pipeline masking (pipelines
+    demanding exhausted blocks sit the round out), so the per-analyst
+    aggregates are the ones the solver saw."""
+    gamma = normalized_demand(rnd.demand, rnd.budget_total)
+    cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
+    unsat = infeasible_pipelines(gamma, cap_frac)
+    view = AnalystView.build(
+        dataclasses.replace(rnd, active=rnd.active & ~unsat), cfg.tau)
+    return dict(
+        utility=res.utility,
+        analyst_mask=view.mask,
+        a_i=view.a_i,
+        gamma_i=view.gamma_i,
+        mu_i=view.mu_i,
+        x_analyst=res.x_analyst,
+        sp1_violation=res.sp1_violation,
+        # realized per-analyst grant in normalized (share) units
+        granted_i=seq_dot(gamma, res.x_pipeline[..., None], 1),
+        cap_frac=cap_frac,
+        selected=res.selected,
+    )
+
+
 def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
                 scheduler: str = "dpbalance", *, diagnostics: bool = False,
                 validate: bool = True) -> Dict[str, torch.Tensor]:
-    """Run one episode round by round on the episode's device.
+    """Run one episode round by round on the episode's device, with the
+    scheduler ``scheduler`` (one of ``registry.SCHEDULER_NAMES``).
 
     Returns per-round metric tensors ``[R]`` -- ``repro``'s keys, plus
-    ``sp1_iters`` in both SP1 modes and ``selected [R, M, N]`` -- and the
-    ``final_*`` episode-end state.  With ``validate``, capacity
-    conservation and no overdraw are checked after the episode."""
-    if scheduler != "dpbalance":
-        raise NotImplementedError(f"scheduler {scheduler!r} is not ported "
-                                  "yet; only 'dpbalance'")
-    if diagnostics:
-        raise NotImplementedError("round diagnostics are not ported yet")
+    ``sp1_iters`` in both SP1 modes (int32 zeros for the baselines, which
+    run no SP1) and ``selected [R, M, N]``; with ``diagnostics`` also
+    :func:`round_diagnostics`' ``[R, ...]`` -- and the ``final_*``
+    episode-end state.  The baselines pass warm duals through unchanged.
+    With ``validate``, capacity conservation and no overdraw are checked
+    after the episode."""
+    round_fn = get_round_fn(scheduler)
     ep = episode
     M, N, K = ep.demand.shape
     dev = ep.demand.device
@@ -161,9 +200,9 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
                                 torch.zeros_like(ep.arrival)),
             loss=torch.where(active, ep.loss, torch.ones_like(ep.loss)),
             capacity=capacity, budget_total=budget_total, now=now, lam=lam)
-        res = schedule_round(rnd, sched_cfg)
-        if warm:
-            lam = res.sp1_lam
+        res = round_fn(rnd, sched_cfg)
+        if warm and res.sp1_lam is not None:   # baselines have no solver:
+            lam = res.sp1_lam                  # their duals pass through
 
         mask = torch.sum(active, dim=1) > 0
         gap = torch.where(created, capacity - res.consumed - res.leftover,
@@ -180,9 +219,12 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
             # every live block, and no overdraw
             "conservation_gap": torch.amax(torch.abs(gap)),
             "overdraw": torch.amax(res.consumed - capacity),
-            "sp1_iters": res.sp1_iters,
+            "sp1_iters": (torch.zeros((), dtype=torch.int32, device=dev)
+                          if res.sp1_iters is None else res.sp1_iters),
             "selected": res.selected,
         }
+        if diagnostics:
+            out.update(round_diagnostics(rnd, res, sched_cfg))
         for k, v in out.items():
             rows.setdefault(k, []).append(v)
         capacity = torch.clamp(capacity - res.consumed, min=0.0)
@@ -196,6 +238,60 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
     if validate:
         check_conservation(ys, scheduler)
     return ys
+
+
+def resolve_fleet_mode(mode: str = "auto") -> str:
+    """The fleet mode :func:`run_fleet` uses for ``mode``: ``"auto"`` and
+    ``"map"`` are ``"map"`` (episodes one after another).  ``"vmap"``
+    raises ``NotImplementedError``: lockstep batching of episodes is not
+    ported (ROADMAP, Queue 1)."""
+    if mode in ("auto", "map"):
+        return "map"
+    if mode == "vmap":
+        raise NotImplementedError(
+            "run_fleet(mode='vmap') is not ported (ROADMAP, Queue 1): SP1 "
+            "couples analysts through block capacity, so episodes cannot "
+            "fold into the analyst axis; use mode='map'")
+    raise ValueError(f"unknown fleet mode {mode!r}; use 'vmap'/'map'/'auto'")
+
+
+def _episode_at(fleet: Episode, e: int) -> Episode:
+    return Episode(**{f: getattr(fleet, f)[e] for f in _FIELDS},
+                   n_rounds=fleet.n_rounds)
+
+
+def run_fleet(fleet: Episode, sched_cfg: SchedulerConfig,
+              scheduler: str = "dpbalance", *, diagnostics: bool = False,
+              validate: bool = True,
+              mode: str = "auto") -> Dict[str, torch.Tensor]:
+    """Run a stacked fleet (leading fleet axis ``E``, from
+    :func:`stack_episodes`) episode by episode on its device; returns
+    :func:`run_episode`'s rows stacked to ``[E, R, ...]`` (``final_*``
+    ``[E, ...]``)."""
+    resolve_fleet_mode(mode)
+    rows: Dict[str, list] = {}
+    for e in range(fleet.demand.shape[0]):
+        out = run_episode(_episode_at(fleet, e), sched_cfg, scheduler,
+                          diagnostics=diagnostics, validate=False)
+        for k, v in out.items():
+            rows.setdefault(k, []).append(v)
+    ys = {k: torch.stack(v) for k, v in rows.items()}
+    if validate:
+        check_conservation(ys, scheduler)
+    return ys
+
+
+def stack_episodes(episodes) -> Episode:
+    """Stack same-shape Episodes (one device) along a new leading fleet
+    axis."""
+    episodes = list(episodes)
+    if not episodes:
+        raise ValueError("need at least one episode")
+    rounds = {ep.n_rounds for ep in episodes}
+    if len(rounds) > 1:
+        raise ValueError(f"episodes disagree on n_rounds: {sorted(rounds)}")
+    return Episode(**{f: torch.stack([getattr(ep, f) for ep in episodes])
+                      for f in _FIELDS}, n_rounds=rounds.pop())
 
 
 def check_conservation(out: Dict[str, torch.Tensor], scheduler: str) -> None:

@@ -17,14 +17,18 @@ set:
 
 Everything is batched over analysts: ``gamma [M, N, K]``, ``mu``/``a``/
 ``active``/``sel`` ``[M, N]``, ``budget [M, K]``; the boost sweeps run as
-one kernel launch over the whole analyst axis.
+one kernel launch over the whole analyst axis.  An exhaustive oracle for
+one analyst at small N lives in :func:`exact_pack` (numpy enumeration,
+boost sweep on ``device``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from .. import resolve_device
 from ..fp import seq_dot, seq_sum
 from . import hotpath
 from . import swap as _swap
@@ -138,3 +142,87 @@ def pack_all(gamma, mu, a, active, budget, kappa_max: float = 8.0,
                        incremental) if refine else sel0)
     return _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
                            kappa_max)
+
+
+def pack_analyst(gamma, mu, a, active, budget, kappa_max: float = 8.0,
+                 refine: bool = True, incremental: bool = True) -> PackResult:
+    """Full SP2 for one analyst (``gamma [N, K]``, ``budget [K]``): the
+    analyst axis of :func:`pack_all` at size one."""
+    pack = pack_all(gamma[None], mu[None], a[None], active[None],
+                    budget[None], kappa_max, refine, incremental)
+    return PackResult(*(x[0] for x in pack))
+
+
+def pack_all_pruned(gamma, mu, a, active, budget, kappa_max: float = 8.0,
+                    swap_beam: int = 8):
+    """SP2 for every analyst with the certified swap beam
+    (:func:`repro_torch.core.swap.swap_refine_beam`).
+
+    The per-analyst certificates are AND-ed and read on the host once: a
+    certified round finishes on the beam's selections; otherwise the whole
+    round reruns the full compacted sweep.  Only one side runs, never
+    both, and either way the result is :func:`pack_all`'s bit for bit.
+
+    Returns ``(PackResult, cert_ok scalar bool, margin scalar)``, margin
+    the tightest analyst's certificate margin."""
+    sel0 = greedy_cover(gamma, mu, active, budget)
+    sel, ok, margin = _swap.swap_refine_beam(gamma, mu, a, active, sel0,
+                                             budget, kappa_max, swap_beam)
+    cert_ok = torch.all(ok)
+    if not bool(cert_ok):                     # the round's one host read
+        sel = _swap.swap_refine_incremental(gamma, mu, a, active, sel0,
+                                            budget, kappa_max)
+    pack = _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
+                           kappa_max)
+    return pack, cert_ok, torch.amin(margin)
+
+
+def _batched_boost_objective(gamma, mu, a, active, sels, budget,
+                             kappa_max: float):
+    """One analyst's ``[S, N]`` selections -> ``[S]`` boosted objectives,
+    the subsets taking the place of the analyst axis."""
+    S = sels.shape[0]
+
+    def rep(x):
+        return x.expand(S, *x.shape)
+
+    _, _, obj = proportional_boost(rep(gamma), rep(mu), rep(a), rep(active),
+                                   sels, rep(budget), kappa_max)
+    return obj
+
+
+def exact_pack(gamma, mu, a, active, budget, kappa_max: float = 8.0,
+               device="cuda"):
+    """Exhaustive oracle for tests (one analyst, at most 16 active
+    pipelines): enumerate subsets, maximise the count and then the boosted
+    objective (the same sequential boost).  Ties go to the lowest subset
+    bitmask.  The subsets are enumerated in numpy; their boost sweep runs
+    on ``device`` (``boost_scan`` on the card, its twin on the CPU).
+    Returns ``(selected [N] bool, count, objective)`` in numpy."""
+    dev = resolve_device(device)
+    gamma, mu, a = (np.asarray(x, np.float32) for x in (gamma, mu, a))
+    active, budget = np.asarray(active, bool), np.asarray(budget, np.float32)
+    N = mu.shape[0]
+    idxs = np.flatnonzero(active)
+    n = idxs.size
+    if n > 16:
+        raise ValueError(f"exact_pack enumerates 2^{n} subsets; N_active "
+                         "must be <= 16")
+    bits = np.arange(1 << n)
+    sels = np.zeros((1 << n, N), bool)
+    sels[:, idxs] = (bits[:, None] >> np.arange(n)) & 1
+    used = sels.astype(gamma.dtype) @ gamma                       # [S, K]
+    feasible = (used <= budget + _FEAS).all(axis=1)
+    objs = _batched_boost_objective(
+        *(torch.from_numpy(x).to(dev)
+          for x in (gamma, mu, a, active, sels, budget)),
+        kappa_max).cpu().numpy().astype(np.float64)
+    counts = sels.sum(axis=1)
+    key = np.where(feasible, counts * 1.0, -1.0)
+    best_count = int(key.max())
+    if best_count < 0:        # no feasible subset (a negative budget)
+        return np.zeros(N, bool), 0, -np.inf
+    cand = feasible & (counts == best_count)
+    best_obj = objs[cand].max()
+    best = int(np.flatnonzero(cand & (objs >= best_obj))[0])
+    return sels[best], best_count, float(objs[best])

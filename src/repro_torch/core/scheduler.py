@@ -22,7 +22,7 @@ from ..fp import fma, seq_dot
 from . import demand as dm
 from . import utility as ut
 from .blockaxis import LOCAL, BlockAxis, require_local
-from .packing import pack_all
+from .packing import pack_all, pack_all_pruned
 from .waterfill import alpha_fair_waterfill
 
 _EPS = 1e-9
@@ -41,7 +41,10 @@ class SchedulerConfig:
     solver_iters: int = 4000
     solver_tol: float = 1e-6
     swap_beam: int = 0              # >0: certified top-k pruning of the swap
-                                    # sweep -- not ported yet (raises)
+                                    # sweep (core/swap.py): evaluate only the
+                                    # `swap_beam` best-bounded candidates, and
+                                    # rerun the full sweep when the exactness
+                                    # certificate fails; same result either way
     sp1_warm_start: bool = False    # carry SP1 duals across rounds
                                     # (``rnd.lam`` in, ``sp1_lam`` out) with
                                     # the adaptive ascent step
@@ -71,8 +74,8 @@ class RoundResult(NamedTuple):
     sp2_water: Optional[torch.Tensor] = None      # [M] post-boost min leftover
     swap_accepted: Optional[torch.Tensor] = None  # [M] bool: swap refine fired
     grant_scale: Optional[torch.Tensor] = None    # scalar overdraw-guard scale
-    swap_cert_ok: Optional[torch.Tensor] = None      # beam only: always None
-    swap_cert_margin: Optional[torch.Tensor] = None  # beam only: always None
+    swap_cert_ok: Optional[torch.Tensor] = None      # scalar bool (beam only)
+    swap_cert_margin: Optional[torch.Tensor] = None  # scalar (beam only)
     sp1_lam: Optional[torch.Tensor] = None  # [K] final duals (warm start only)
 
 
@@ -84,9 +87,6 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     the Eq 8-10 metrics are tier-weighted; SP2's per-pipeline ``a_ij``
     stays unweighted (a common factor within one analyst)."""
     require_local(block_axis)
-    if cfg.swap_beam > 0:
-        raise NotImplementedError("swap_beam > 0 (certified swap pruning) "
-                                  "is not ported yet")
     gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
     mu_ij = dm.pipeline_max_share(gamma)
 
@@ -111,8 +111,14 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     # SP2 -- per-analyst packing; per-pipeline weights a_ij = T(t_ij) l_ij.
     T_ij = dm.waiting_coefficient(rnd.arrival, rnd.now, cfg.tau)
     a_ij = T_ij * rnd.loss
-    pack = pack_all(gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
-                    cfg.refine, cfg.incremental_swap)
+    if cfg.swap_beam > 0 and cfg.refine and cfg.incremental_swap:
+        pack, cert_ok, cert_margin = pack_all_pruned(
+            gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
+            cfg.swap_beam)
+    else:
+        pack = pack_all(gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
+                        cfg.refine, cfg.incremental_swap)
+        cert_ok = cert_margin = None
 
     x_ij = pack.x_ij
     M, N, K = rnd.demand.shape
@@ -144,4 +150,5 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
         leftover=leftover, sp1_violation=sp1.violation,
         sp1_iters=sp1.iters, mu_real=mu_real, sp2_objective=pack.objective,
         sp2_water=pack.water, swap_accepted=pack.swapped,
-        grant_scale=grant_scale, sp1_lam=sp1.lam if warm else None)
+        grant_scale=grant_scale, swap_cert_ok=cert_ok,
+        swap_cert_margin=cert_margin, sp1_lam=sp1.lam if warm else None)

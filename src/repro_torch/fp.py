@@ -18,10 +18,13 @@ the port reproduces both rules wherever a value can reach one of them:
 * :func:`seq_sum` / :func:`seq_dot` accumulate along one axis in index
   order, with every step rounded to float32 (``seq_dot`` through
   :func:`fma`).
+* :func:`tree_sum` reduces a long axis the way XLA:CPU's tree reduction
+  rewriter does: windows of 32, each summed in index order.
 
-Both are device-agnostic elementwise tensor code, so the CPU and the CUDA
+All are device-agnostic elementwise tensor code, so the CPU and the CUDA
 runs of the port round identically too.  Long axes (K blocks) keep
-``torch.sum``: their results are continuous and held to a tolerance.
+``torch.sum`` where their results are continuous and held to a tolerance;
+:func:`tree_sum` is for a long-axis sum that feeds a discrete decision.
 """
 from __future__ import annotations
 
@@ -71,3 +74,20 @@ def seq_dot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
     for i in range(p.shape[0]):
         acc = (acc.double() + p[i]).float()
     return acc
+
+
+_TREE_WINDOW = 32
+
+
+def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum along ``dim`` in XLA:CPU's order for a long axis: while the axis
+    is longer than 32, zero-pad it to a multiple of 32 (half the padding,
+    rounded down, in front), sum each window of 32 in index order and
+    keep the window sums; then sum what is left in index order.  The
+    padding adds exact zeros, so only the window boundaries matter."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > _TREE_WINDOW:
+        pad = -x.shape[-1] % _TREE_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = seq_sum(x.reshape(*x.shape[:-1], -1, _TREE_WINDOW), -1)
+    return seq_sum(x, -1)

@@ -100,8 +100,12 @@ def test_validate_raises_on_overdraw():
 
 
 def test_outside_the_slice_raises():
+    """Every scheduler and the diagnostics run in the port now
+    (``test_torch_fleet.py``); a lockstep ``vmap`` fleet is still outside
+    it, and an unknown scheduler is an error."""
     ep = teng.generate_episode(tsim.SimConfig(seed=0, **SMALL), device="cpu")
+    fleet = teng.stack_episodes([ep])
     with pytest.raises(NotImplementedError):
-        teng.run_episode(ep, tsch.SchedulerConfig(), "dpf")
-    with pytest.raises(NotImplementedError):
-        teng.run_episode(ep, tsch.SchedulerConfig(), diagnostics=True)
+        teng.run_fleet(fleet, tsch.SchedulerConfig(), "dpf", mode="vmap")
+    with pytest.raises(ValueError):
+        teng.run_episode(ep, tsch.SchedulerConfig(), "fifo")

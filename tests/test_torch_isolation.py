@@ -71,7 +71,8 @@ def test_port_has_every_slice_module():
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
                 "models/kv_cache.py", "launch/serve.py",
                 "configs/recurrentgemma_2b.py", "kernels/rg_lru.py",
-                "models/recurrent.py"):
+                "models/recurrent.py", "core/baselines.py",
+                "core/registry.py", "core/scenarios.py", "launch/sweep.py"):
         assert mod in have, mod
     for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu",
                "rg_lru.cu"):

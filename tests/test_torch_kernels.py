@@ -545,3 +545,42 @@ def test_cuda_refused_cluster_launch_raises(hopper, monkeypatch):
         ba.matvec(c, torch.ones(8192, device=hopper))
     assert ba.LAUNCHES["rowmax"] == 0 and ba.LAUNCHES["matvec"] == 0
     assert "rowmax" not in ba.LAST_GRID
+
+
+def _oracle_problem(seed, N, K=12):
+    rng = np.random.default_rng(seed)
+    g = (rng.uniform(0, 0.4, (N, K)) * (rng.random((N, K)) < 0.5)
+         ).astype(np.float32)
+    a = rng.uniform(0.3, 1.0, N).astype(np.float32)
+    act = rng.random(N) < 0.9
+    return g, g.max(-1), a, act, (g.sum(0) * 0.4).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,N", [(0, 6), (3, 10)])
+def test_cuda_exact_pack_sweeps_on_the_card(hopper, seed, N):
+    """``exact_pack``'s boost sweep launches ``boost_scan`` on the card by
+    default and picks the subset, count and objective the CPU picks."""
+    from repro_torch.core import packing
+    args = _oracle_problem(seed, N)
+    cs, cc, co = packing.exact_pack(*args, 2.0, device="cpu")
+    ba.reset_launches()
+    ks, kc, ko = packing.exact_pack(*args, 2.0)
+    assert ba.LAUNCHES["boost_scan"] >= 1
+    np.testing.assert_array_equal(ks, cs)
+    assert (kc, ko) == (cc, co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,k", [(2, 8), (4, 9), (50, 8)])
+def test_cuda_top_k_ties_to_the_lowest_index(hopper, levels, k):
+    """The swap beam's top-k on the card: equal to a stable descending
+    sort's first ``k`` (values and indices) on rows dense with ties."""
+    from repro_torch.core import swap
+    rng = np.random.default_rng(levels * 10 + k)
+    x = rng.integers(0, levels, (3, 40, 5000)).astype(np.float32)
+    x[x == 0] = -np.inf
+    xd = torch.as_tensor(x, device=hopper)
+    v, i = swap._top_k(xd, k)
+    sv, si = torch.sort(xd, dim=-1, descending=True, stable=True)
+    assert torch.equal(v, sv[..., :k]) and torch.equal(i, si[..., :k])
