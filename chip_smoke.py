@@ -122,7 +122,23 @@ Phases (each raises on failure; nothing is caught):
      and selections (REPRO_BEAM), its swap_eval launch (M=1, C=8) bitwise
      its twin on the same operands with times and bound, and the round's
      wall, card time, launches and peak device memory beside the same
-     round with refine off.
+     round with refine off;
+ 20. the service plane (repro_torch.service.FlaasService) at
+     repro/service/load.py's defaults (paper_default, poisson, seed 0,
+     beta 2.2; M=8 x N=25 slots, a 4096-slot ledger ring, chunks of 8,
+     admission batches of 32, a queue of 1024): every scheduler through
+     168 ticks (8.2 ring wraps) with conservation checked every chunk,
+     every wrapped chunk paged, every slot recycled, and exactly the
+     path's budget kernels launched every tick; dpbalance's first 64
+     ticks held to repro's n_allocated and cumulative metrics
+     (REPRO_SERVICE); paged bitwise the carry body (cold and warm SP1,
+     48 ticks, rows and final state); card against CPU over 48 ticks
+     (dpbalance warm, dpf; selections equal, rows within RTOL_SERVICE);
+     replay_gap against run_episode for every scheduler on the card; and
+     where the time goes: ticks/s per scheduler, the PhaseProfiler split,
+     the card's busy share over one wrapped chunk, the synchronising CUDA
+     calls of a chunk beside 8 run_episode rounds, and the service tick
+     against the engine round on the paper episode.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -246,6 +262,31 @@ BEAM_WIDTH = 8
 REPRO_BEAM = {"beam": (8, 0.17649494, [71, 209, 292, 328, 357, 495, 503, 979]),
               "no_refine": (8, 0.17099118,
                             [71, 209, 292, 322, 328, 357, 495, 503])}
+# phase 20: the service plane at repro/service/load.py's defaults
+# (paper_default, poisson, seed 0, beta 2.2): M=8 analyst slots x N=25
+# pipeline slots, a B=4096-slot ledger ring (200 blocks a tick: a wrap
+# every 20.48 ticks), chunks of 8 ticks, admission batches of 32, a queue
+# of 1024
+SERVICE_GEOMETRY = dict(analyst_slots=8, pipeline_slots=25,
+                        block_slots=4096, chunk_ticks=8, admit_batch=32,
+                        max_pending=1024)
+SERVICE_TICKS = 168            # 8.2 ring wraps
+SERVICE_CPU_TICKS = 48         # card vs CPU: two wraps
+RTOL_SERVICE = 1e-5            # continuous outputs, relative and absolute
+# repro's own service at those defaults (cold SP1, on a CPU): per-tick
+# n_allocated over the first 64 ticks, then cumulative_efficiency and
+# cumulative_fairness_norm after them
+REPRO_SERVICE = (
+    [25, 0, 0, 18, 20, 4, 0, 48, 23, 0, 28, 1, 1, 0, 0, 0, 25, 0, 0, 0, 0,
+     0, 0, 0, 2, 2, 0, 0, 0, 0, 0, 0, 101, 11, 0, 0, 0, 0, 0, 0, 64, 0, 0,
+     0, 0, 0, 0, 0, 71, 0, 0, 0, 0, 0, 0, 0, 82, 0, 0, 0, 0, 0, 0, 0],
+    5.85961267, 30.9422776)
+# budget-kernel launches per tick of each scheduler's round on the card
+SERVICE_PER_TICK = {"dpbalance": {"rowmax": 1, "matvec": 1, "matvec_t": 2,
+                                  "dual_step": 1, "boost_scan": 2,
+                                  "swap_eval": 1},
+                    "dpf": {"rowmax": 1}, "dpk": {"rowmax": 1},
+                    "fcfs": {"rowmax": 1}}
 # (name, M, K): the regime repro/kernels/budget_alloc.py was written for
 # ("M ~ 10^3 analysts, K ~ 10^5 live blocks"), 512 MB of float32, beyond
 # the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
@@ -1936,6 +1977,233 @@ def phase_beam(card):
     return counts, row
 
 
+def _service(scheduler, device="cuda", warm=False, paged=True, **over):
+    """A service at SERVICE_GEOMETRY over load.py's default trace."""
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.service import FlaasService, ServiceConfig, make_trace
+    cfg = ServiceConfig(scheduler=scheduler,
+                        sched=SchedulerConfig(beta=2.2, sp1_warm_start=warm),
+                        paged=paged, **{**SERVICE_GEOMETRY, **over})
+    return FlaasService(cfg, make_trace("paper_default", "poisson", seed=0),
+                        device=device)
+
+
+def _run_ticks(svc, ticks, marks=()):
+    """Run ``svc`` chunk by chunk to ``ticks``; returns the per-tick rows
+    (numpy, concatenated) and ``{mark: (summary, state copy)}`` at each
+    tick in ``marks`` (multiples of the chunk)."""
+    parts, at = [], {}
+    while svc.tick < ticks:
+        parts.append(svc.run_chunk(min(svc.cfg.chunk_ticks,
+                                       ticks - svc.tick)))
+        if svc.tick in marks:
+            at[svc.tick] = (svc.summary(), {
+                f.name: getattr(svc.state, f.name).clone()
+                for f in dataclasses.fields(svc.state)})
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}, at
+
+
+def _service_rows_equal(label, got, want, n, rtol):
+    """The first ``n`` ticks of two services' rows: selections,
+    n_allocated and expiries equal; the rest within ``rtol`` relative and
+    absolute (0: bitwise)."""
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    for k in got:
+        g, w = got[k][:n], want[k][:n]
+        if rtol == 0 or k in ("selected", "n_allocated", "expired") or \
+                w.dtype.kind in "bi":
+            assert np.array_equal(g, w), (label, k)
+        else:
+            assert np.allclose(g, w, rtol=rtol, atol=rtol), \
+                (label, k, float(np.abs(g.astype(np.float64) - w).max()))
+
+
+def _states_equal(label, a, b, rtol=0.0):
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        ok = torch.equal(x, y) if rtol == 0 or not x.is_floating_point() \
+            else torch.allclose(x, y, rtol=rtol, atol=rtol)
+        assert ok, (label, k)
+
+
+def _count_syncs(fn) -> int:
+    """Synchronising CUDA calls made while ``fn()`` runs, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_service(smi):
+    """The streaming service plane at load.py's full-width defaults on the
+    card: every scheduler through 8 ring wraps, paged bitwise the carry,
+    card against CPU, repro's values, replay against run_episode, and
+    where a tick's time goes."""
+    log(f"[20] the service plane: FlaasService at load.py's defaults "
+        f"({SERVICE_GEOMETRY}, paper_default, poisson, seed 0, beta 2.2), "
+        f"{SERVICE_TICKS} ticks; {smi}")
+    from repro_torch.core import (SCHEDULER_NAMES, SchedulerConfig,
+                                  SimConfig, generate_episode, run_episode)
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.service import replay_gap
+    T = SERVICE_GEOMETRY["chunk_ticks"]
+    n_cpu = SERVICE_CPU_TICKS
+    runs, launches, tps = {}, {}, {}
+    # 1. every scheduler through >= 8 wraps, conservation checked per
+    # chunk (ServiceConfig.validate), every wrapped chunk paged, every
+    # slot recycled
+    for name in SCHEDULER_NAMES:
+        svc = _service(name)
+        torch.cuda.synchronize()
+        ba.reset_launches()
+        t0 = time.perf_counter()
+        ys, at = _run_ticks(svc, SERVICE_TICKS, marks=(n_cpu, 64))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ba.LAUNCHES)
+        want = {k: SERVICE_TICKS * SERVICE_PER_TICK[name].get(k, 0)
+                for k in counts}
+        assert counts == want, (name, counts, want)
+        s = svc.summary()
+        modes = s["paging"]["mode_ticks"]
+        wraps = SERVICE_TICKS * svc.trace.blocks_per_tick / \
+            SERVICE_GEOMETRY["block_slots"]
+        assert wraps >= 8 and modes["carry"] == 0 and \
+            modes["paged"] == SERVICE_TICKS - modes["wrapfree"] and \
+            modes["wrapfree"] * svc.trace.blocks_per_tick <= \
+            SERVICE_GEOMETRY["block_slots"], (name, modes)
+        stats = svc.queue.stats
+        live = stats.pipelines_admitted - s["grants"] - \
+            s["expired_pipelines"]
+        assert int(svc.table.occupied.sum()) == live, (name, live)
+        assert stats.offered == stats.admitted + stats.rejected + \
+            svc.queue.depth
+        assert stats.admitted > SERVICE_GEOMETRY["analyst_slots"]
+        assert float(ys["overdraw"].max()) <= 1e-4 and \
+            float(ys["conservation_gap"].max()) <= 1e-4
+        for k in ("round_efficiency", "round_fairness_norm", "leftover"):
+            assert np.isfinite(ys[k]).all(), (name, k)
+        runs[name], launches[name] = (svc, ys, at), {
+            k: v / SERVICE_TICKS for k, v in counts.items()}
+        tps[name] = SERVICE_TICKS / wall
+        log(f"  {name:9s}: {SERVICE_TICKS} ticks ({wraps:.2f} ring wraps) in "
+            f"{wall:.3f} s = {tps[name]:.2f} ticks/s; modes {modes}; "
+            f"{s['grants']} grants, {s['expired_pipelines']} expired, "
+            f"{stats.admitted} of {stats.offered} submissions admitted, "
+            f"queue depth mean {s['queue_depth_mean']:.2f}; cumulative "
+            f"efficiency {s['cumulative_efficiency']:.7g}, fairness "
+            f"(normalized) {s['cumulative_fairness_norm']:.7g}; max gap "
+            f"{float(ys['conservation_gap'].max()):.3e}, overdraw "
+            f"{float(ys['overdraw'].max()):.3e}; occupancy {live} equals "
+            f"the admission ledger; budget-kernel launches per tick "
+            f"{launches[name]}")
+    # 4. repro's values for the first 64 dpbalance ticks
+    svc, ys, at = runs["dpbalance"]
+    n_ref, eff_ref, fair_ref = REPRO_SERVICE
+    assert ys["n_allocated"][:64].tolist() == n_ref, ys["n_allocated"][:64]
+    s64 = at[64][0]
+    for got, want in ((s64["cumulative_efficiency"], eff_ref),
+                      (s64["cumulative_fairness_norm"], fair_ref)):
+        assert abs(got - want) <= RTOL_SERVICE * abs(want), (got, want)
+    log(f"  dpbalance, first 64 ticks: repro's per-tick n_allocated equal, "
+        f"cumulative efficiency {s64['cumulative_efficiency']:.9g} "
+        f"(repro {eff_ref}), fairness (normalized) "
+        f"{s64['cumulative_fairness_norm']:.9g} (repro {fair_ref}): "
+        f"REPRO_SERVICE held")
+    # 2. paged against carry on the card, bitwise, cold and warm
+    warm = _service("dpbalance", warm=True)
+    ys_w, at_w = _run_ticks(warm, n_cpu, marks=(n_cpu,))
+    for label, (ya, sa) in (("cold", (ys, at[n_cpu][1])),
+                            ("warm", (ys_w, at_w[n_cpu][1]))):
+        carry = _service("dpbalance", warm=label == "warm", paged=False)
+        yc, atc = _run_ticks(carry, n_cpu, marks=(n_cpu,))
+        assert carry.summary()["paging"]["mode_ticks"]["paged"] == 0
+        _service_rows_equal(f"paged vs carry {label}", ya, yc, n_cpu, 0.0)
+        _states_equal(f"paged vs carry {label}", sa, atc[n_cpu][1])
+        log(f"  dpbalance {label}: paged bitwise the carry body over "
+            f"{n_cpu} ticks (per-tick rows and every ServiceState field)")
+    # 3. card against CPU, dpbalance warm and dpf, two wraps
+    for label, (ya, sa), name, w in (
+            ("dpbalance warm", (ys_w, at_w[n_cpu][1]), "dpbalance", True),
+            ("dpf", (runs["dpf"][1], runs["dpf"][2][n_cpu][1]), "dpf",
+             False)):
+        host = _service(name, device="cpu", warm=w)
+        t0 = time.perf_counter()
+        yh, ath = _run_ticks(host, n_cpu, marks=(n_cpu,))
+        cpu_s = time.perf_counter() - t0
+        _service_rows_equal(f"card vs CPU {label}", ya, yh, n_cpu,
+                            RTOL_SERVICE)
+        _states_equal(f"card vs CPU {label}", sa, ath[n_cpu][1],
+                      RTOL_SERVICE)
+        log(f"  {label}: card vs CPU over {n_cpu} ticks: selections, "
+            f"n_allocated and expiries equal, rows and final state within "
+            f"{RTOL_SERVICE} (CPU run {cpu_s:.1f} s, host clock)")
+    # 5. replay against run_episode on the card
+    from repro_torch.service import make_trace
+    for name in SCHEDULER_NAMES:
+        gaps = replay_gap(make_trace("paper_default", "poisson", seed=0), 10,
+                          SchedulerConfig(beta=2.2), name, chunk_ticks=T,
+                          device="cuda")
+        assert max(gaps.values()) <= 1e-5, (name, gaps)
+        log(f"  replay_gap {name:9s} over 10 ticks on the card: max "
+            f"{max(gaps.values()):.3e}")
+    # 6. where the time goes
+    svc = runs["dpbalance"][0]
+    prof = svc.profiler.summary()
+    total = sum(v["seconds"] for v in prof.values())
+    log("  dpbalance PhaseProfiler over the 168 ticks (host wall): " + ", ".join(
+        f"{k} {v['seconds'] * 1e3:.1f} ms / {v['calls']} calls "
+        f"({v['seconds'] / total:.4f})" for k, v in prof.items()))
+    loop = svc.tick_loop_fn(T)                   # a wrapped chunk
+    _wall(loop)
+    dev_ms, rows, wall_ms = _device_kernels(loop)
+    log(f"  dpbalance, one wrapped chunk's tick loop ({T} ticks) traced: "
+        f"wall {wall_ms:.2f} ms, card busy {dev_ms:.3f} ms, busy share "
+        f"{dev_ms / wall_ms:.4f}; top kernels " + ", ".join(
+            f"{k[:40]} {v:.3f}" for k, v in rows[:6]))
+    sync_chunk = _count_syncs(lambda: svc.run_chunk(T))
+    ep8 = generate_episode(SimConfig(seed=0, n_analysts=8,
+                                     pipelines_per_analyst=25, n_rounds=8),
+                           device="cuda")
+    sync_ep = _count_syncs(lambda: run_episode(ep8, SchedulerConfig(beta=2.2),
+                                               "dpbalance"))
+    log(f"  synchronising CUDA calls (set_sync_debug_mode): one dpbalance "
+        f"service chunk of {T} ticks {sync_chunk}; run_episode of 8 rounds "
+        f"at M=8 N=25 K=1600 {sync_ep}")
+    sim = SimConfig(seed=0)
+    ep = generate_episode(sim, device="cuda")
+    R = sim.n_rounds
+    for name in ("dpbalance", "dpf"):
+        paper = _service(name, analyst_slots=sim.n_analysts,
+                         pipeline_slots=sim.pipelines_per_analyst,
+                         block_slots=sim.n_devices *
+                         sim.blocks_per_round_per_device * R,
+                         chunk_ticks=R, admit_batch=16, max_pending=256,
+                         validate=False)
+        paper.admit_boundary(R)
+        tick_loop = paper.tick_loop_fn(R)
+        cfg = SchedulerConfig(beta=2.2)
+        engine = (lambda n=name: run_episode(ep, cfg, n, validate=False))
+        tick_loop(), engine()
+        t_loop, t_eng = [], []
+        for _ in range(3):
+            t_loop.append(_wall(tick_loop))
+            t_eng.append(_wall(engine))
+        ratio = (R / min(t_loop)) / (R / min(t_eng))
+        log(f"  paper episode, {name}: service tick {min(t_loop) / R * 1e3:.2f}"
+            f" ms, engine round {min(t_eng) / R * 1e3:.2f} ms (min of 3, "
+            f"in turns): ticks/s over rounds/s {ratio:.3f}")
+    log("  ticks/s: " + ", ".join(f"{k} {v:.2f}" for k, v in tps.items())
+        + f"; {smi}")
+    return launches
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -1960,11 +2228,14 @@ def main() -> int:
     rows["swap_eval"]["by_shape"]["fleet-beam"] = beam_row
     rows["swap_eval"]["max_abs_err"] = max(rows["swap_eval"]["max_abs_err"],
                                            beam_row["max_abs_err"])
+    service_launches = phase_service(smi)
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
                         n: c[k] for n, c in paper.items()},
                     launches_fleet_beam_round=beam_launches[k],
+                    launches_per_service_tick={
+                        n: c[k] for n, c in service_launches.items()},
                     **rows[k]) for k in REPLACES]
     kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
                      replaces=DP_REPLACES[k], launches=dp_launches[k],

@@ -22,15 +22,46 @@ _EPS = 1e-12
 
 @dataclasses.dataclass(frozen=True)
 class DemandView:
-    """The monolithic demand view (``repro``'s ``mint_tick=None``): ``base``
-    is already the current demand tensor.  The service plane's two-ring
-    view is not ported yet."""
+    """Two-ring residency view of the ``[M, N, B]`` demand tensor.
 
-    base: torch.Tensor                    # [M, N, K]
+    The round functions never mutate demand; what varies tick to tick in a
+    long-running service is only the *hot ring* -- the stripe of slots the
+    current chunk's mints can touch, where retirement wipes stale demand
+    columns.  Those wipes are monotone and time-indexed: the entry
+    ``(m, n, b)`` is zero at tick ``t`` exactly when slot ``b`` was
+    re-minted at some chunk tick ``mint_tick[b] <= t`` and the pipeline
+    was submitted before it (``spawn_tick[m, n] < mint_tick[b]``).  So
+    ``base`` -- the cold page store, the tensor as it stood at the chunk
+    boundary -- stays constant through the chunk, and :meth:`masked`
+    rebuilds the tick's effective demand by folding the wipe predicate
+    into the activity mask the round applies anyway.  Every value is
+    bit-identical to mutating the tensor in place: ``x * 1.0 == x`` and
+    ``x * 0.0 == 0.0`` for the nonnegative finite demands.
+
+    ``mint_tick=None`` is the monolithic view (engine episodes, wrap-free
+    chunks, the full-tensor carry fallback): ``base`` is already current.
+    """
+
+    base: torch.Tensor                         # [M, N, B]
+    mint_tick: Optional[torch.Tensor] = None   # [B] i32 chunk mint tick
+                                               #   (NEVER if not minted)
+    spawn_tick: Optional[torch.Tensor] = None  # [M, N] i32 activation tick
+    now_tick: Optional[int] = None             # current tick
+
+    def wiped(self) -> torch.Tensor:
+        """[M, N, B] bool -- entries retired by this chunk's mints up to
+        (and including) ``now_tick``."""
+        mt = self.mint_tick[None, None, :]
+        return (mt <= self.now_tick) & (self.spawn_tick[..., None] < mt)
 
     def masked(self, active: torch.Tensor) -> torch.Tensor:
-        """``base`` with inactive pipelines zeroed."""
-        return self.base * active[..., None].to(self.base.dtype)
+        """The tick's effective demand: ``base`` with inactive pipelines
+        (and, in the two-ring view, retired entries) zeroed, in one
+        elementwise pass."""
+        m = active[..., None]
+        if self.mint_tick is not None:
+            m = m & ~self.wiped()
+        return self.base * m.to(self.base.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,12 +20,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, reduced
-from repro_torch.core import (Episode, RoundInputs, SimConfig,
-                              generate_episode)
+from repro_torch.core import (Episode, RoundInputs, SchedulerConfig,
+                              SimConfig, generate_episode)
 from repro_torch.data import batch_iterator
 from repro_torch.kernels import build
 from repro_torch.launch import fl_e2e, serve
 from repro_torch.models import Transformer, init_model, params_from_jax
+from repro_torch.service import (FlaasService, ServiceConfig, ServiceState,
+                                 load, make_trace, replay_gap)
 from repro_torch.training import TrainConfig, make_state
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,7 +74,13 @@ def test_port_has_every_slice_module():
                 "models/kv_cache.py", "launch/serve.py",
                 "configs/recurrentgemma_2b.py", "kernels/rg_lru.py",
                 "models/recurrent.py", "core/baselines.py",
-                "core/registry.py", "core/scenarios.py", "launch/sweep.py"):
+                "core/registry.py", "core/scenarios.py", "launch/sweep.py",
+                "service/__init__.py", "service/state.py",
+                "service/tenancy.py", "service/traces.py", "service/queue.py",
+                "service/telemetry.py", "service/server.py",
+                "service/replay.py", "service/load.py", "obs/__init__.py",
+                "obs/registry.py", "obs/exporter.py", "obs/audit.py",
+                "obs/profiler.py", "obs/tracing.py"):
         assert mod in have, mod
     for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu",
                "rg_lru.cu"):
@@ -138,6 +146,21 @@ def test_serve_defaults_to_cuda_and_raises_without_it(no_cuda):
         serve.main(["--smoke", "--gen", "2"])
     rec = serve.run(smoke=True, gen=2, device="cpu", log=None)
     assert rec["tokens"].shape == (4, 2)
+
+
+def test_service_defaults_to_cuda_and_raises_without_it(no_cuda):
+    trace = make_trace("paper_default", "poisson", seed=2, n_devices=4,
+                       pipelines_per_analyst=6)
+    cfg = ServiceConfig(analyst_slots=3, pipeline_slots=6, block_slots=80)
+    for build in (lambda: FlaasService(cfg, trace),
+                  lambda: ServiceState.create(2, 2, 8),
+                  lambda: replay_gap(trace, 4, SchedulerConfig(), "dpf"),
+                  lambda: load.main(["--smoke"])):
+        with pytest.raises(RuntimeError):
+            build()
+    svc = FlaasService(cfg, trace, device="cpu")
+    assert svc.state.demand.device.type == "cpu"
+    assert svc.run(2)["ticks"] == 2
 
 
 def _run_smoke(cwd: Path):
