@@ -138,7 +138,26 @@ Phases (each raises on failure; nothing is caught):
      where the time goes: ticks/s per scheduler, the PhaseProfiler split,
      the card's busy share over one wrapped chunk, the synchronising CUDA
      calls of a chunk beside 8 run_episode rounds, and the service tick
-     against the engine round on the paper episode.
+     against the engine round on the paper episode;
+ 21. service checkpoints and the block-sharded service at phase 20's
+     defaults: for every scheduler a 64-tick run against one saved at
+     tick 32 (async save, then wait) and resumed in a fresh service,
+     bitwise (per-tick rows, selections, final state, summary
+     fingerprint), paged and, for dpbalance, the carry body too;
+     a checkpoint written by the port's manager with the reference's npz
+     keys and a host payload naming repro.service classes, restored and
+     resumed bitwise; rowmax, matvec and matvec_t against their twins at
+     the stripe shapes; ShardedFlaasService through torch.multiprocessing
+     spawn -- one stripe under NCCL and two under Gloo with CUDA tensors,
+     both ranks on cuda:0 -- for every scheduler (dpbalance with warm
+     SP1) over 48 ticks (two ring wraps) against the unsharded card run
+     with the same config (selections equal, rows within
+     RTOL_SERVICE, gap and overdraw <= 1e-4; one stripe's bitwise-ness
+     reported), the sharded path's kernels launched every tick, dpf's
+     elastic hand-off 1 -> 2 -> 1 stripes within RTOL_SERVICE of the
+     unsharded run and 2 -> 2 bitwise; checkpoint ms (sync, async until
+     wait returns), restore ms and bytes, ticks/s and collectives per
+     tick at one and two stripes, beside the card's name and power limit.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -151,9 +170,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -287,6 +309,20 @@ SERVICE_PER_TICK = {"dpbalance": {"rowmax": 1, "matvec": 1, "matvec_t": 2,
                                   "swap_eval": 1},
                     "dpf": {"rowmax": 1}, "dpk": {"rowmax": 1},
                     "fcfs": {"rowmax": 1}}
+# phase 21: checkpoints and the sharded service at SERVICE_GEOMETRY
+RESUME_TICKS, RESUME_AT = 64, 32      # an uninterrupted run; the save
+SHARD_TICKS = 48                      # two stripes: two ring wraps
+ONE_STRIPE_TICKS = 24                 # one stripe: past the first wrap
+# a sharded axis runs SP1 as a host loop, an all_reduce and a host read
+# an iteration (~1.1 ms under NCCL, ~2.6 ms under Gloo on one card, on an
+# H100); cold SP1 takes ~2300 iterations a tick at these defaults (0.40 /
+# 0.12 ticks/s at one / two stripes), warm ~830, so the sharded runs and
+# their unsharded yardstick take dpbalance with warm SP1
+SHARD_WARM = ("dpbalance",)
+ELASTIC_AT = (16, 32)                 # dpf: 1 -> 2 stripes, then 2 -> 1
+# the sharded path's budget kernels: SP1's two-matvec path and the row-max
+SHARD_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t"),
+                 "dpf": ("rowmax",), "dpk": ("rowmax",), "fcfs": ("rowmax",)}
 # (name, M, K): the regime repro/kernels/budget_alloc.py was written for
 # ("M ~ 10^3 analysts, K ~ 10^5 live blocks"), 512 MB of float32, beyond
 # the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
@@ -596,6 +632,8 @@ class AscentRecorder:
         counts = []
         for r, (args, kw, out) in enumerate(self.calls):
             c, lam, w_pow, beta, xcap, mask, cap, cap_safe = args
+            kw = dict(kw)
+            assert not kw.pop("block_axis").sharded    # the one-device loop
             counts.append(check_ascent(
                 f"{label} solve {r}", out,
                 parent_ascent((c, lam, w_pow, xcap, mask, cap, cap_safe),
@@ -1891,7 +1929,8 @@ def phase_beam(card):
     finally:
         hotpath.swap_eval = orig_se
     assert len(calls) == 1, len(calls)
-    g_ord, sel_c, left_c, kmax = calls.pop()
+    g_ord, sel_c, left_c, kmax, bx = calls.pop()
+    assert not bx.sharded
     C = sel_c.shape[1]
     assert tuple(sel_c.shape) == (M, BEAM_WIDTH, N), tuple(sel_c.shape)
     err = check("swap_eval (fleet-scale beam)",
@@ -2204,6 +2243,257 @@ def phase_service(smi):
     return launches
 
 
+def _shard_job(scheduler, ticks, **extra):
+    """A launcher job at SERVICE_GEOMETRY over load.py's default trace;
+    dpbalance with warm SP1 (SHARD_WARM)."""
+    return dict(scheduler=scheduler, ticks=ticks,
+                sched=dict(beta=2.2,
+                           sp1_warm_start=scheduler in SHARD_WARM),
+                service=dict(SERVICE_GEOMETRY),
+                trace=dict(scenario="paper_default", pattern="poisson",
+                           seed=0), **extra)
+
+
+def _rows_with_selections(svc, ticks):
+    from repro_torch.launch.sharded_service import capture_selections
+    sel = capture_selections(svc)
+    rows, _ = _run_ticks(svc, ticks)
+    rows["selected"] = np.concatenate(sel)
+    return rows
+
+
+def _fingerprint(summary):
+    from repro_torch.service import summary_fingerprint
+    return json.dumps(summary_fingerprint(summary), sort_keys=True)
+
+
+def _state_copy(svc):
+    return {f.name: getattr(svc.state, f.name).clone()
+            for f in dataclasses.fields(svc.state)}
+
+
+def _step_bytes(directory, step):
+    d = Path(directory) / f"step_{step:010d}"
+    return sum(p.stat().st_size for p in d.iterdir())
+
+
+def _reference_form(path):
+    """Rewrite a host payload as repro writes it: the same objects, their
+    classes named in repro.service / repro.obs (protocol 2 names every
+    class in a newline-terminated GLOBAL opcode, so the rename is exact)."""
+    with open(path, "rb") as f:
+        host = pickle.load(f)
+    blob = pickle.dumps(host, protocol=2)
+    n = blob.count(b"crepro_torch.service.") + blob.count(b"crepro_torch.obs.")
+    blob = blob.replace(b"crepro_torch.service.", b"crepro.service.") \
+        .replace(b"crepro_torch.obs.", b"crepro.obs.")
+    assert n > 0 and b"repro_torch" not in blob, n
+    with open(path, "wb") as f:
+        f.write(blob)
+    return n
+
+
+def _resume_case(name, paged, root):
+    """An uninterrupted RESUME_TICKS run against one saved at RESUME_AT and
+    resumed in a fresh service: bitwise.  Returns the save/restore
+    figures and the crashed service (for the reference-form check)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import budget_alloc as ba
+    ref = _service(name, paged=paged)
+    ba.reset_launches()
+    want = _rows_with_selections(ref, RESUME_TICKS)
+    for k in PATH_KERNELS[name]:
+        assert ba.LAUNCHES[k] > 0, (name, k, dict(ba.LAUNCHES))
+    crashed = _service(name, paged=paged)
+    head = _rows_with_selections(crashed, RESUME_AT)
+    _service_rows_equal(f"{name} head", head, want, RESUME_AT, 0.0)
+    tag = f"{name}-{'paged' if paged else 'carry'}"
+    sync = CheckpointManager(str(root / tag / "sync"))
+    t0 = time.perf_counter()
+    crashed.save_checkpoint(sync)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    mgr = CheckpointManager(str(root / tag / "async"), async_save=True)
+    t0 = time.perf_counter()
+    step = crashed.save_checkpoint(mgr)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    assert step == RESUME_AT
+    resumed = _service(name, paged=paged)
+    t0 = time.perf_counter()
+    assert resumed.load_checkpoint(CheckpointManager(mgr.dir)) == RESUME_AT
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    assert resumed.state.demand.is_cuda
+    tail = _rows_with_selections(resumed, RESUME_TICKS)
+    _service_rows_equal(f"{tag} resumed", tail,
+                        {k: v[RESUME_AT:] for k, v in want.items()},
+                        RESUME_TICKS - RESUME_AT, 0.0)
+    _states_equal(f"{tag} resumed", _state_copy(resumed), _state_copy(ref))
+    assert _fingerprint(resumed.summary()) == _fingerprint(ref.summary()), \
+        tag
+    modes = resumed.summary()["paging"]["mode_ticks"]
+    assert modes["paged" if paged else "carry"] > 0, (tag, modes)
+    return dict(sync_ms=sync_ms, call_ms=call_ms, async_ms=async_ms,
+                restore_ms=restore_ms, bytes=_step_bytes(mgr.dir, step)), \
+        (crashed, ref, want)
+
+
+def _stripe_kernel_checks():
+    """rowmax, matvec and matvec_t against their twins at the shapes the
+    sharded service hands them: one analyst row per slot, the ring's
+    stripe at one and two stripes."""
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.kernels import ref
+    M, B = SERVICE_GEOMETRY["analyst_slots"], SERVICE_GEOMETRY["block_slots"]
+    errs = {}
+    for S in (1, 2):
+        g = torch.rand((M, B // S), generator=torch.Generator().manual_seed(S))
+        g = (g * (g > 0.5)).cuda()
+        v = torch.rand(B // S, generator=torch.Generator().manual_seed(9))
+        v, x = v.cuda(), torch.rand(M).cuda()
+        for name, got, want, bitwise in (
+                ("rowmax", ba.rowmax(g), ref.rowmax_ref(g), True),
+                ("matvec", ba.matvec(g, v), ref.matvec_ref(g, v), False),
+                ("matvec_t", ba.matvec_t(g, x), ref.matvec_t_ref(g, x),
+                 True)):
+            errs[f"{name}@{M}x{B // S}"] = check(
+                f"{name} at stripe {M}x{B // S}", got, want, bitwise)
+    return errs
+
+
+def phase_checkpoint_shard(smi):
+    """Service checkpoints (bitwise resume, the reference's form) and the
+    block-sharded service (one stripe under NCCL, two under Gloo with CUDA
+    tensors on one card, elastic hand-off) at phase 20's defaults."""
+    log(f"[21] service checkpoints and the sharded service at load.py's "
+        f"defaults ({SERVICE_GEOMETRY}); {smi}")
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import SCHEDULER_NAMES
+    from repro_torch.launch.sharded_service import (service_job,
+                                                    service_jobs, spawn)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    # 1. bitwise resume, every scheduler paged, dpbalance carry too
+    for name in SCHEDULER_NAMES:
+        for paged in ((True, False) if name == "dpbalance" else (True,)):
+            fig, kept = _resume_case(name, paged, root)
+            if name == "dpbalance" and paged:
+                crashed, ref, want = kept
+            log(f"  {name:9s} {'paged' if paged else 'carry'}: "
+                f"{RESUME_TICKS} ticks vs saved at {RESUME_AT} and "
+                f"resumed: rows, selections, final state and summary "
+                f"fingerprint bitwise; save sync {fig['sync_ms']:.2f} ms, "
+                f"async {fig['call_ms']:.2f} ms to return and "
+                f"{fig['async_ms']:.2f} ms until wait() returned, restore "
+                f"{fig['restore_ms']:.2f} ms, {fig['bytes']} bytes on disk")
+    # 2. a checkpoint in the reference's form, written by the port's
+    # manager: repro's npz keys, a payload naming repro.service classes
+    mgr = CheckpointManager(str(root / "reference-form"))
+    step = crashed.save_checkpoint(mgr)
+    with np.load(Path(mgr.dir) / f"step_{step:010d}" / "state.npz") as z:
+        keys = sorted(z.files)
+    assert keys == sorted(f"a:{f.name}" for f in
+                          dataclasses.fields(crashed.state)), keys
+    n = _reference_form(Path(mgr.dir) / f"step_{step:010d}" / "host.pkl")
+    resumed = _service("dpbalance")
+    assert resumed.load_checkpoint(mgr) == RESUME_AT
+    subs = [s for q in resumed.queue._classes.values() for s in q]
+    assert all(type(s).__module__ == "repro_torch.service.traces"
+               for s in subs)
+    tail = _rows_with_selections(resumed, RESUME_TICKS)
+    _service_rows_equal("reference-form resumed", tail,
+                        {k: v[RESUME_AT:] for k, v in want.items()},
+                        RESUME_TICKS - RESUME_AT, 0.0)
+    _states_equal("reference-form resumed", _state_copy(resumed),
+                  _state_copy(ref))
+    log(f"  reference-form checkpoint (npz keys {keys[:3]}..., {n} class "
+        f"references renamed to repro.service / repro.obs, "
+        f"{len(subs)} queued Submissions): restored as repro_torch "
+        f"classes and resumed bitwise to tick {RESUME_TICKS}")
+    # 3. the sharded path's kernels at the stripe shapes
+    errs = _stripe_kernel_checks()
+    log("  stripe shapes, kernel vs twin max abs err: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
+    # 4. the sharded service: one stripe (NCCL), two (Gloo, CUDA tensors)
+    cuda = torch.device("cuda")
+    plain = {n: service_job(0, 1, cuda, _shard_job(n, SHARD_TICKS),
+                            sharded=False) for n in SCHEDULER_NAMES}
+    e1, e2, e3 = (str(root / d) for d in ("e1", "e2", "e3"))
+    t0 = time.perf_counter()
+    one = spawn(service_jobs, 1, backend="nccl", device="cuda", args=(
+        [_shard_job(n, ONE_STRIPE_TICKS) for n in SCHEDULER_NAMES] +
+        [_shard_job("dpf", ELASTIC_AT[0], save=e1)],), timeout=900)[0]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = spawn(service_jobs, 2, backend="gloo", device="cuda", args=(
+        [_shard_job(n, SHARD_TICKS) for n in SCHEDULER_NAMES] +
+        [_shard_job("dpf", ELASTIC_AT[1], restore=e1, save=e2),
+         _shard_job("dpf", SHARD_TICKS // 2, save=e3, async_save=True),
+         _shard_job("dpf", SHARD_TICKS, restore=e3)],), timeout=900)[0]
+    two_s = time.perf_counter() - t0
+    launches = {}
+    for S, runs, secs, backend, n in (
+            (1, one, one_s, "nccl", ONE_STRIPE_TICKS),
+            (2, two, two_s, "gloo", SHARD_TICKS)):
+        for name, got in zip(SCHEDULER_NAMES, runs):
+            want = dict(plain[name], rows={
+                k: v[:n] for k, v in plain[name]["rows"].items()})
+            label = f"S={S} {backend} {name}" + (
+                " (warm SP1)" if name in SHARD_WARM else "")
+            _service_rows_equal(label, got["rows"], want["rows"], n,
+                                RTOL_SERVICE)
+            assert float(got["rows"]["conservation_gap"].max()) <= 1e-4 \
+                and float(got["rows"]["overdraw"].max()) <= 1e-4, label
+            assert got["summary"]["sharding"]["n_shards"] == S
+            assert got["summary"]["paging"]["mode_ticks"]["paged"] > 0
+            per = got["launches_per_tick"]
+            for k in SHARD_KERNELS[name]:
+                assert per[k] >= 1.0, (label, k, per)
+            for k in ("dual_step", "boost_scan", "swap_eval"):
+                assert per[k] == 0.0, (label, k, per)
+            bitwise = all(np.array_equal(got["rows"][k], want["rows"][k])
+                          for k in want["rows"])
+            launches[(S, name)] = per
+            log(f"  {label:30s}: {n} ticks, selections and "
+                f"n_allocated equal the unsharded card run, rows within "
+                f"{RTOL_SERVICE}; rows bitwise {bitwise}; "
+                f"{got['ticks_per_second']:.2f} ticks/s (unsharded "
+                f"{want['ticks_per_second']:.2f}); collectives per tick "
+                f"{got['collectives_per_tick']}; budget-kernel launches "
+                f"per tick {{'rowmax': {per['rowmax']:.2f}, 'matvec': "
+                f"{per['matvec']:.2f}, 'matvec_t': {per['matvec_t']:.2f}}}")
+        log(f"  S={S} spawn ({backend}, every rank on cuda:0) took "
+            f"{secs:.1f} s of host clock, start-up included")
+    # 5. elastic: 1 -> 2 stripes at ELASTIC_AT[0], 2 -> 1 at ELASTIC_AT[1]
+    # (the last leg on the unsharded service, a one-stripe ring)
+    back = service_job(0, 1, cuda, _shard_job("dpf", SHARD_TICKS,
+                                              restore=e2), sharded=False)
+    mid = two[len(SCHEDULER_NAMES)]
+    a, b = ELASTIC_AT
+    chain = {k: np.concatenate([one[len(SCHEDULER_NAMES)]["rows"][k],
+                                mid["rows"][k], back["rows"][k]])
+             for k in back["rows"]}
+    _service_rows_equal("elastic 1 -> 2 -> 1", chain, plain["dpf"]["rows"],
+                        SHARD_TICKS, RTOL_SERVICE)
+    ref2, resumed2 = two[SCHEDULER_NAMES.index("dpf")], two[-1]
+    h = SHARD_TICKS // 2
+    _service_rows_equal("elastic 2 -> 2", resumed2["rows"],
+                        {k: v[h:] for k, v in ref2["rows"].items()},
+                        SHARD_TICKS - h, 0.0)
+    for k in ref2["state"]:
+        assert np.array_equal(resumed2["state"][k], ref2["state"][k]), k
+    assert _fingerprint(resumed2["summary"]) == \
+        _fingerprint(ref2["summary"])
+    log(f"  elastic dpf 1 -> 2 stripes at tick {a}, 2 -> 1 at {b}: "
+        f"selections equal the unsharded run, rows within {RTOL_SERVICE}; "
+        f"dpf 2 -> 2 at tick {h} (async save): bitwise; {smi}")
+    shutil.rmtree(root)
+    # budget-kernel launches per sharded tick: {kernel: {"S1": {scheduler:
+    # n}, "S2": {...}}}
+    return {k: {f"S{S}": {n: launches[(S, n)][k] for n in SCHEDULER_NAMES}
+                for S in (1, 2)} for k in REPLACES}
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -2229,6 +2519,7 @@ def main() -> int:
     rows["swap_eval"]["max_abs_err"] = max(rows["swap_eval"]["max_abs_err"],
                                            beam_row["max_abs_err"])
     service_launches = phase_service(smi)
+    shard_launches = phase_checkpoint_shard(smi)
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -2236,6 +2527,7 @@ def main() -> int:
                     launches_fleet_beam_round=beam_launches[k],
                     launches_per_service_tick={
                         n: c[k] for n, c in service_launches.items()},
+                    launches_per_sharded_tick=shard_launches[k],
                     **rows[k]) for k in REPLACES]
     kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
                      replaces=DP_REPLACES[k], launches=dp_launches[k],

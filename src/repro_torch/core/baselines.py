@@ -9,7 +9,10 @@
 All three grant whole pipelines (x_ij = 1, no boost), as the paper
 characterises them in Fig. 2, and return the DPBalance ``RoundResult``
 schema so every metric compares directly.  The grant-if-fits sweep visits
-all M * N pipelines in one order across analysts.
+all M * N pipelines in one order across analysts.  On a sharded
+``block_axis`` the sort key is finished across stripes first, so the visit
+order is the same on every stripe, and the sweep batches its cross-stripe
+fits checks (:func:`~repro_torch.core.blockaxis.grant_fits_scan`).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from ..fp import seq_dot, tree_sum
 from . import demand as dm
 from . import utility as ut
-from .blockaxis import grant_fits_scan
+from .blockaxis import LOCAL, BlockAxis, grant_fits_scan
 from .scheduler import RoundResult, SchedulerConfig
 
 _EPS = 1e-9
@@ -29,23 +32,24 @@ _BIG = 1e30
 
 
 def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
-                      key_fn) -> RoundResult:
+                      key_fn, block_axis: BlockAxis = LOCAL) -> RoundResult:
     """Flatten the pipelines, sort them by ``key_fn`` ascending (stable:
     ties keep index order, as ``jnp.argsort``), grant each that fits."""
     M, N, K = rnd.demand.shape
     gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
-    mu_ij = dm.pipeline_max_share(gamma)
+    mu_ij = dm.pipeline_max_share(gamma, block_axis)
     cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
 
-    active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac, _FEAS)
-    key = key_fn(rnd, gamma, mu_ij)                         # [M, N]
+    active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac, _FEAS,
+                                                   block_axis)
+    key = key_fn(rnd, gamma, mu_ij, block_axis)             # [M, N]
     key = torch.where(active, key, torch.full_like(key, _BIG)).reshape(-1)
     order = torch.argsort(key, stable=True)
     # pre-permuted into visit order
     g_ord = gamma.reshape(M * N, K)[order]
     a_ord = active.reshape(-1)[order]
 
-    _, taken = grant_fits_scan(g_ord, a_ord, cap_frac, _FEAS)
+    _, taken = grant_fits_scan(g_ord, a_ord, cap_frac, _FEAS, block_axis)
     sel = torch.zeros_like(a_ord).scatter_(0, order, taken).reshape(M, N)
     x_ij = sel.to(gamma.dtype)
 
@@ -57,9 +61,9 @@ def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     # the masked round keeps the optional tier weight, so the Eq 8-10
     # metrics are weighted like DPBalance's (the grant order is not)
     view = dm.AnalystView.build(dataclasses.replace(rnd, active=active),
-                                cfg.tau)
+                                cfg.tau, block_axis)
     realized = seq_dot(gamma, x_ij[..., None], 1)
-    mu_real = torch.amax(realized, dim=-1)
+    mu_real = block_axis.max(torch.amax(realized, dim=-1))
     util = mu_real * view.a_i * view.mask
     return RoundResult(
         x_analyst=torch.zeros_like(mu_real), x_pipeline=x_ij, selected=sel,
@@ -76,26 +80,29 @@ def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
         mu_real=mu_real)
 
 
-def _dpf_key(rnd, gamma, mu_ij):
+def _dpf_key(rnd, gamma, mu_ij, block_axis=LOCAL):
     return mu_ij                                   # smallest dominant share
 
 
-def _dpk_key(rnd, gamma, mu_ij):
+def _dpk_key(rnd, gamma, mu_ij, block_axis=LOCAL):
     # total normalized demand, summed in XLA's order: it is a sort key
-    return tree_sum(gamma, -1)                     # lowest demand packs first
+    return block_axis.sum(tree_sum(gamma, -1))     # lowest demand packs first
 
 
-def _fcfs_key(rnd, gamma, mu_ij):
+def _fcfs_key(rnd, gamma, mu_ij, block_axis=LOCAL):
     return rnd.arrival                             # earliest arrival first
 
 
-def dpf_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
-    return _sequential_grant(rnd, cfg, _dpf_key)
+def dpf_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
+              block_axis: BlockAxis = LOCAL) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _dpf_key, block_axis)
 
 
-def dpk_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
-    return _sequential_grant(rnd, cfg, _dpk_key)
+def dpk_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
+              block_axis: BlockAxis = LOCAL) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _dpk_key, block_axis)
 
 
-def fcfs_round(rnd: dm.RoundInputs, cfg: SchedulerConfig) -> RoundResult:
-    return _sequential_grant(rnd, cfg, _fcfs_key)
+def fcfs_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
+               block_axis: BlockAxis = LOCAL) -> RoundResult:
+    return _sequential_grant(rnd, cfg, _fcfs_key, block_axis)

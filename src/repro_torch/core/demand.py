@@ -16,6 +16,7 @@ import torch
 from .. import resolve_device
 from ..fp import seq_dot, seq_sum
 from . import hotpath
+from .blockaxis import LOCAL, BlockAxis
 
 _EPS = 1e-12
 
@@ -111,15 +112,17 @@ def normalized_demand(demand, budget_total):
     return demand / torch.clamp(budget_total, min=_EPS)[None, None, :]
 
 
-def pipeline_max_share(gamma):
+def pipeline_max_share(gamma, block_axis: BlockAxis = LOCAL):
     """mu_ij = max_k gamma_ij^<k> (Eq 3).  [M, N]."""
-    return torch.amax(gamma, dim=-1)
+    return block_axis.max(torch.amax(gamma, dim=-1))
 
 
-def infeasible_pipelines(gamma, cap_frac, slack: float = 1e-6):
+def infeasible_pipelines(gamma, cap_frac, slack: float = 1e-6,
+                         block_axis: BlockAxis = LOCAL):
     """Pipelines whose demand exceeds remaining capacity on any block (they
     cannot satisfy one-or-more this round).  [M, N] bool."""
-    return torch.any(gamma > cap_frac[None, None, :] + slack, dim=-1)
+    return block_axis.any(
+        torch.any(gamma > cap_frac[None, None, :] + slack, dim=-1))
 
 
 def analyst_demand(gamma, active):
@@ -127,9 +130,10 @@ def analyst_demand(gamma, active):
     return seq_sum(gamma * active[..., None].to(gamma.dtype), 1)
 
 
-def analyst_max_share(gamma_i):
-    """mu_i = max_k gamma_i^<k> (Eq 4), through the row-max kernel.  [M]."""
-    return hotpath.rowmax(gamma_i)
+def analyst_max_share(gamma_i, block_axis: BlockAxis = LOCAL):
+    """mu_i = max_k gamma_i^<k> (Eq 4), through the row-max kernel (a
+    stripe's row-max finished by the MAX hook).  [M]."""
+    return block_axis.max(hotpath.rowmax(gamma_i))
 
 
 def waiting_coefficient(arrival, now, tau: float):
@@ -163,11 +167,12 @@ class AnalystView:
     mask: torch.Tensor      # [M] analyst has any active demand
 
     @classmethod
-    def build(cls, rnd: RoundInputs, tau: float) -> "AnalystView":
+    def build(cls, rnd: RoundInputs, tau: float,
+              block_axis: BlockAxis = LOCAL) -> "AnalystView":
         gamma = normalized_demand(rnd.demand, rnd.budget_total)
-        mu_ij = pipeline_max_share(gamma)
+        mu_ij = pipeline_max_share(gamma, block_axis)
         g_i = analyst_demand(gamma, rnd.active)
-        mu_i = analyst_max_share(g_i)
+        mu_i = analyst_max_share(g_i, block_axis)
         t_i = analyst_waiting(rnd.arrival, rnd.active, rnd.now)
         T_i = torch.exp(-t_i / tau)
         l_i = analyst_loss(rnd.loss, mu_ij, rnd.active)

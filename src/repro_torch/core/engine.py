@@ -27,6 +27,7 @@ import torch
 from .. import resolve_device
 from ..fp import seq_dot
 from . import utility as ut
+from .blockaxis import LOCAL, BlockAxis
 from .demand import (AnalystView, DemandView, RoundInputs,
                      infeasible_pipelines, normalized_demand)
 from .registry import get_round_fn
@@ -134,17 +135,19 @@ def generate_episode(cfg, device="cuda") -> Episode:
                               block_budget, block_round, R, device=device)
 
 
-def round_diagnostics(rnd: RoundInputs, res,
-                      cfg: SchedulerConfig) -> Dict[str, torch.Tensor]:
+def round_diagnostics(rnd: RoundInputs, res, cfg: SchedulerConfig,
+                      block_axis: BlockAxis = LOCAL
+                      ) -> Dict[str, torch.Tensor]:
     """Per-round SP1-level diagnostics (what the fairness-axiom tests
     consume).  Repeats the scheduler's own pipeline masking (pipelines
     demanding exhausted blocks sit the round out), so the per-analyst
     aggregates are the ones the solver saw."""
     gamma = normalized_demand(rnd.demand, rnd.budget_total)
     cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
-    unsat = infeasible_pipelines(gamma, cap_frac)
+    unsat = infeasible_pipelines(gamma, cap_frac, block_axis=block_axis)
     view = AnalystView.build(
-        dataclasses.replace(rnd, active=rnd.active & ~unsat), cfg.tau)
+        dataclasses.replace(rnd, active=rnd.active & ~unsat), cfg.tau,
+        block_axis)
     return dict(
         utility=res.utility,
         analyst_mask=view.mask,

@@ -20,6 +20,11 @@ Everything is batched over analysts: ``gamma [M, N, K]``, ``mu``/``a``/
 one kernel launch over the whole analyst axis.  An exhaustive oracle for
 one analyst at small N lives in :func:`exact_pack` (numpy enumeration,
 boost sweep on ``device``).
+
+``block_axis`` (:mod:`repro_torch.core.blockaxis`): on a sharded axis
+``gamma`` and ``budget`` are block stripes, ``mu`` the global dominant
+share; feasibility verdicts and water levels are finished across stripes
+(``repro``'s sites).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from .. import resolve_device
 from ..fp import seq_dot, seq_sum
 from . import hotpath
 from . import swap as _swap
-from .blockaxis import grant_fits_scan
+from .blockaxis import LOCAL, BlockAxis, grant_fits_scan
 
 _EPS = 1e-9
 _FEAS = 1e-6  # feasibility slack (float32 headroom on normalized shares)
@@ -48,18 +53,21 @@ class PackResult(NamedTuple):
     water: Optional[torch.Tensor] = None    # [M] post-boost min leftover share
 
 
-def greedy_cover(gamma, mu, active, budget):
-    """Max-count pipeline set by ascending-mu greedy.  -> [M, N] bool."""
+def greedy_cover(gamma, mu, active, budget, block_axis: BlockAxis = LOCAL):
+    """Max-count pipeline set by ascending-mu greedy.  -> [M, N] bool.
+    ``mu`` is the global dominant share, so the visit order is the same on
+    every stripe."""
     key = torch.where(active, mu, torch.full_like(mu, _BIG))
     order = torch.argsort(key, dim=-1, stable=True)
     dems = torch.take_along_dim(gamma, order[..., None], dim=1)
     _, taken = grant_fits_scan(dems, torch.gather(active, 1, order), budget,
-                               _FEAS)
+                               _FEAS, block_axis)
     sel = torch.zeros_like(active).scatter_(1, order, taken)
     return sel & active
 
 
-def proportional_boost(gamma, mu, a, active, sel, budget, kappa_max: float):
+def proportional_boost(gamma, mu, a, active, sel, budget, kappa_max: float,
+                       block_axis: BlockAxis = LOCAL):
     """Eq 20 heuristic: x = 1 for selected, then greedy kappa boosts in the
     fixed descending mu*a order (unselected visits are no-ops).  Returns
     ``(x_ij [M, N], used [M, K], objective [M])``."""
@@ -71,7 +79,7 @@ def proportional_boost(gamma, mu, a, active, sel, budget, kappa_max: float):
     sel_ord = torch.gather(sel, 1, order).to(torch.int32)
 
     leftover, extras = hotpath.boost_scan(g_ord, sel_ord, leftover,
-                                          kappa_max)
+                                          kappa_max, block_axis)
     x = torch.zeros_like(mu).scatter_(1, order, extras)
     x = torch.where(sel, 1.0 + x, torch.zeros_like(x))
     used = seq_dot(gamma, x[..., None], 1)
@@ -80,7 +88,7 @@ def proportional_boost(gamma, mu, a, active, sel, budget, kappa_max: float):
 
 
 def swap_refine_reference(gamma, mu, a, active, sel, budget,
-                          kappa_max: float):
+                          kappa_max: float, block_axis: BlockAxis = LOCAL):
     """Single-swap local search, reference path: for every (selected s,
     unselected u) try sel - {s} + {u} with a full ``proportional_boost``
     recompute; keep the feasible candidate with the best objective.
@@ -95,9 +103,10 @@ def swap_refine_reference(gamma, mu, a, active, sel, budget,
             cand[:, u] = True
             valid = sel[:, s] & ~sel[:, u] & active[:, u] & (s != u)
             used = seq_sum(gamma * cand[..., None].to(gamma.dtype), 1)
-            feasible = torch.all(used <= budget + _FEAS, dim=-1)
+            feasible = block_axis.all(
+                torch.all(used <= budget + _FEAS, dim=-1))
             _, _, obj = proportional_boost(gamma, mu, a, active, cand,
-                                           budget, kappa_max)
+                                           budget, kappa_max, block_axis)
             cands.append(cand)
             objs.append(obj)
             valids.append(valid & feasible)
@@ -106,7 +115,7 @@ def swap_refine_reference(gamma, mu, a, active, sel, budget,
     objs = torch.where(torch.stack(valids, 1), objs,
                        torch.full_like(objs, -_BIG))
     _, _, base_obj = proportional_boost(gamma, mu, a, active, sel, budget,
-                                        kappa_max)
+                                        kappa_max, block_axis)
     best = torch.argmax(objs, dim=-1)
     improved = torch.gather(objs, 1, best[:, None])[:, 0] > base_obj + 1e-12
     best_cand = cands[torch.arange(M, device=sel.device), best]
@@ -114,47 +123,50 @@ def swap_refine_reference(gamma, mu, a, active, sel, budget,
 
 
 def swap_refine(gamma, mu, a, active, sel, budget, kappa_max: float,
-                incremental: bool = True):
+                incremental: bool = True, block_axis: BlockAxis = LOCAL):
     """Single-swap refinement: the incremental engine (default) or the
     O(N^3 K) reference; both return the same selection bit for bit."""
     fn = (_swap.swap_refine_incremental if incremental
           else swap_refine_reference)
-    return fn(gamma, mu, a, active, sel, budget, kappa_max)
+    return fn(gamma, mu, a, active, sel, budget, kappa_max, block_axis)
 
 
 def _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
-                    kappa_max: float) -> PackResult:
+                    kappa_max: float,
+                    block_axis: BlockAxis = LOCAL) -> PackResult:
     """Shared SP2 tail: boost the final selection, assemble the result."""
     swapped = torch.any(sel != sel0, dim=-1)
     x, used, obj = proportional_boost(gamma, mu, a, active, sel, budget,
-                                      kappa_max)
-    water = torch.amin(budget - used, dim=-1)
+                                      kappa_max, block_axis)
+    water = block_axis.min(torch.amin(budget - used, dim=-1))
     return PackResult(x_ij=x, selected=sel, used=used, objective=obj,
                       swapped=swapped, water=water)
 
 
 def pack_all(gamma, mu, a, active, budget, kappa_max: float = 8.0,
-             refine: bool = True, incremental: bool = True) -> PackResult:
+             refine: bool = True, incremental: bool = True,
+             block_axis: BlockAxis = LOCAL) -> PackResult:
     """Full SP2 for every analyst at once (``repro``'s ``vmap`` of
     ``pack_analyst``, written over the analyst axis)."""
-    sel0 = greedy_cover(gamma, mu, active, budget)
+    sel0 = greedy_cover(gamma, mu, active, budget, block_axis)
     sel = (swap_refine(gamma, mu, a, active, sel0, budget, kappa_max,
-                       incremental) if refine else sel0)
+                       incremental, block_axis) if refine else sel0)
     return _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
-                           kappa_max)
+                           kappa_max, block_axis)
 
 
 def pack_analyst(gamma, mu, a, active, budget, kappa_max: float = 8.0,
-                 refine: bool = True, incremental: bool = True) -> PackResult:
+                 refine: bool = True, incremental: bool = True,
+                 block_axis: BlockAxis = LOCAL) -> PackResult:
     """Full SP2 for one analyst (``gamma [N, K]``, ``budget [K]``): the
     analyst axis of :func:`pack_all` at size one."""
     pack = pack_all(gamma[None], mu[None], a[None], active[None],
-                    budget[None], kappa_max, refine, incremental)
+                    budget[None], kappa_max, refine, incremental, block_axis)
     return PackResult(*(x[0] for x in pack))
 
 
 def pack_all_pruned(gamma, mu, a, active, budget, kappa_max: float = 8.0,
-                    swap_beam: int = 8):
+                    swap_beam: int = 8, block_axis: BlockAxis = LOCAL):
     """SP2 for every analyst with the certified swap beam
     (:func:`repro_torch.core.swap.swap_refine_beam`).
 
@@ -164,16 +176,19 @@ def pack_all_pruned(gamma, mu, a, active, budget, kappa_max: float = 8.0,
     both, and either way the result is :func:`pack_all`'s bit for bit.
 
     Returns ``(PackResult, cert_ok scalar bool, margin scalar)``, margin
-    the tightest analyst's certificate margin."""
-    sel0 = greedy_cover(gamma, mu, active, budget)
+    the tightest analyst's certificate margin.  On a sharded axis every
+    quantity behind the certificate is post-collective, so every stripe
+    takes the same side."""
+    sel0 = greedy_cover(gamma, mu, active, budget, block_axis)
     sel, ok, margin = _swap.swap_refine_beam(gamma, mu, a, active, sel0,
-                                             budget, kappa_max, swap_beam)
+                                             budget, kappa_max, swap_beam,
+                                             block_axis)
     cert_ok = torch.all(ok)
     if not bool(cert_ok):                     # the round's one host read
         sel = _swap.swap_refine_incremental(gamma, mu, a, active, sel0,
-                                            budget, kappa_max)
+                                            budget, kappa_max, block_axis)
     pack = _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
-                           kappa_max)
+                           kappa_max, block_axis)
     return pack, cert_ok, torch.amin(margin)
 
 

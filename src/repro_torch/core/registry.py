@@ -4,7 +4,8 @@
 (:func:`get_scheduler`) and the traceable round function for embedding in a
 larger program (``get_round_fn``).  The port compiles nothing, so both
 names are one function, returning plain functions ``(RoundInputs,
-SchedulerConfig) -> RoundResult`` that run on the device of their tensors.
+SchedulerConfig, block_axis=LOCAL) -> RoundResult`` that run on the device
+of their tensors.
 """
 from __future__ import annotations
 

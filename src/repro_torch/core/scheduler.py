@@ -9,7 +9,10 @@ Round flow:
      platform utility (Eq 10), #allocated pipelines, leftover.
 
 :func:`schedule_round` runs on the device of its input tensors; on a CUDA
-device every hot-path sweep is a Hopper kernel.
+device every hot-path sweep is a Hopper kernel.  With a sharded
+``block_axis`` (:mod:`repro_torch.shard`) the demand and capacity operands
+are the caller's block stripes; every per-block sweep stays stripe-local
+and only the analyst-level aggregates cross the stripes.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from ..fp import fma, seq_dot
 from . import demand as dm
 from . import utility as ut
-from .blockaxis import LOCAL, BlockAxis, require_local
+from .blockaxis import LOCAL, BlockAxis
 from .packing import pack_all, pack_all_pruned
 from .waterfill import alpha_fair_waterfill
 
@@ -86,17 +89,17 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     ``rnd.weight`` (optional [M] tier weight) folds into ``a_i``, so SP1 and
     the Eq 8-10 metrics are tier-weighted; SP2's per-pipeline ``a_ij``
     stays unweighted (a common factor within one analyst)."""
-    require_local(block_axis)
     gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
-    mu_ij = dm.pipeline_max_share(gamma)
+    mu_ij = dm.pipeline_max_share(gamma, block_axis)
 
     # Pipelines demanding exhausted blocks can never satisfy one-or-more:
     # mask them out of this round (they stay pending for the next).
     cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
-    active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac)
+    active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac,
+                                                   block_axis=block_axis)
     rnd = dataclasses.replace(rnd, active=active)
 
-    view = dm.AnalystView.build(rnd, cfg.tau)
+    view = dm.AnalystView.build(rnd, cfg.tau, block_axis)
 
     # SP1 -- analyst-level alpha-fair allocation.
     c = (view.gamma_i * view.a_i[:, None] if cfg.weighted_constraints
@@ -105,7 +108,8 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     sp1 = alpha_fair_waterfill(
         view.mu_i, view.a_i, c, view.mask, cap=cap_frac, beta=cfg.beta,
         max_iters=cfg.solver_iters, tol=cfg.solver_tol,
-        lam0=rnd.lam if warm else None, adaptive=warm)
+        lam0=rnd.lam if warm else None, adaptive=warm,
+        block_axis=block_axis)
     budget_i = view.gamma_i * sp1.x[:, None]          # [M, K] granted vectors
 
     # SP2 -- per-analyst packing; per-pipeline weights a_ij = T(t_ij) l_ij.
@@ -114,10 +118,10 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     if cfg.swap_beam > 0 and cfg.refine and cfg.incremental_swap:
         pack, cert_ok, cert_margin = pack_all_pruned(
             gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
-            cfg.swap_beam)
+            cfg.swap_beam, block_axis)
     else:
         pack = pack_all(gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
-                        cfg.refine, cfg.incremental_swap)
+                        cfg.refine, cfg.incremental_swap, block_axis)
         cert_ok = cert_margin = None
 
     x_ij = pack.x_ij
@@ -129,14 +133,14 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     over = consumed > fma(rnd.capacity, 1.0 + 1e-6, 1e-7)
     scale = torch.where(over, rnd.capacity / torch.clamp(consumed, min=_EPS),
                         torch.ones_like(consumed))
-    grant_scale = torch.amin(scale)
+    grant_scale = block_axis.min(torch.amin(scale))
     grants = grants * grant_scale
     consumed = consumed * grant_scale
     leftover = torch.clamp(rnd.capacity - consumed, min=0.0)
 
     # Metrics -- realized dominant share per analyst after SP2 + returns.
     realized = seq_dot(gamma, x_ij[..., None], 1)               # [M, K]
-    mu_real = torch.amax(realized, dim=-1)                      # mu_i * x_i
+    mu_real = block_axis.max(torch.amax(realized, dim=-1))      # mu_i * x_i
     util = mu_real * view.a_i * view.mask
     return RoundResult(
         x_analyst=sp1.x, x_pipeline=x_ij, selected=pack.selected,

@@ -18,7 +18,9 @@ reruns the full compacted sweep (``packing.pack_all_pruned``).
 
 Every function is batched over analysts (leading ``M`` axis); the boost
 sweeps of all ``[M, C]`` candidates go to the ``swap_eval`` kernel in one
-launch per chunk.
+launch per chunk.  ``block_axis``: on a sharded axis ``gamma`` and
+``budget`` are block stripes and feasibility, water levels and bounds are
+finished across stripes (``repro``'s sites).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from ..fp import fma, seq_dot, seq_sum
 from . import hotpath
+from .blockaxis import LOCAL, BlockAxis
 # Module import: packing imports this module at its own top.
 from . import packing
 
@@ -92,20 +95,21 @@ def _swapped(sel, s_c, u_c):
 
 
 def swap_candidate_objectives(gamma, mu, a, active, sel, budget,
-                              kappa_max: float):
+                              kappa_max: float,
+                              block_axis: BlockAxis = LOCAL):
     """Evaluate the compacted candidate set.  Returns ``(cands [M, C, N],
     objs [M, C], valid [M, C])`` with invalid or infeasible slots of
     ``objs`` at ``-_BIG``."""
     s_c, u_c, valid_c = swap_candidates(sel, active)
     cands = _swapped(sel, s_c, u_c)
     objs, feas = swap_batch_objectives(gamma, mu, a, cands, budget,
-                                       kappa_max)
+                                       kappa_max, block_axis)
     ok = valid_c & feas
     return cands, torch.where(ok, objs, torch.full_like(objs, -_BIG)), ok
 
 
 def swap_batch_objectives(gamma, mu, a, cands, budget, kappa_max: float,
-                          chunk: int = 4096):
+                          block_axis: BlockAxis = LOCAL, chunk: int = 4096):
     """Boosted Eq-20 objectives of a ``[M, C, N]`` stack of selections.
 
     Returns ``(objs [M, C], feas [M, C])`` with the exact per-candidate
@@ -120,18 +124,20 @@ def swap_batch_objectives(gamma, mu, a, cands, budget, kappa_max: float,
         chunk = max(1, min(int(chunk), cap))
     if chunk and C > chunk:
         parts = [swap_batch_objectives(gamma, mu, a, cands[:, i:i + chunk],
-                                       budget, kappa_max, chunk=0)
+                                       budget, kappa_max, block_axis,
+                                       chunk=0)
                  for i in range(0, C, chunk)]
         return (torch.cat([p[0] for p in parts], 1),
                 torch.cat([p[1] for p in parts], 1))
     used = _selection_sums(gamma, cands)                         # [M, C, K]
-    feas = torch.all(used <= budget[:, None, :] + packing._FEAS, dim=-1)
+    feas = block_axis.all(
+        torch.all(used <= budget[:, None, :] + packing._FEAS, dim=-1))
     leftover = budget[:, None, :] - used
     order = torch.argsort(-(mu * a), dim=-1, stable=True)       # [M, N]
     g_ord = torch.take_along_dim(gamma, order[..., None], dim=1)
     c_ord = torch.take_along_dim(cands, order[:, None, :],
                                  dim=2).to(torch.int32)
-    extras = hotpath.swap_eval(g_ord, c_ord, leftover, kappa_max)
+    extras = hotpath.swap_eval(g_ord, c_ord, leftover, kappa_max, block_axis)
     x = torch.zeros_like(extras).scatter_(
         2, order[:, None, :].expand(M, C, N), extras)
     x = torch.where(cands, 1.0 + x, torch.zeros_like(x))
@@ -140,15 +146,15 @@ def swap_batch_objectives(gamma, mu, a, cands, budget, kappa_max: float,
 
 
 def swap_refine_incremental(gamma, mu, a, active, sel, budget,
-                            kappa_max: float):
+                            kappa_max: float, block_axis: BlockAxis = LOCAL):
     """Single-swap local search over the compacted candidate set: keep the
     feasible candidate with the best boosted objective if it beats the
     current selection by more than 1e-12 (ties to the first candidate in
     s-major order).  ``[M, N]`` bool in and out."""
     cands, objs, _ = swap_candidate_objectives(gamma, mu, a, active, sel,
-                                               budget, kappa_max)
+                                               budget, kappa_max, block_axis)
     _, _, base_obj = packing.proportional_boost(gamma, mu, a, active, sel,
-                                                budget, kappa_max)
+                                                budget, kappa_max, block_axis)
     best = torch.argmax(objs, dim=-1)
     best_obj = torch.gather(objs, 1, best[:, None])[:, 0]
     improved = best_obj > base_obj + 1e-12
@@ -187,7 +193,7 @@ def _top_k(x, k: int):
 
 
 def swap_prune_bounds(gamma, mu, a, sel, budget, kappa_max: float,
-                      s_c, u_c, valid_c):
+                      s_c, u_c, valid_c, block_axis: BlockAxis = LOCAL):
     """O(1)-per-candidate upper bound on each compacted candidate's boosted
     objective (``repro/core/swap.py:swap_prune_bounds``, over analysts).
 
@@ -205,7 +211,8 @@ def swap_prune_bounds(gamma, mu, a, sel, budget, kappa_max: float,
     plus what the removed row frees there (by ``_FEAS + _SCREEN_ATOL``)
     is certainly infeasible: its bound is ``-_BIG``.  Invalid slots are
     ``-inf``.  ``gamma [M, N, K]``, the candidates ``[M, C]`` -> ``ub [M,
-    C]``."""
+    C]``.  On a sharded axis a bound built from one stripe's blocks is
+    still a bound, so the stripes' bounds are combined by the MIN hook."""
     M, N, K = gamma.shape
     w = mu * a
     wp = torch.clamp(w, min=0.0)
@@ -241,11 +248,12 @@ def swap_prune_bounds(gamma, mu, a, sel, budget, kappa_max: float,
                      > packing._FEAS + _SCREEN_ATOL, dim=-1)     # [M, s, u]
     ub = torch.where(at(viol.reshape(M, N * N), su),
                      torch.full_like(ub, -_BIG), ub)
-    return torch.where(valid_c, ub, torch.full_like(ub, float("-inf")))
+    return block_axis.min(
+        torch.where(valid_c, ub, torch.full_like(ub, float("-inf"))))
 
 
 def swap_refine_beam(gamma, mu, a, active, sel, budget, kappa_max: float,
-                     beam: int):
+                     beam: int, block_axis: BlockAxis = LOCAL):
     """Certified top-``beam`` search over each analyst's compacted grid.
 
     Evaluates exactly (:func:`swap_batch_objectives`) only the ``beam``
@@ -265,7 +273,7 @@ def swap_refine_beam(gamma, mu, a, active, sel, budget, kappa_max: float,
     M, C = s_c.shape
     W = max(1, min(int(beam), C))
     ub = swap_prune_bounds(gamma, mu, a, sel, budget, kappa_max,
-                           s_c, u_c, valid_c)
+                           s_c, u_c, valid_c, block_axis)
     top_ub, top_idx = _top_k(ub, min(W + 1, C))
     if top_idx.shape[-1] > W:
         beam_idx, pruned_ub = top_idx[:, :W], top_ub[:, W]
@@ -277,13 +285,13 @@ def swap_refine_beam(gamma, mu, a, active, sel, budget, kappa_max: float,
     valid_b = torch.gather(valid_c, 1, beam_idx)
     cands_b = _swapped(sel, s_b, u_b)
     objs_b, feas_b = swap_batch_objectives(gamma, mu, a, cands_b, budget,
-                                           kappa_max)
+                                           kappa_max, block_axis)
     objs_b = torch.where(valid_b & feas_b, objs_b,
                          torch.full_like(objs_b, -_BIG))
     best = torch.argmax(objs_b, dim=-1)
     best_obj = torch.gather(objs_b, 1, best[:, None])[:, 0]
     _, _, base_obj = packing.proportional_boost(gamma, mu, a, active, sel,
-                                                budget, kappa_max)
+                                                budget, kappa_max, block_axis)
     thresh = torch.maximum(best_obj, base_obj + 1e-12)
     # the first clause is ``pruned_ub + _CERT_RTOL * (1 + |thresh|) <
     # thresh``, one FMA as XLA contracts it

@@ -16,6 +16,12 @@ rule there, as ``repro``'s ``lax.while_loop`` does, so a solve makes no
 host sync and ``iters`` stays on the device; on the CPU the twin's loop
 (:func:`repro_torch.kernels.ref.dual_ascent_ref`), with the same iteration
 count and lam.
+
+With a sharded ``block_axis`` (:mod:`repro_torch.shard`), ``c`` and
+``cap`` are the caller's block stripes and the multipliers stay
+stripe-local for the whole ascent; only the ``[M]``-sized analyst
+aggregates (the matvec partials, the feasibility caps, the KKT error)
+cross the stripes, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import hotpath
+from .blockaxis import LOCAL, BlockAxis
 
 _EPS = 1e-12
 
@@ -35,9 +42,11 @@ class WaterfillResult(NamedTuple):
     iters: torch.Tensor      # scalar int32 iterations executed
 
 
-def _x_of_lambda(lam, c, w_pow, beta, xcap, mask):
-    """x_i(lambda) from KKT stationarity, clipped to the per-analyst cap."""
-    denom = torch.clamp(hotpath.matvec(c, lam), min=_EPS)
+def _x_of_lambda(lam, c, w_pow, beta, xcap, mask,
+                 block_axis: BlockAxis = LOCAL):
+    """x_i(lambda) from KKT stationarity, clipped to the per-analyst cap
+    (the matvec's partial sums finished across stripes)."""
+    denom = torch.clamp(block_axis.sum(hotpath.matvec(c, lam)), min=_EPS)
     x = (w_pow / denom) ** (1.0 / beta)
     x = torch.minimum(x, xcap)
     return torch.where(mask, x, torch.zeros_like(x))
@@ -45,7 +54,8 @@ def _x_of_lambda(lam, c, w_pow, beta, xcap, mask):
 
 def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
                          max_iters: int = 4000, tol: float = 1e-6,
-                         lam0=None, adaptive: bool = False) -> WaterfillResult:
+                         lam0=None, adaptive: bool = False,
+                         block_axis: BlockAxis = LOCAL) -> WaterfillResult:
     """Solve SP1.  Returns ratios x_i >= 0 with sum_i c_ik x_i <= cap_k.
 
     ``mu``/``a``/``mask`` are ``[M]``, ``c`` is ``[M, K]``, ``cap`` ``[K]``
@@ -66,8 +76,8 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     inf = torch.full((), float("inf"), device=dev)
     ratio = torch.where(c > _EPS, cap[None, :] / torch.clamp(c, min=_EPS),
                         inf)
-    xcap = torch.amin(ratio, dim=1)
-    cmax = torch.amax(c, dim=1)
+    xcap = block_axis.min(torch.amin(ratio, dim=1))
+    cmax = block_axis.max(torch.amax(c, dim=1))
     mask = mask & (cmax > _EPS) & torch.isfinite(xcap)
     xcap = torch.where(mask, xcap, torch.zeros_like(xcap))
 
@@ -78,8 +88,9 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     cap_safe = torch.clamp(cap, min=_EPS)
     lam, iters = hotpath.dual_ascent(
         c, lam, w_pow, beta, xcap, mask.to(torch.int32), cap, cap_safe,
-        adaptive=adaptive, max_iters=max_iters, tol=tol)
-    x = _x_of_lambda(lam, c, w_pow, beta, xcap, mask)
+        adaptive=adaptive, max_iters=max_iters, tol=tol,
+        block_axis=block_axis)
+    x = _x_of_lambda(lam, c, w_pow, beta, xcap, mask, block_axis)
 
     # Final exact projection: uniform scale-down of any residual overshoot
     # so the output is always feasible (budgets must never overdraw).
@@ -87,7 +98,7 @@ def alpha_fair_waterfill(mu, a, c, mask, cap=None, beta: float = 2.2,
     ones = torch.ones_like(load)
     ratio = torch.where(load > cap, cap_safe / torch.clamp(load, min=_EPS),
                         ones)
-    x = x * torch.amin(ratio)
-    violation = torch.amax(
-        torch.clamp(hotpath.matvec_t(c, x) - cap, min=0.0) / cap_safe)
+    x = x * block_axis.min(torch.amin(ratio))
+    violation = block_axis.max(torch.amax(
+        torch.clamp(hotpath.matvec_t(c, x) - cap, min=0.0) / cap_safe))
     return WaterfillResult(x=x, lam=lam, violation=violation, iters=iters)

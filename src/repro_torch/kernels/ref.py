@@ -83,11 +83,28 @@ def dual_step_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     return x, dual_residual_ref(c, x, cap, cap_safe)
 
 
-def _kkt(lam_new, g) -> float:
+def kkt_error(lam_new, g) -> torch.Tensor:
     """KKT error max(primal infeasibility, complementary slackness)."""
     feas = torch.amax(torch.clamp(g, min=0.0))
     comp = torch.amax(lam_new * torch.abs(g))
-    return torch.maximum(feas, comp).item()
+    return torch.maximum(feas, comp)
+
+
+def decay_eta(it: int) -> np.float32:
+    """The cold ascent's step at iteration ``it``, ``0.5 / (1 + 0.001
+    it)`` in float32 with XLA's rounding (it fuses ``1 + 0.001 * it``)."""
+    F32 = np.float32
+    return F32(0.5) / F32(np.float64(F32(0.001)) * it + 1.0)
+
+
+def adapt_eta(eta, viol: float, viol_prev):
+    """The adaptive step after an iteration whose KKT error is ``viol``:
+    grown x1.2 while the error does not rise, else shrunk x0.7, kept in
+    [0.2, 1.5], in float32.  Returns ``(eta, viol_prev)`` for the next."""
+    F32 = np.float32
+    eta = (min(eta * F32(1.2), F32(1.5)) if F32(viol) <= viol_prev
+           else max(eta * F32(0.7), F32(0.2)))
+    return eta, F32(viol)
 
 
 def dual_ascent_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float,
@@ -105,34 +122,33 @@ def dual_ascent_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float,
     ``repro``'s exactly.  The step size is host arithmetic in float32 with
     ``repro``'s rounding: ``0.5 / (1 + 0.001 it)``, or with ``adaptive``
     0.5 grown x1.2 while the error does not rise, else shrunk x0.7, kept
-    in [0.2, 1.5]."""
+    in [0.2, 1.5] (:func:`decay_eta`, :func:`adapt_eta`)."""
     F32 = np.float32
     tol32 = float(F32(tol))
     it, viol = 0, float("inf")
     eta, viol_prev = F32(0.5), F32(np.inf)
     while it < max_iters and viol > tol32:
         _, g = step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta)
-        if not adaptive:    # decaying step; XLA fuses 1 + 0.001 * it
-            eta = F32(0.5) / F32(np.float64(F32(0.001)) * it + 1.0)
+        if not adaptive:
+            eta = decay_eta(it)
         lam = torch.clamp(lam * torch.exp(float(eta) * g), 1e-12, 1e12)
-        viol = _kkt(lam, g)
+        viol = kkt_error(lam, g).item()
         if adaptive:
-            eta = (min(eta * F32(1.2), F32(1.5)) if F32(viol) <= viol_prev
-                   else max(eta * F32(0.7), F32(0.2)))
-            viol_prev = F32(viol)
+            eta, viol_prev = adapt_eta(eta, viol, viol_prev)
         it += 1
     return lam, torch.tensor(it, dtype=torch.int32, device=lam.device)
 
 
-def boost_sweep_ref(g_ord, sel, left, kappa_max: float):
+def boost_sweep_ref(g_ord, sel, left, kappa_max: float, reduce=None):
     """The SP2 boost sweep for a stack of selections sharing demand rows.
 
     ``g_ord [B, N, K]`` visit-ordered demand rows, ``sel [B, C, N]``
     selections (nonzero = selected), ``left [B, C, K]`` initial leftovers.
     Visits rows in order; a selected row j gets ``extra = clip(min over
     live k of left_k / g_jk, 0, kappa_max - 1)`` and ``left -= extra *
-    g_j`` as one FMA.  Returns ``(extras [B, C, N], left_after [B, C,
-    K])``."""
+    g_j`` as one FMA.  ``reduce`` finishes each visit's min over block
+    stripes (``BlockAxis.min``).  Returns ``(extras [B, C, N], left_after
+    [B, C, K])``."""
     g = g_ord.float()
     left = left.float()
     on = sel != 0
@@ -142,14 +158,18 @@ def boost_sweep_ref(g_ord, sel, left, kappa_max: float):
         dem = g[:, None, j, :]                                   # [B,1,K]
         ratio = torch.where(dem > BOOST_EPS,
                             left / torch.clamp(dem, min=BOOST_EPS), inf)
-        extra = torch.clamp(torch.amin(ratio, dim=-1), 0.0, kappa_max - 1.0)
+        water = torch.amin(ratio, dim=-1)
+        if reduce is not None:
+            water = reduce(water)
+        extra = torch.clamp(water, 0.0, kappa_max - 1.0)
         extra = torch.where(on[..., j], extra, torch.zeros_like(extra))
         left = fma(-extra[..., None], dem, left)
         extras.append(extra)
     return torch.stack(extras, dim=-1), left
 
 
-def boost_scan_ref(g_ord, sel_ord, leftover, kappa_max: float):
+def boost_scan_ref(g_ord, sel_ord, leftover, kappa_max: float,
+                   reduce=None):
     """``repro``'s ``boost_scan_ref`` with optional leading batch dims:
     ``g_ord [..., N, K]``, ``sel_ord [..., N]``, ``leftover [..., K]`` ->
     ``(extras [..., N], leftover_after [..., K])``."""
@@ -157,11 +177,13 @@ def boost_scan_ref(g_ord, sel_ord, leftover, kappa_max: float):
     N, K = g_ord.shape[-2:]
     extras, left = boost_sweep_ref(g_ord.reshape(-1, N, K),
                                    sel_ord.reshape(-1, 1, N),
-                                   leftover.reshape(-1, 1, K), kappa_max)
+                                   leftover.reshape(-1, 1, K), kappa_max,
+                                   reduce)
     return extras.reshape(*batch, N), left.reshape(*batch, K)
 
 
-def swap_eval_ref(g_ord, sel_c, leftover_c, kappa_max: float):
+def swap_eval_ref(g_ord, sel_c, leftover_c, kappa_max: float,
+                  reduce=None):
     """``repro``'s ``swap_eval_ref`` with optional leading batch dims:
     ``g_ord [..., N, K]``, ``sel_c [..., C, N]``, ``leftover_c [..., C,
     K]`` -> ``extras [..., C, N]``."""
@@ -170,7 +192,8 @@ def swap_eval_ref(g_ord, sel_c, leftover_c, kappa_max: float):
     C = sel_c.shape[-2]
     extras, _ = boost_sweep_ref(g_ord.reshape(-1, N, K),
                                 sel_c.reshape(-1, C, N),
-                                leftover_c.reshape(-1, C, K), kappa_max)
+                                leftover_c.reshape(-1, C, K), kappa_max,
+                                reduce)
     return extras.reshape(*batch, C, N)
 
 

@@ -21,6 +21,9 @@ Layering on the episode engine:
 
 On a CUDA state every round's hot-path sweeps are the Hopper kernels
 (through :mod:`repro_torch.core.hotpath`); on a CPU state their twins.
+:class:`repro_torch.shard.ShardedFlaasService` runs the same tick loop
+over a block stripe per rank, its reductions finished across stripes by a
+sharded :class:`~repro_torch.core.blockaxis.BlockAxis`.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from .. import resolve_device
 from ..core import utility as ut
+from ..core.blockaxis import LOCAL, BlockAxis
 from ..core.demand import DemandView, RoundInputs
 from ..core.engine import round_diagnostics
 from ..core.registry import get_round_fn
@@ -45,14 +49,16 @@ from ..obs.profiler import PhaseProfiler
 from ..obs.registry import MetricsRegistry, absorb_summary
 from ..obs.tracing import DecisionTrace, split_trace_ys, trace_round_outputs
 from .queue import AdmissionQueue
-from .state import (NEVER, ServiceState, SlotTable, admit_batch, plan_mints,
-                    to_device)
+from .state import (BLOCK_FIELDS, NEVER, ServiceState, SlotTable,
+                    admit_batch, plan_mints, to_device)
 from .telemetry import StreamingTelemetry
-from .tenancy import resolve_policy
+from .tenancy import policy_key, resolve_policy
 from .traces import ArrivalTrace, demand_window_ticks
 
-_CHECKPOINT_ITEM = ("service checkpoints need checkpoint/manager.py, which "
-                    "is not ported yet (ROADMAP, Queue 1 item 5)")
+# host-payload schema of save_checkpoint (repro's): v1 predates tenancy,
+# v2 adds it, v3 the observability plane, v4 the warm-SP1 ``lam`` leaf
+_CHECKPOINT_VERSION = 4
+_COMPAT_VERSIONS = (1, 2, 3, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +107,13 @@ class ServiceConfig:
 def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
                    cfg: SchedulerConfig, round_fn, n_ticks: int,
                    mode: str, diagnostics: bool = False,
-                   trace_level: int = 0, audit: bool = False):
+                   trace_level: int = 0, audit: bool = False,
+                   block_axis: BlockAxis = LOCAL):
     """Run ticks ``[tick0, tick0 + n_ticks)`` on the state's device;
-    returns ``(final_carry, ys)`` and leaves ``state`` untouched.
+    returns ``(final_carry, ys)`` and leaves ``state`` untouched.  With a
+    sharded ``block_axis`` the state and the block-axis mint operands are
+    the rank's stripe, and every per-tick output is finished across
+    stripes, so ``ys`` is the same on every rank.
 
     Mirrors ``engine.run_episode`` tick for tick, so a wrap-free ledger
     over an episode-compatible trace is bit-identical to it.
@@ -165,8 +175,9 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
             torch.where(doomed_h, mt_h, torch.full_like(mt_h, -1)), dim=-1)
         # paging telemetry (per chunk): stale entries retired by the
         # chunk's mints + live hot-ring entries at the boundary.
-        hot_evicted = torch.sum(doomed_h.to(torch.int32))
-        hot_live = torch.sum((live_h & minted_h).to(torch.int32))
+        hot_evicted = block_axis.sum(torch.sum(doomed_h.to(torch.int32)))
+        hot_live = block_axis.sum(torch.sum((live_h & minted_h).to(
+            torch.int32)))
     else:
         tick_ops = tuple(mint_ops)
 
@@ -185,7 +196,7 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
             # ones in the default single-tier service, bitwise-neutral)
             weight=state.weight,
             lam=lam)
-        res = round_fn(rnd, cfg)
+        res = round_fn(rnd, cfg, block_axis=block_axis)
         mask = torch.sum(pending, dim=1) > 0
         gap = torch.where(created, capacity - res.consumed - res.leftover,
                           torch.zeros_like(capacity))
@@ -196,13 +207,14 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
                 res.utility, cfg.beta, mask),
             "round_jain": res.jain,
             "n_allocated": res.n_allocated,
-            "leftover": torch.sum(res.leftover),
+            "leftover": block_axis.sum(torch.sum(res.leftover)),
             # realized epsilon granted per analyst row this tick -- the
             # cost-cap / per-tenant spend signal (host maps rows to
             # tenants at the boundary)
-            "analyst_spend": torch.sum(res.grants, dim=(1, 2)),
-            "conservation_gap": torch.amax(torch.abs(gap)),
-            "overdraw": torch.amax(res.consumed - capacity),
+            "analyst_spend": block_axis.sum(torch.sum(res.grants,
+                                                      dim=(1, 2))),
+            "conservation_gap": block_axis.max(torch.amax(torch.abs(gap))),
+            "overdraw": block_axis.max(torch.amax(res.consumed - capacity)),
             "selected": res.selected,
         }
         # certified swap pruning: per-tick fallback indicator; a baseline
@@ -218,7 +230,7 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
             out["sp1_iters"] = (torch.zeros((), dtype=torch.int32, device=dev)
                                 if res.sp1_iters is None else res.sp1_iters)
         if diagnostics:
-            out.update(round_diagnostics(rnd, res, cfg))
+            out.update(round_diagnostics(rnd, res, cfg, block_axis))
         # Observability outputs, both gated by config: with trace_level=0
         # and no audit the tick runs exactly the ops of a build without
         # the obs plane.  Every value is an intermediate the round already
@@ -273,8 +285,9 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
             # grantable" -- greedy_cover would hand it a phantom zero-
             # budget grant.  It *expires* instead: completed with nothing,
             # slot recycled at the boundary, counted in telemetry.
-            expired = pending & ~any_demand
-            pending = pending & any_demand
+            has_demand = block_axis.any(any_demand)
+            expired = pending & ~has_demand
+            pending = pending & has_demand
         res, out = tick_out(view, pending, capacity, budget_total,
                             created, nows[i], lam)
         capacity = torch.clamp(capacity - res.consumed, min=0.0)
@@ -425,6 +438,12 @@ class FlaasService:
         (1 = the plain ``bid % B`` ring)."""
         return 1
 
+    def _host_blocks(self, a: np.ndarray) -> np.ndarray:
+        """The part of a host ``[..., B]`` ledger array this service holds
+        on its device (all of it).  Subclass hook: a sharded service holds
+        its rank's stripe."""
+        return a
+
     def _compiled_step(self, n_ticks: int, mode: str):
         """The ``(state, mint_ops, tick0) -> (final_carry, ys)`` chunk
         step, a plain function (nothing is compiled; the hook keeps
@@ -512,8 +531,10 @@ class FlaasService:
             demand=final[0] if plan.retire else self.state.demand,
             done=final[-2], block_capacity=final[-1],
             lam=lam_f if warm else self.state.lam,
-            block_budget=to_device(plan.next_budget, np.float32, dev),
-            block_birth=to_device(plan.next_birth, np.int32, dev),
+            block_budget=to_device(self._host_blocks(plan.next_budget),
+                                   np.float32, dev),
+            block_birth=to_device(self._host_blocks(plan.next_birth),
+                                  np.int32, dev),
             tick=torch.full((), self.tick, dtype=torch.int32, device=dev))
         with self.profiler.phase("host_sync"):
             ys = _to_host(ys, dev)
@@ -695,16 +716,148 @@ class FlaasService:
 
     # ----------------------------------------------------------- durability
     def checkpoint_host_state(self) -> Dict:
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_CHECKPOINT_ITEM)
+        """Everything the device state does not carry: ledger-metadata
+        mirrors, slot table, admission queue, telemetry, the trace cursor
+        and the observability plane.  Restoring this plus the device state
+        into a fresh service resumes it bitwise (same grants, same draws,
+        same summary fingerprint) -- see :meth:`load_checkpoint`."""
+        return {
+            "kind": "flaas-service",
+            "version": _CHECKPOINT_VERSION,
+            "layout_shards": self._ring_layout_shards(),
+            "geometry": (self.cfg.analyst_slots, self.cfg.pipeline_slots,
+                         self.cfg.block_slots),
+            "ledger_budget": self._ledger_budget.copy(),
+            "ledger_birth": self._ledger_birth.copy(),
+            "wall": self._wall,
+            "table": self.table.state_dict(),
+            "queue": self.queue.state_dict(),
+            "telemetry": self.telemetry.state_dict(),
+            "trace": self.trace.state_dict(),
+            "row_tier": [str(t) for t in self._row_tier],
+            "row_weight": self._row_weight.copy(),
+            "tenancy": policy_key(self.tenancy),
+            # v3 observability plane: registry counters resume bitwise,
+            # profiler wall totals accumulate across restores, and the
+            # audit mirrors keep not-yet-granted pipelines attributable
+            # after a restore (the ledger file is append-only on disk --
+            # reopening it continues its hash chain).
+            "obs": {
+                "registry": self.registry.state_dict(),
+                "profiler": self.profiler.state_dict(),
+                "audit_slots": {k: {kk: (vv.copy()
+                                         if isinstance(vv, np.ndarray)
+                                         else vv)
+                                    for kk, vv in rec.items()}
+                                for k, rec in self._audit_slots.items()},
+            },
+        }
 
     def save_checkpoint(self, manager, metadata: Optional[Dict] = None) -> int:
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_CHECKPOINT_ITEM)
+        """Checkpoint the whole service at the current chunk boundary
+        through a :class:`~repro_torch.checkpoint.CheckpointManager`;
+        returns the step saved under, the service's tick."""
+        with self.profiler.phase("checkpoint_save"):
+            return self._write_checkpoint(manager, self.state, metadata)
+
+    def _write_checkpoint(self, manager, state: ServiceState,
+                          metadata: Optional[Dict]) -> int:
+        step = self.tick
+        meta = {"scheduler": self.cfg.scheduler,
+                "layout_shards": self._ring_layout_shards(),
+                **(metadata or {})}
+        manager.save(step, state, metadata=meta,
+                     host_state=self.checkpoint_host_state())
+        return step
+
+    def _checkpoint_template(self) -> ServiceState:
+        """The state a checkpoint restores into (its shapes, dtypes and
+        devices).  Subclass hook: a sharded service restores the whole
+        ring and then keeps its stripe."""
+        return self.state
+
+    def _adopt_state(self, state: ServiceState) -> None:
+        """Install a restored whole-ring state.  Subclass hook."""
+        self.state = state
 
     def load_checkpoint(self, manager, step: Optional[int] = None) -> int:
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_CHECKPOINT_ITEM)
+        """Restore device and host state from ``manager`` into this
+        (freshly constructed, same-config) service; returns the restored
+        tick.
+
+        Elastic hand-off: a checkpoint written under an ``S``-striped ring
+        layout restores onto an ``S'``-striped one by permuting every
+        block-axis array with :func:`repro_torch.shard.state.remap_ring`
+        -- both layouts place block ``bid`` by ``bid % B`` alone, so the
+        permutation is exact and scheduling continues unchanged."""
+        device, host, step = manager.restore(self._checkpoint_template(),
+                                             step=step, with_host=True)
+        if step is None:
+            raise ValueError(f"no checkpoint found in {manager.dir}")
+        if not isinstance(host, dict) or host.get("kind") != "flaas-service":
+            raise ValueError(
+                "checkpoint carries no service host state (was it saved "
+                "with FlaasService.save_checkpoint?)")
+        if host.get("version") not in _COMPAT_VERSIONS:
+            raise ValueError(
+                f"service checkpoint version {host.get('version')} not "
+                f"supported (accepted: {_COMPAT_VERSIONS})")
+        geometry = (self.cfg.analyst_slots, self.cfg.pipeline_slots,
+                    self.cfg.block_slots)
+        if tuple(host["geometry"]) != geometry:
+            raise ValueError(
+                f"checkpoint geometry {tuple(host['geometry'])} != "
+                f"configured {geometry}")
+        ledger_budget = np.asarray(host["ledger_budget"], np.float32)
+        ledger_birth = np.asarray(host["ledger_birth"], np.int32)
+        src, dst = int(host["layout_shards"]), self._ring_layout_shards()
+        if src != dst:
+            # lazy import: repro_torch.shard imports this module
+            from ..shard.state import remap_ring
+            idx = remap_ring(src, dst, self.cfg.block_slots)
+            at = torch.from_numpy(idx).to(device.device)
+            device = dataclasses.replace(device, **{
+                f: getattr(device, f).index_select(-1, at)
+                for f in BLOCK_FIELDS})
+            ledger_budget = ledger_budget[idx]
+            ledger_birth = ledger_birth[idx]
+        self._adopt_state(device)
+        self.tick = int(device.tick)
+        self._ledger_budget = ledger_budget.copy()
+        self._ledger_birth = ledger_birth.copy()
+        self._wall = float(host["wall"])
+        self.table.load_state_dict(host["table"])
+        self.queue.load_state_dict(host["queue"])
+        self.telemetry.load_state_dict(host["telemetry"])
+        self.trace.load_state_dict(host["trace"])
+        if "row_tier" in host:
+            self._row_tier = np.array([str(t) for t in host["row_tier"]],
+                                      object)
+            self._row_weight = np.asarray(host["row_weight"],
+                                          np.float32).copy()
+        else:
+            # v1 (pre-tenancy) checkpoint: every row is the neutral
+            # default tier, matching the all-ones weight leaf the
+            # template kept (the file has no weight array)
+            self._row_tier = np.array(["default"] * self.cfg.analyst_slots,
+                                      object)
+            self._row_weight = np.ones(self.cfg.analyst_slots, np.float32)
+        # v3 observability plane (older checkpoints: counters start fresh;
+        # pipelines admitted before the restore are absent from the audit
+        # ledger -- its conservation is an upper bound, so the verifier
+        # stays sound)
+        obs = host.get("obs", {})
+        if "registry" in obs:
+            self.registry.load_state_dict(obs["registry"])
+        if "profiler" in obs:
+            self.profiler.load_state_dict(obs["profiler"])
+        self._audit_slots = {
+            tuple(k): {"analyst": int(rec["analyst"]),
+                       "tier": str(rec["tier"]),
+                       "bids": np.asarray(rec["bids"], np.int64).copy(),
+                       "eps": np.asarray(rec["eps"], np.float32).copy()}
+            for k, rec in obs.get("audit_slots", {}).items()}
+        return step
 
     # -------------------------------------------------------------- helpers
     def _export_telemetry(self) -> None:

@@ -36,6 +36,9 @@ import torch
 from .. import resolve_device
 
 NEVER = np.int32(np.iinfo(np.int32).max)   # spawn_tick sentinel: not admitted
+# the ServiceState fields laid out along the block ring (their last axis)
+BLOCK_FIELDS = ("demand", "block_budget", "block_capacity", "block_birth",
+                "lam")
 
 
 def to_device(a, dtype, device) -> torch.Tensor:

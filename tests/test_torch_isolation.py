@@ -7,6 +7,9 @@ fallback.
 * The input constructors default to CUDA and raise when it is unavailable.
 * ``chip_smoke.py`` exits nonzero and prints no verdict without CUDA, and
   outside a checkout of the repository.
+* A checkpoint's host payload never imports ``repro``: the loader maps
+  ``repro``'s service and observability classes to the port's and refuses
+  every other ``repro`` name.
 """
 import ast
 import re
@@ -80,7 +83,10 @@ def test_port_has_every_slice_module():
                 "service/telemetry.py", "service/server.py",
                 "service/replay.py", "service/load.py", "obs/__init__.py",
                 "obs/registry.py", "obs/exporter.py", "obs/audit.py",
-                "obs/profiler.py", "obs/tracing.py"):
+                "obs/profiler.py", "obs/tracing.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "shard/__init__.py", "shard/state.py", "shard/service.py",
+                "launch/sharded_service.py"):
         assert mod in have, mod
     for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu",
                "rg_lru.cu"):
@@ -161,6 +167,54 @@ def test_service_defaults_to_cuda_and_raises_without_it(no_cuda):
     svc = FlaasService(cfg, trace, device="cpu")
     assert svc.state.demand.device.type == "cpu"
     assert svc.run(2)["ticks"] == 2
+
+
+def test_sharded_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    """The sharded service and its state default to the card like the
+    unsharded ones; the launcher takes --device (and --backend) only
+    explicitly."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharded_service
+    from repro_torch.shard import ShardedFlaasService, ShardedServiceState
+    trace = make_trace("paper_default", "poisson", seed=2, n_devices=4,
+                       pipelines_per_analyst=6)
+    cfg = ServiceConfig(analyst_slots=3, pipeline_slots=6, block_slots=80)
+    with pytest.raises(RuntimeError):
+        sharded_service.rank_device("cuda", 0, 1)
+    for argv in (["--shards", "1", "--backend", "gloo"],
+                 ["--shards", "1", "--device", "cpu"]):
+        with pytest.raises(SystemExit):
+            sharded_service.main(argv)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{sharded_service.free_port()}",
+        rank=0, world_size=1)
+    try:
+        for build in (lambda: ShardedFlaasService(cfg, trace),
+                      lambda: ShardedServiceState.create(2, 2, 8)):
+            with pytest.raises(RuntimeError):
+                build()
+        svc = ShardedFlaasService(cfg, trace, device="cpu")
+        assert svc.state.demand.device.type == "cpu"
+        assert svc.run(2)["ticks"] == 2
+    finally:
+        dist.destroy_process_group()
+
+
+def test_payload_unpickler_refuses_unmapped_repro_classes(tmp_path):
+    """A host payload naming a ``repro`` class outside ``repro.service``
+    and ``repro.obs`` is refused before anything is imported; a mapped
+    one loads the port's class."""
+    import pickle
+    from repro_torch.checkpoint.manager import load_host_payload
+    bad = tmp_path / "bad.pkl"
+    bad.write_bytes(b"crepro.core.scheduler\nSchedulerConfig\n.")
+    with pytest.raises(pickle.UnpicklingError, match="repro_torch"):
+        load_host_payload(str(bad))
+    good = tmp_path / "good.pkl"
+    good.write_bytes(b"crepro.service.traces\nSubmission\n.")
+    from repro_torch.service.traces import Submission
+    assert load_host_payload(str(good)) is Submission
 
 
 def _run_smoke(cwd: Path):

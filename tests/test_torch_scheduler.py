@@ -288,9 +288,11 @@ def test_paper_geometry_round_matches_repro():
 
 
 def test_outside_the_slice_raises():
-    """Only a sharded block axis is outside the port's scheduler now (the
-    swap beam is ported: ``test_torch_swap_beam.py``)."""
+    """Nothing of the scheduler is outside the port now: the swap beam is
+    ported (``test_torch_swap_beam.py``) and so is a sharded block axis
+    (``test_torch_shard.py``).  A sharded axis needs its process group:
+    without one the round raises rather than run on one stripe."""
     _, tr = both_inputs(scenario_round("paper_default"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         tsch.schedule_round(tr, tsch.SchedulerConfig(),
                             block_axis=tbx.BlockAxis("shard"))

@@ -13,8 +13,9 @@ generators are numpy, so both draw the same submissions).  Contracts:
 * the host-side pieces (``plan_mints``, ``SlotTable``, the admission
   write, the queue and the tenancy telemetry) equal ``repro``'s on the
   same inputs;
-* the checkpoint methods raise ``NotImplementedError`` (not ported yet);
-  the CUDA default is checked in ``test_torch_isolation.py``.
+* the checkpoint methods no longer raise (their contract is
+  ``test_torch_service_checkpoint.py``'s); the CUDA default is checked in
+  ``test_torch_isolation.py``.
 """
 import dataclasses
 import os
@@ -452,12 +453,19 @@ def test_each_tick_calls_every_budget_twin(monkeypatch, scheduler, warm):
     assert calls == want
 
 
-def test_checkpoint_methods_raise_not_implemented():
+def test_checkpoint_methods_raise_not_implemented(tmp_path):
+    """The checkpoint methods are ported: none raises
+    ``NotImplementedError`` any more, and a save then a load into a fresh
+    service returns the saved tick (the full contract is
+    ``test_torch_service_checkpoint.py``)."""
+    from repro_torch.checkpoint import CheckpointManager
     _, svc = services()
-    for call in (svc.checkpoint_host_state, lambda: svc.save_checkpoint(None),
-                 lambda: svc.load_checkpoint(None)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            call()
+    svc.run(8)
+    assert svc.checkpoint_host_state()["version"] == 4
+    mgr = CheckpointManager(str(tmp_path))
+    assert svc.save_checkpoint(mgr) == 8
+    _, fresh = services()
+    assert fresh.load_checkpoint(mgr) == 8 and fresh.tick == 8
 
 
 def test_service_package_exports_repros_names():
