@@ -21,7 +21,14 @@ Phases (each raises on failure; nothing is caught):
      dual_step's ascent mode (the whole SP1 loop in one launch) at the
      paper, large and ragged shapes against the per-iteration loop over
      its step mode (iteration counts equal, lam bitwise), and its time
-     per iteration beside that loop's and the launch floor;
+     per iteration beside that loop's and the launch floor; the lockstep
+     fleet's batched forms of matvec, matvec_t and dual_step's ascent
+     (FLEET_KERNEL_SHAPES: E episodes stacked on a leading axis, one
+     launch) against their twins and against E lone launches (matvec and
+     matvec_t bitwise; the ascent's lam bitwise and counts equal, with
+     episodes stopping at different iterations), timed beside those E
+     lone launches and torch.bmm (a yardstick only), with the ascent's
+     cluster waves (E over the clusters the card holds at once);
   4. the paper episode (SimConfig(seed=0): 6 analysts x 25 pipelines,
      100 devices, K=2000, 10 rounds) through run_episode on the card, cold
      and warm SP1, every kernel's launch count above 0, and agreement with
@@ -112,9 +119,14 @@ Phases (each raises on failure; nothing is caught):
      card against the engine, with ms per round (host clock, synchronised)
      and the card's busy share per scheduler;
  18. fleets: every scenario's fleet of FLEET_SEEDS episodes through
-     run_fleet on the card for each scheduler, each row equal to
-     run_episode's, the fleets' wall time per scheduler, and one fleet with
-     diagnostics=True;
+     run_fleet on the card for each scheduler ("auto": lockstep, "vmap"),
+     each row equal to run_episode's, the fleets' wall time per scheduler,
+     and one fleet with diagnostics=True; then paper_default at paper
+     size with LOCKSTEP_SEEDS seeds for every scheduler (dpbalance cold,
+     warm and with swap_beam=8) under both modes: vmap bitwise map on
+     every key, each round's budget-kernel launches (a lockstep round
+     launches as many as one episode's round, whatever E), and each
+     mode's wall time and ms per episode;
  19. the certified swap beam (swap_beam=8): the paper episode and phase
      5's round bitwise the full sweep (per-round certificates printed);
      the reference's fleet-scale round (N=1000 pipelines, K=100,000 blocks,
@@ -272,8 +284,20 @@ REPRO_PAPER = {
 PATH_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t", "dual_step",
                               "boost_scan", "swap_eval"),
                 "dpf": ("rowmax",), "dpk": ("rowmax",), "fcfs": ("rowmax",)}
-# phase 18: seeds per scenario in each fleet
+# phase 18: seeds per scenario in each fleet, and the lockstep fleet at
+# paper size: its seeds, and the runs (scheduler, SchedulerConfig
+# overrides) it takes under both modes
 FLEET_SEEDS = 2
+LOCKSTEP_SEEDS = 16
+LOCKSTEP_RUNS = [("dpbalance", {}), ("dpbalance", {"sp1_warm_start": True}),
+                 ("dpbalance", {"swap_beam": 8}), ("dpf", {}), ("dpk", {}),
+                 ("fcfs", {})]
+# phase 3: the lockstep fleet's batched SP1 kernels, (name, E episodes, M,
+# K): phase 18's paper fleet, a fleet past one wave of dual clusters, and
+# a few large rounds
+FLEET_KERNEL_SHAPES = [("fleet-paper", LOCKSTEP_SEEDS, 6, 2000),
+                       ("fleet-paper-256", 256, 6, 2000),
+                       ("fleet-large", 4, 32, 16384)]
 # phase 19: the reference's fleet-scale round
 # (bench_scheduler_scale.py:_round(1, 100_000, 1000, cap=0.25): M, K, N,
 # capacity), beta 2.2, refine on, a beam of 8; repro's values for it
@@ -590,6 +614,128 @@ def ascent_case(d, shape, M, K, floor, card):
                 ascent_cs=ba.dual_split(M, K))
 
 
+def make_fleet_inputs(E, M, K, seed=0):
+    """SP1 operands of E episodes of one shape, stacked, drawn on the card
+    from a seed and formed as alpha_fair_waterfill forms them (c half
+    dense with an all-zero row, a fifth of the analysts masked), with warm
+    duals and a grant vector per episode."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    c = u(0.0, 0.1, E, M, K) * (u(0.0, 1.0, E, M, K) < 0.5)
+    c[:, -1] = 0.0
+    w = torch.clamp(u(0.1, 1.0, E, M) * u(0.3, 1.0, E, M), min=1e-12)
+    mask = u(0.0, 1.0, E, M) > 0.2
+    cap = u(0.05, 0.5, E, K)
+    w_pow = torch.where(mask, w ** (1.0 - 2.2), 0.0)
+    ratio = torch.where(c > 1e-12, cap[:, None] / torch.clamp(c, min=1e-12),
+                        float("inf"))
+    xcap = torch.amin(ratio, dim=-1)
+    mask = mask & (torch.amax(c, dim=-1) > 1e-12) & torch.isfinite(xcap)
+    return dict(c=c, lam=torch.ones(E, K, device="cuda"),
+                lam_warm=u(0.5, 2.0, E, K), w_pow=w_pow,
+                xcap=torch.where(mask, xcap, 0.0),
+                mask=mask.to(torch.int32), cap=cap,
+                cap_safe=torch.clamp(cap, min=1e-12), x=u(0.0, 2.0, E, M))
+
+
+def fleet_kernel_cases(rows, card):
+    """The lockstep fleet's batched matvec, matvec_t and dual_step ascent
+    at FLEET_KERNEL_SHAPES: each against its twin and against E lone
+    launches on the episodes' operands, timed beside those lone launches
+    and torch.bmm (a yardstick only); adds a ``by_shape`` entry to each
+    kernel's row."""
+    from repro_torch.kernels import budget_alloc as ba
+    from repro_torch.kernels import ref
+    for shape, E, M, K in FLEET_KERNEL_SHAPES:
+        d = make_fleet_inputs(E, M, K)
+        c, lam, x = d["c"], d["lam"], d["x"]
+        dims = f"E={E} M={M} K={K}"
+
+        def lone(fn, *ts):
+            return torch.stack([fn(*(t[e] for t in ts)) for e in range(E)])
+
+        y = ba.matvec(c, lam)
+        if not torch.equal(y, lone(ba.matvec, c, lam)):
+            raise AssertionError(f"matvec {shape}: not bitwise E lone "
+                                 "launches")
+        errs = {"matvec": check("matvec " + shape, y,
+                                ref.matvec_ref(c, lam), False)}
+        load = ba.matvec_t(c, x)
+        if not torch.equal(load, lone(ba.matvec_t, c, x)):
+            raise AssertionError(f"matvec_t {shape}: not bitwise E lone "
+                                 "launches")
+        errs["matvec_t"] = check("matvec_t " + shape, load,
+                                 ref.matvec_t_ref(c, x), True)
+        dense = {
+            "matvec": (lambda: ba.matvec(c, lam),
+                       lambda: lone(ba.matvec, c, lam),
+                       lambda: ref.matvec_ref(c, lam),
+                       lambda: torch.bmm(c, lam[..., None]),
+                       4 * (E * M * K + E * K + E * M)),
+            "matvec_t": (lambda: ba.matvec_t(c, x),
+                         lambda: lone(ba.matvec_t, c, x),
+                         lambda: ref.matvec_t_ref(c, x),
+                         lambda: torch.bmm(x[:, None, :], c),
+                         4 * (E * M * K + E * M + E * K)),
+        }
+        for name, (run, lones, twin, lib, nbytes) in dense.items():
+            ms, lone_ms = time_ms(run, 20), time_ms(lones, 3)
+            plain, lib_ms = time_ms(twin, 3), time_ms(lib, 20)
+            b, by = bound_ms(nbytes, 2 * E * M * K)
+            log(f"  {name:10s} {shape} {dims}: one launch bitwise {E} lone "
+                f"launches, max_abs_err {errs[name]:.3e} against the twin; "
+                f"kernel {ms:.4f} ms, {E} lone launches {lone_ms:.4f} ms, "
+                f"twin {plain:.4f} ms, torch.bmm {lib_ms:.4f} ms, bound "
+                f"{b:.6f} ms ({by}, {card})")
+            r = rows[name]
+            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
+            r["by_shape"][shape] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                        bound_by=by, library_ms=lib_ms,
+                                        lone_ms=lone_ms, shape=dims)
+        # the ascent: cold to a fixed count, adaptive warm to its stop
+        # rule (capped where E lone launches would take seconds)
+        ops = (c, lam, d["w_pow"], d["xcap"], d["mask"], d["cap"],
+               d["cap_safe"])
+        warm_ops = (c, d["lam_warm"]) + ops[2:]
+        cap_iters = 4000 if E * M * K <= 200_000 else 1000
+        counts = []
+        for args, kw in ((ops, dict(adaptive=False, max_iters=200, tol=0.0)),
+                         (warm_ops, dict(adaptive=True, max_iters=cap_iters,
+                                         tol=1e-6))):
+            lam_b, it_b = ba.dual_ascent(*args, 2.2, **kw)
+            for e in range(E):
+                counts.append(check_ascent(
+                    f"fleet dual_ascent {shape} episode {e} {kw}",
+                    (lam_b[e], it_b[e]),
+                    ba.dual_ascent(*(t[e] for t in args), 2.2, **kw)))
+        n = 200
+        kw = dict(adaptive=False, max_iters=n, tol=0.0)
+        ms = time_ms(lambda: ba.dual_ascent(*ops, 2.2, **kw), 2, 3)
+        lone_ms = time_ms(lambda: [ba.dual_ascent(*(t[e] for t in ops), 2.2,
+                                                  **kw) for e in range(E)],
+                          1, 3)
+        plain = time_ms(lambda: ref.dual_ascent_ref(*ops, 2.2, **kw), 1, 1)
+        waves = ba.dual_waves(E, M, K)
+        b, by = bound_ms(0, n * E * (4 * M * K + 8 * K + 4 * M))
+        warm_counts = counts[E:]
+        log(f"  dual_step  {shape} {dims} ascent: cs={ba.dual_split(M, K)}, "
+            f"{E} clusters in {waves} wave(s); each episode's lam bitwise "
+            f"its lone launch's, counts equal (cold {n}; adaptive warm "
+            f"{min(warm_counts)}-{max(warm_counts)}); {n} iterations of "
+            f"all {E} in one launch {ms:.4f} ms, {E} lone launches "
+            f"{lone_ms:.4f} ms, the twin's loop {plain:.4f} ms; bound "
+            f"{b:.6f} ms ({by}, {card})")
+        rows["dual_step"]["by_shape"][shape] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+            lone_ms=lone_ms, waves=waves, iterations=n, shape=dims,
+            warm_iterations=[min(warm_counts), max(warm_counts)])
+        del d, ops, warm_ops
+        torch.cuda.empty_cache()
+
+
 class AscentRecorder:
     """Within the block, every ``hotpath.dual_ascent`` call keeps a copy of
     its operands and its result, so each SP1 solve of a run can be
@@ -628,16 +774,22 @@ class AscentRecorder:
 
     def replay(self, label):
         """Each recorded solve against the per-iteration loop on the same
-        operands: equal counts and lam bitwise.  Returns the counts."""
+        operands, episode by episode where the solve had a leading fleet
+        axis: equal counts and lam bitwise.  Returns the counts."""
         counts = []
         for r, (args, kw, out) in enumerate(self.calls):
             c, lam, w_pow, beta, xcap, mask, cap, cap_safe = args
             kw = dict(kw)
             assert not kw.pop("block_axis").sharded    # the one-device loop
-            counts.append(check_ascent(
-                f"{label} solve {r}", out,
-                parent_ascent((c, lam, w_pow, xcap, mask, cap, cap_safe),
-                              beta, **kw)))
+            ops = (c, lam, w_pow, xcap, mask, cap, cap_safe)
+            if c.dim() == 2:
+                solves = [(ops, out)]
+            else:
+                solves = [(tuple(t[e] for t in ops), (out[0][e], out[1][e]))
+                          for e in range(c.shape[0])]
+            for e, (one, got) in enumerate(solves):
+                counts.append(check_ascent(f"{label} solve {r}.{e}", got,
+                                           parent_ascent(one, beta, **kw)))
         return counts
 
 
@@ -702,6 +854,7 @@ def phase_kernels(card):
     measure(shape, f"M={M} K={K}", dense_cases(d, M, K), plain_reps=1)
     del d
     torch.cuda.empty_cache()
+    fleet_kernel_cases(rows, card)
     ba.reset_launches()
     return rows
 
@@ -1814,15 +1967,43 @@ def phase_paper_comparison():
     return launches
 
 
+def _fleet_launches(name, over, E, R, mode, counts):
+    """Raise unless a fleet run launched each budget kernel as its path
+    does: per lockstep round (``"vmap"``) what one episode's round
+    launches, per episode round (``"map"``) the same E times over.  A
+    beam round launches the full sweep's extra swap_eval and boost_scan
+    only where a certificate failed.  Returns the launches per round."""
+    rounds = R if mode == "vmap" else E * R
+    per = {k: v / rounds for k, v in counts.items() if v}
+    need = SERVICE_PER_TICK[name]
+    if name == "dpbalance" and over.get("swap_beam"):
+        ok = (all(per.get(k) == v for k, v in need.items()
+                  if k not in ("boost_scan", "swap_eval"))
+              and 1 <= per["swap_eval"] <= 2
+              and counts["boost_scan"] == counts["swap_eval"] + rounds)
+    else:
+        ok = per == {k: float(v) for k, v in need.items()}
+    if not ok:
+        raise AssertionError(f"{name} {over} {mode}: launches per round "
+                             f"{per}, want {need}")
+    return per
+
+
 def phase_fleets():
     """Every scenario's fleet of FLEET_SEEDS episodes through run_fleet on
-    the card for each scheduler, each row equal to run_episode's."""
+    the card for each scheduler (lockstep, by "auto"), each row equal to
+    run_episode's; then the paper fleet of LOCKSTEP_SEEDS episodes under
+    both modes, vmap bitwise map, with launches and walls."""
     from repro_torch.core import (SCENARIOS, SCHEDULER_NAMES,
                                   SchedulerConfig, generate_episode,
-                                  make_fleet, run_episode, run_fleet,
-                                  scenario_config)
+                                  make_fleet, resolve_fleet_mode,
+                                  run_episode, run_fleet, scenario_config)
+    from repro_torch.kernels import budget_alloc as ba
     log(f"[18] fleets: {len(SCENARIOS)} scenarios x {FLEET_SEEDS} seeds x "
-        f"4 schedulers, run_fleet against run_episode on the card")
+        f"4 schedulers, run_fleet (mode 'auto' = "
+        f"{resolve_fleet_mode('auto', 'cuda')!r} on the card) against "
+        f"run_episode on the card")
+    assert resolve_fleet_mode("auto", "cuda") == "vmap"
     cfg = SchedulerConfig(beta=2.2)
     fleets = {n: make_fleet(n, FLEET_SEEDS, device="cuda")
               for n in SCENARIOS}
@@ -1842,10 +2023,11 @@ def phase_fleets():
                 one = run_episode(ep, cfg, name)
                 for k, v in one.items():
                     assert torch.equal(out[k][e], v), (name, scen, e, k)
-        log(f"  {name:9s}: {len(fleets)} fleets of {FLEET_SEEDS} episodes "
-            f"in {wall:.3f} s ({wall / len(fleets) / FLEET_SEEDS * 1e3:.1f} "
-            f"ms an episode), {alloc} pipelines allocated; every row equal "
-            f"to run_episode's")
+        per_ep = wall / len(fleets) / FLEET_SEEDS * 1e3
+        log(f"  {name:9s}: {len(fleets)} lockstep fleets of {FLEET_SEEDS} "
+            f"episodes in {wall:.3f} s ({per_ep:.1f} ms an episode), "
+            f"{alloc} pipelines allocated; every row equal to "
+            f"run_episode's")
     diag = run_fleet(fleets["paper_default"], cfg, "dpbalance",
                      diagnostics=True)
     M, N = diag["selected"].shape[-2:]
@@ -1858,6 +2040,41 @@ def phase_fleets():
         f"utility, analyst_mask, a_i, gamma_i, mu_i, x_analyst, "
         f"sp1_violation, granted_i, cap_frac, selected; finite, granted_i "
         f"{tuple(diag['granted_i'].shape)}")
+    del fleets, singles, diag
+
+    E = LOCKSTEP_SEEDS
+    fleet = make_fleet("paper_default", E, device="cuda")
+    R = fleet.n_rounds
+    log(f"  the lockstep fleet: paper_default x {E} seeds at paper size "
+        f"(M={M} N={N} K={K} R={R}), every scheduler under both modes")
+    for name, over in LOCKSTEP_RUNS:
+        c = SchedulerConfig(beta=2.2, **over)
+        run_fleet(fleet, c, name, mode="vmap")           # warm-up
+        outs, walls, line = {}, {}, []
+        for mode in ("vmap", "map"):
+            torch.cuda.synchronize()
+            ba.reset_launches()
+            t0 = time.perf_counter()
+            outs[mode] = run_fleet(fleet, c, name, mode=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per = _fleet_launches(name, over, E, R, mode, dict(ba.LAUNCHES))
+            walls[mode] = wall
+            unit = "lockstep round" if mode == "vmap" else "episode round"
+            line.append(f"{mode} {wall:.3f} s ({wall / E * 1e3:.1f} ms an "
+                        f"episode, launches per {unit} "
+                        f"{ {k: round(v, 3) for k, v in per.items()} })")
+        vm, mp = outs["vmap"], outs["map"]
+        assert set(vm) == set(mp), (name, over)
+        for k in mp:
+            assert vm[k].dtype == mp[k].dtype and torch.equal(vm[k], mp[k]), \
+                (name, over, k)
+        log(f"  {name:9s} {over or ''}: vmap bitwise map on every key "
+            f"({len(mp)}); " + "; ".join(line) + f"; map / vmap "
+            f"{walls['map'] / walls['vmap']:.2f}x"
+            + (f"; SP1 iterations per round, max over the fleet "
+               f"{vm['sp1_iters'].amax(0).tolist()}" if name == "dpbalance"
+               else ""))
 
 
 def phase_beam(card):

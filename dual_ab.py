@@ -15,7 +15,9 @@ in turns, the order of the variants and then its reverse:
   ascent  1000 iterations of the whole ascent in one launch
           (``ba_dual_ascent``, cold step, tol 0), per iteration, for every
           variant that has it, and the package's library at every cluster
-          size (1, 2, 4, 8) as ``pkg@cs``.
+          size (1, 2, 4, 8) as ``pkg@cs``; a copy whose ``ba_dual_ascent``
+          takes no episode count (before the lockstep fleet) is called
+          without one.
 
 Each variant's x and g equal the package's bit for bit, and each ascent's
 lam and count equal the package's (the cluster size moves no result), or
@@ -53,7 +55,14 @@ def _nvcc(src: Path):
     return src.stem, out, time.perf_counter() - t0, r.stdout + r.stderr
 
 
-def _load(path: Path, parent: bool) -> ctypes.CDLL:
+def _fleet_entry(src: Path) -> bool:
+    """Whether the copy's ``ba_dual_ascent`` takes an episode count."""
+    text = src.read_text()
+    head = text[text.find("int ba_dual_ascent("):]
+    return "int E," in head[:head.find(")")]
+
+
+def _load(path: Path, parent: bool, fleet: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for fn, (args, res) in build.SIGNATURES["budget_alloc"].items():
         f = getattr(lib, fn, None)
@@ -63,6 +72,10 @@ def _load(path: Path, parent: bool) -> ctypes.CDLL:
         lib.ba_dual_step.argtypes = list(
             build.SIGNATURES["budget_alloc"]["ba_dual_step"][0][:12]) + \
             [ctypes.c_void_p]
+    elif not fleet:                # ba_dual_ascent before the episode count
+        args = list(build.SIGNATURES["budget_alloc"]["ba_dual_ascent"][0])
+        lib.ba_dual_ascent.argtypes = args[:9] + args[10:]
+    lib.fleet = fleet
     return lib
 
 
@@ -94,9 +107,10 @@ def _ascent(lib, ops, cs):
     lam = torch.empty(K, device="cuda")
     it = torch.empty((), dtype=torch.int32, device="cuda")
     inv_beta = float(torch.tensor(1 / 2.2, dtype=torch.float32))
+    sizes = (1, M, K) if getattr(lib, "fleet", True) else (M, K)
     err = lib.ba_dual_ascent(*[t.data_ptr() for t in ops], lam.data_ptr(),
-                             it.data_ptr(), M, K, inv_beta, ITERS, 0.0, 0, cs,
-                             torch.cuda.current_stream().cuda_stream)
+                             it.data_ptr(), *sizes, inv_beta, ITERS, 0.0, 0,
+                             cs, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ba_dual_ascent failed with cudaError_t {err}")
     return lam, it
@@ -111,7 +125,7 @@ def main() -> int:
     variants = {"pkg": (ba._lib(), False)}
     for src, (stem, path, secs, log) in zip(others, built):
         parent = "ba_dual_ascent" not in src.read_text()
-        variants[stem] = (_load(path, parent), parent)
+        variants[stem] = (_load(path, parent, _fleet_entry(src)), parent)
         c.log(f"built {stem} in {secs:.2f} s" + (" (parent arguments)"
                                                   if parent else ""))
         for line in log.splitlines():

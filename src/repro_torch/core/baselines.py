@@ -13,6 +13,10 @@ all M * N pipelines in one order across analysts.  On a sharded
 ``block_axis`` the sort key is finished across stripes first, so the visit
 order is the same on every stripe, and the sweep batches its cross-stripe
 fits checks (:func:`~repro_torch.core.blockaxis.grant_fits_scan`).
+
+A lockstep fleet's round (a leading episode axis on the round's inputs)
+sorts each episode's pipelines by its own keys and runs one sweep of M * N
+visit steps for the whole fleet; every output gains the episode axis.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
                       key_fn, block_axis: BlockAxis = LOCAL) -> RoundResult:
     """Flatten the pipelines, sort them by ``key_fn`` ascending (stable:
     ties keep index order, as ``jnp.argsort``), grant each that fits."""
-    M, N, K = rnd.demand.shape
+    lead = rnd.fleet_axes(block_axis)
+    M, N, K = rnd.demand.shape[-3:]
     gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
     mu_ij = dm.pipeline_max_share(gamma, block_axis)
     cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
@@ -43,26 +48,29 @@ def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     active = rnd.active & ~dm.infeasible_pipelines(gamma, cap_frac, _FEAS,
                                                    block_axis)
     key = key_fn(rnd, gamma, mu_ij, block_axis)             # [M, N]
-    key = torch.where(active, key, torch.full_like(key, _BIG)).reshape(-1)
-    order = torch.argsort(key, stable=True)
+    key = torch.where(active, key, torch.full_like(key, _BIG)).reshape(
+        *lead, M * N)
+    order = torch.argsort(key, dim=-1, stable=True)
     # pre-permuted into visit order
-    g_ord = gamma.reshape(M * N, K)[order]
-    a_ord = active.reshape(-1)[order]
+    g_ord = torch.take_along_dim(gamma.reshape(*lead, M * N, K),
+                                 order[..., None], dim=-2)
+    a_ord = torch.gather(active.reshape(*lead, M * N), -1, order)
 
     _, taken = grant_fits_scan(g_ord, a_ord, cap_frac, _FEAS, block_axis)
-    sel = torch.zeros_like(a_ord).scatter_(0, order, taken).reshape(M, N)
+    sel = torch.zeros_like(a_ord).scatter_(-1, order, taken).reshape(
+        *lead, M, N)
     x_ij = sel.to(gamma.dtype)
 
     grants = rnd.demand * x_ij[..., None]
-    consumed = seq_dot(rnd.demand.reshape(M * N, K), x_ij.reshape(M * N, 1),
-                       0)
+    consumed = seq_dot(rnd.demand.reshape(*lead, M * N, K),
+                       x_ij.reshape(*lead, M * N, 1), -2)
     leftover = torch.clamp(rnd.capacity - consumed, min=0.0)
 
     # the masked round keeps the optional tier weight, so the Eq 8-10
     # metrics are weighted like DPBalance's (the grant order is not)
     view = dm.AnalystView.build(dataclasses.replace(rnd, active=active),
                                 cfg.tau, block_axis)
-    realized = seq_dot(gamma, x_ij[..., None], 1)
+    realized = seq_dot(gamma, x_ij[..., None], -2)
     mu_real = block_axis.max(torch.amax(realized, dim=-1))
     util = mu_real * view.a_i * view.mask
     return RoundResult(
@@ -73,8 +81,9 @@ def _sequential_grant(rnd: dm.RoundInputs, cfg: SchedulerConfig,
         platform=ut.platform_utility(util, cfg.beta, cfg.effective_lambda(),
                                      view.mask),
         jain=ut.jain_index(util, view.mask),
-        n_allocated=torch.sum(sel).to(torch.int32), leftover=leftover,
-        sp1_violation=torch.zeros((), dtype=gamma.dtype,
+        n_allocated=torch.sum(sel, dim=(-2, -1)).to(torch.int32),
+        leftover=leftover,
+        sp1_violation=torch.zeros(lead, dtype=gamma.dtype,
                                   device=gamma.device),
         # no SP1/SP2 stages: only the realized dominant share is meaningful
         mu_real=mu_real)

@@ -4,6 +4,11 @@ Shapes (padded, fixed per round): M data analysts, N pipelines per analyst,
 K data blocks.  ``demand [M, N, K]`` is the raw privacy demand (epsilon)
 pipeline j of analyst i places on block k; ``capacity [K]`` the remaining
 budget of each block; gamma = demand / the block's total budget.
+
+A lockstep fleet (``run_fleet(mode="vmap")``) puts E episodes' rounds on a
+leading axis of every field (``demand [E, M, N, K]``, ``capacity [E,
+K]``, ...; ``now`` stays one scalar); every helper here reduces along axes
+counted from the end, so it serves one round and a fleet's alike.
 """
 from __future__ import annotations
 
@@ -67,7 +72,9 @@ class DemandView:
 
 @dataclasses.dataclass(frozen=True)
 class RoundInputs:
-    """Everything the scheduler sees for one allocation round.
+    """Everything the scheduler sees for one allocation round, or for one
+    lockstep round of a fleet (a leading episode axis on every field but
+    ``now``).
 
     ``weight`` is the optional per-analyst tier weight (it multiplies
     ``a_i``); ``lam`` the previous round's SP1 duals for a warm start."""
@@ -85,6 +92,18 @@ class RoundInputs:
     @property
     def shape(self):
         return self.demand.shape
+
+    def fleet_axes(self, block_axis: BlockAxis = LOCAL) -> tuple:
+        """The leading fleet axes of this round: ``()`` for one round,
+        ``(E,)`` for a lockstep fleet.  A sharded ``block_axis`` takes no
+        fleet (``NotImplementedError``: ``repro`` runs no sharded
+        fleet)."""
+        lead = tuple(self.demand.shape[:-3])
+        if lead and block_axis.sharded:
+            raise NotImplementedError(
+                "a fleet on a sharded block axis: repro runs no sharded "
+                "fleet")
+        return lead
 
     @classmethod
     def from_numpy(cls, demand, active, arrival, loss, capacity,
@@ -109,7 +128,7 @@ class RoundInputs:
 
 def normalized_demand(demand, budget_total):
     """gamma_ij^<k> = demand / total block budget (Def 5).  [M, N, K]."""
-    return demand / torch.clamp(budget_total, min=_EPS)[None, None, :]
+    return demand / torch.clamp(budget_total, min=_EPS)[..., None, None, :]
 
 
 def pipeline_max_share(gamma, block_axis: BlockAxis = LOCAL):
@@ -122,12 +141,12 @@ def infeasible_pipelines(gamma, cap_frac, slack: float = 1e-6,
     """Pipelines whose demand exceeds remaining capacity on any block (they
     cannot satisfy one-or-more this round).  [M, N] bool."""
     return block_axis.any(
-        torch.any(gamma > cap_frac[None, None, :] + slack, dim=-1))
+        torch.any(gamma > cap_frac[..., None, None, :] + slack, dim=-1))
 
 
 def analyst_demand(gamma, active):
     """gamma_i^<k> = sum_j gamma_ij^<k> over active pipelines.  [M, K]."""
-    return seq_sum(gamma * active[..., None].to(gamma.dtype), 1)
+    return seq_sum(gamma * active[..., None].to(gamma.dtype), -2)
 
 
 def analyst_max_share(gamma_i, block_axis: BlockAxis = LOCAL):
@@ -146,15 +165,15 @@ def analyst_waiting(arrival, active, now):
     """Average delay t_i over an analyst's pending pipelines (Def 10)."""
     act = active.to(arrival.dtype)
     wait = torch.clamp(now - arrival, min=0.0) * act
-    denom = torch.clamp(seq_sum(act, 1), min=1.0)
-    return seq_sum(wait, 1) / denom
+    denom = torch.clamp(seq_sum(act, -1), min=1.0)
+    return seq_sum(wait, -1) / denom
 
 
 def analyst_loss(loss, mu_ij, active):
     """l_i: mu-weighted average of the analyst's matching degrees."""
     w = mu_ij * active.to(mu_ij.dtype)
-    denom = torch.clamp(seq_sum(w, 1), min=_EPS)
-    return seq_dot(w, loss, 1) / denom
+    denom = torch.clamp(seq_sum(w, -1), min=_EPS)
+    return seq_dot(w, loss, -1) / denom
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,5 +198,5 @@ class AnalystView:
         a_i = T_i * l_i
         if rnd.weight is not None:
             a_i = a_i * rnd.weight
-        mask = torch.sum(rnd.active, dim=1) > 0
+        mask = torch.any(rnd.active, dim=-1)
         return cls(gamma_i=g_i, mu_i=mu_i, a_i=a_i, mask=mask)

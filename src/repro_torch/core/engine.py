@@ -6,12 +6,16 @@
 2. :func:`run_episode` applies any scheduler's round function
    (:func:`repro_torch.core.registry.get_round_fn`) round after round on
    the episode's device, carrying ``(capacity, done[, lam])`` --
-   ``repro``'s ``lax.scan`` body written as a Python loop.
+   ``repro``'s ``lax.scan`` body written as a Python loop.  It is the
+   lockstep loop below for a fleet of one.
 3. :func:`run_fleet` runs a stacked fleet of episodes
-   (:func:`stack_episodes`) one episode after another -- ``repro``'s
-   ``map`` mode -- and stacks their rows.  SP1 couples the analysts of one
-   round through block capacity, so a fleet cannot fold into the analyst
-   axis; ``repro``'s lockstep ``vmap`` mode is not ported.
+   (:func:`stack_episodes`) in one of ``repro``'s two modes: ``"vmap"``
+   advances every episode one round at a time together (the round
+   functions take the fleet as a leading axis, so each kernel launch
+   covers the whole fleet), ``"map"`` runs them one after another.  Each
+   episode's rows are the same bits in both modes; ``"auto"`` takes
+   ``"map"`` on the CPU and ``"vmap"`` on the card, as ``repro`` does by
+   backend.
 
 Static-shape convention: every pipeline (i, j) has a fixed slot for the
 whole episode.
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..fp import seq_dot
+from ..fp import seq_dot, tree_sum
 from . import utility as ut
 from .blockaxis import LOCAL, BlockAxis
 from .demand import (AnalystView, DemandView, RoundInputs,
@@ -141,7 +145,9 @@ def round_diagnostics(rnd: RoundInputs, res, cfg: SchedulerConfig,
     """Per-round SP1-level diagnostics (what the fairness-axiom tests
     consume).  Repeats the scheduler's own pipeline masking (pipelines
     demanding exhausted blocks sit the round out), so the per-analyst
-    aggregates are the ones the solver saw."""
+    aggregates are the ones the solver saw.  A fleet's lockstep round
+    gives each with a leading episode axis."""
+    rnd.fleet_axes(block_axis)
     gamma = normalized_demand(rnd.demand, rnd.budget_total)
     cap_frac = rnd.capacity / torch.clamp(rnd.budget_total, min=_EPS)
     unsat = infeasible_pipelines(gamma, cap_frac, block_axis=block_axis)
@@ -157,35 +163,32 @@ def round_diagnostics(rnd: RoundInputs, res, cfg: SchedulerConfig,
         x_analyst=res.x_analyst,
         sp1_violation=res.sp1_violation,
         # realized per-analyst grant in normalized (share) units
-        granted_i=seq_dot(gamma, res.x_pipeline[..., None], 1),
+        granted_i=seq_dot(gamma, res.x_pipeline[..., None], -2),
         cap_frac=cap_frac,
         selected=res.selected,
     )
 
 
-def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
-                scheduler: str = "dpbalance", *, diagnostics: bool = False,
-                validate: bool = True) -> Dict[str, torch.Tensor]:
-    """Run one episode round by round on the episode's device, with the
-    scheduler ``scheduler`` (one of ``registry.SCHEDULER_NAMES``).
-
-    Returns per-round metric tensors ``[R]`` -- ``repro``'s keys, plus
-    ``sp1_iters`` in both SP1 modes (int32 zeros for the baselines, which
-    run no SP1) and ``selected [R, M, N]``; with ``diagnostics`` also
-    :func:`round_diagnostics`' ``[R, ...]`` -- and the ``final_*``
-    episode-end state.  The baselines pass warm duals through unchanged.
-    With ``validate``, capacity conservation and no overdraw are checked
-    after the episode."""
+def _lockstep(ep: Episode, sched_cfg: SchedulerConfig, scheduler: str,
+              diagnostics: bool) -> Dict[str, torch.Tensor]:
+    """Every episode of the fleet ``ep`` (a leading axis E) round by round in
+    lockstep: one round function call a round for the whole fleet, the
+    carry ``(capacity [E, K], done [E, M, N][, lam [E, K]])``.  Returns
+    the rows stacked to ``[E, R, ...]`` and the ``final_*`` state ``[E,
+    ...]``.  Every reduction here is per episode and in a fixed order
+    (:func:`~repro_torch.fp.tree_sum` over the blocks, the cumulative rows
+    added round after round), so an episode's rows do not depend on E."""
     round_fn = get_round_fn(scheduler)
-    ep = episode
-    M, N, K = ep.demand.shape
+    E, M, N, K = ep.demand.shape
     dev = ep.demand.device
     warm = sched_cfg.sp1_warm_start
-    capacity = torch.zeros(K, dtype=torch.float32, device=dev)
-    done = torch.zeros((M, N), dtype=torch.bool, device=dev)
-    lam = torch.ones(K, dtype=torch.float32, device=dev) if warm else None
-    view = DemandView(base=ep.demand)       # the episode's demand is fixed
+    capacity = torch.zeros((E, K), dtype=torch.float32, device=dev)
+    done = torch.zeros((E, M, N), dtype=torch.bool, device=dev)
+    lam = (torch.ones((E, K), dtype=torch.float32, device=dev) if warm
+           else None)
+    view = DemandView(base=ep.demand)       # the episodes' demand is fixed
     rows: Dict[str, list] = {}
+    cum = {}
 
     for r in range(ep.n_rounds):
         if warm:    # freshly minted blocks start from cold duals
@@ -194,7 +197,7 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
         capacity = capacity + ep.block_budget * (ep.block_round == r)
         budget_total = torch.where(created, ep.block_budget,
                                    torch.ones_like(ep.block_budget))
-        active = (ep.spawn_round[:, None] <= r) & ~done
+        active = (ep.spawn_round[..., None] <= r) & ~done
         now = torch.tensor(np.float32(r) * np.float32(ROUND_SECONDS),
                            device=dev)
         rnd = RoundInputs(
@@ -207,7 +210,7 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
         if warm and res.sp1_lam is not None:   # baselines have no solver:
             lam = res.sp1_lam                  # their duals pass through
 
-        mask = torch.sum(active, dim=1) > 0
+        mask = torch.any(active, dim=-1)
         gap = torch.where(created, capacity - res.consumed - res.leftover,
                           torch.zeros_like(capacity))
         out = {
@@ -217,15 +220,19 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
                 res.utility, sched_cfg.beta, mask),
             "round_jain": res.jain,
             "n_allocated": res.n_allocated,
-            "leftover": torch.sum(res.leftover),
+            "leftover": tree_sum(res.leftover, -1),
             # conservation: consumed + leftover == round-start capacity on
             # every live block, and no overdraw
-            "conservation_gap": torch.amax(torch.abs(gap)),
-            "overdraw": torch.amax(res.consumed - capacity),
-            "sp1_iters": (torch.zeros((), dtype=torch.int32, device=dev)
+            "conservation_gap": torch.amax(torch.abs(gap), dim=-1),
+            "overdraw": torch.amax(res.consumed - capacity, dim=-1),
+            "sp1_iters": (torch.zeros(E, dtype=torch.int32, device=dev)
                           if res.sp1_iters is None else res.sp1_iters),
             "selected": res.selected,
         }
+        for k in ("efficiency", "fairness", "fairness_norm"):
+            v = out[f"round_{k}"]
+            cum[k] = cum[k] + v if r else v
+            out[f"cumulative_{k}"] = cum[k]
         if diagnostics:
             out.update(round_diagnostics(rnd, res, sched_cfg))
         for k, v in out.items():
@@ -233,29 +240,54 @@ def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
         capacity = torch.clamp(capacity - res.consumed, min=0.0)
         done = done | res.selected
 
-    ys = {k: torch.stack(v) for k, v in rows.items()}
+    ys = {k: torch.stack(v, dim=1) for k, v in rows.items()}
     ys["final_capacity"] = capacity
     ys["final_done"] = done
-    for k in ("efficiency", "fairness", "fairness_norm"):
-        ys[f"cumulative_{k}"] = torch.cumsum(ys[f"round_{k}"], dim=0)
+    return ys
+
+
+def run_episode(episode: Episode, sched_cfg: SchedulerConfig,
+                scheduler: str = "dpbalance", *, diagnostics: bool = False,
+                validate: bool = True) -> Dict[str, torch.Tensor]:
+    """Run one episode round by round on the episode's device, with the
+    scheduler ``scheduler`` (one of ``registry.SCHEDULER_NAMES``): the
+    lockstep loop for a fleet of one.
+
+    Returns per-round metric tensors ``[R]`` -- ``repro``'s keys, plus
+    ``sp1_iters`` in both SP1 modes (int32 zeros for the baselines, which
+    run no SP1) and ``selected [R, M, N]``; with ``diagnostics`` also
+    :func:`round_diagnostics`' ``[R, ...]`` -- and the ``final_*``
+    episode-end state.  The baselines pass warm duals through unchanged.
+    With ``validate``, capacity conservation and no overdraw are checked
+    after the episode."""
+    one = Episode(**{f: getattr(episode, f)[None] for f in _FIELDS},
+                  n_rounds=episode.n_rounds)
+    ys = {k: v[0] for k, v in _lockstep(one, sched_cfg, scheduler,
+                                        diagnostics).items()}
     if validate:
         check_conservation(ys, scheduler)
     return ys
 
 
-def resolve_fleet_mode(mode: str = "auto") -> str:
-    """The fleet mode :func:`run_fleet` uses for ``mode``: ``"auto"`` and
-    ``"map"`` are ``"map"`` (episodes one after another).  ``"vmap"``
-    raises ``NotImplementedError``: lockstep batching of episodes is not
-    ported (ROADMAP, Queue 1)."""
-    if mode in ("auto", "map"):
-        return "map"
-    if mode == "vmap":
-        raise NotImplementedError(
-            "run_fleet(mode='vmap') is not ported (ROADMAP, Queue 1): SP1 "
-            "couples analysts through block capacity, so episodes cannot "
-            "fold into the analyst axis; use mode='map'")
-    raise ValueError(f"unknown fleet mode {mode!r}; use 'vmap'/'map'/'auto'")
+# run_fleet(mode="auto") by the fleet's device type, repro's table
+# (repro/core/engine.py, _FLEET_MODE_DEFAULT): episodes one after another
+# on the CPU, in lockstep on an accelerator.
+_FLEET_MODE_DEFAULT = {"cpu": "map"}
+_FLEET_MODE_FALLBACK = "vmap"
+
+
+def resolve_fleet_mode(mode: str = "auto", device="cuda") -> str:
+    """The fleet mode :func:`run_fleet` uses for ``mode`` on ``device``
+    (the fleet's; ``repro`` reads its global backend instead): ``"auto"``
+    is ``"map"`` on the CPU and ``"vmap"`` on the card; ``"map"`` and
+    ``"vmap"`` are themselves."""
+    if mode == "auto":
+        return _FLEET_MODE_DEFAULT.get(torch.device(device).type,
+                                       _FLEET_MODE_FALLBACK)
+    if mode not in ("vmap", "map"):
+        raise ValueError(
+            f"unknown fleet mode {mode!r}; use 'vmap'/'map'/'auto'")
+    return mode
 
 
 def _episode_at(fleet: Episode, e: int) -> Episode:
@@ -268,17 +300,25 @@ def run_fleet(fleet: Episode, sched_cfg: SchedulerConfig,
               validate: bool = True,
               mode: str = "auto") -> Dict[str, torch.Tensor]:
     """Run a stacked fleet (leading fleet axis ``E``, from
-    :func:`stack_episodes`) episode by episode on its device; returns
-    :func:`run_episode`'s rows stacked to ``[E, R, ...]`` (``final_*``
-    ``[E, ...]``)."""
-    resolve_fleet_mode(mode)
-    rows: Dict[str, list] = {}
-    for e in range(fleet.demand.shape[0]):
-        out = run_episode(_episode_at(fleet, e), sched_cfg, scheduler,
-                          diagnostics=diagnostics, validate=False)
-        for k, v in out.items():
-            rows.setdefault(k, []).append(v)
-    ys = {k: torch.stack(v) for k, v in rows.items()}
+    :func:`stack_episodes`) on its device; returns :func:`run_episode`'s
+    rows stacked to ``[E, R, ...]`` (``final_*`` ``[E, ...]``).
+
+    ``mode`` (:func:`resolve_fleet_mode`): ``"vmap"`` runs the episodes in
+    lockstep, one round of every episode a step and each kernel launch
+    covering the fleet (on the card a dpbalance round launches each budget
+    kernel as often as one episode's round does); ``"map"`` runs them one
+    after another; ``"auto"`` picks by the fleet's device.  Each episode's
+    rows are bitwise the same in every mode."""
+    if resolve_fleet_mode(mode, fleet.demand.device) == "vmap":
+        ys = _lockstep(fleet, sched_cfg, scheduler, diagnostics)
+    else:
+        rows: Dict[str, list] = {}
+        for e in range(fleet.demand.shape[0]):
+            out = run_episode(_episode_at(fleet, e), sched_cfg, scheduler,
+                              diagnostics=diagnostics, validate=False)
+            for k, v in out.items():
+                rows.setdefault(k, []).append(v)
+        ys = {k: torch.stack(v) for k, v in rows.items()}
     if validate:
         check_conservation(ys, scheduler)
     return ys

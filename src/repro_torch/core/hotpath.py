@@ -9,7 +9,12 @@ selections and masks as int32 0/1.
 
 Unlike ``repro``'s per-analyst functions (batched there by ``vmap``), the
 SP2 sweeps here take the analyst axis as a leading dimension, which the
-kernels make part of their grid.
+kernels make part of their grid.  A lockstep fleet of E episodes
+(``run_fleet(mode="vmap")``) folds into that axis for the sweeps and the
+row-max, and gives the SP1 functions a leading fleet axis (``c [E, M,
+K]``, ``lam [E, K]``, ...), one launch each for the whole fleet; every
+episode's result is bitwise its lone call's.  A sharded axis takes no
+fleet (``RoundInputs.fleet_axes`` refuses one).
 
 A sharded ``block_axis`` (:mod:`repro_torch.shard`) keys the fused SP1
 sweep and the two boost sweeps to ``repro``'s sharded algorithm, as
@@ -36,17 +41,22 @@ def _cpu(*ts) -> bool:
 
 
 def rowmax(g):
-    """mu_i = max_k g_ik.  [M, K] -> [M]."""
-    return ref.rowmax_ref(g) if _cpu(g) else ba.rowmax(g)
+    """mu_i = max_k g_ik.  [M, K] -> [M]; a fleet's [E, M, K] -> [E, M]
+    as one launch over its E * M rows."""
+    if _cpu(g):
+        return ref.rowmax_ref(g)
+    return ba.rowmax(g.reshape(-1, g.shape[-1])).reshape(g.shape[:-1])
 
 
 def matvec(c, v):
-    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M]."""
+    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M]; a fleet's [E, M, K] x
+    [E, K] -> [E, M]."""
     return ref.matvec_ref(c, v) if _cpu(c, v) else ba.matvec(c, v)
 
 
 def matvec_t(c, x):
-    """load_k = sum_i c_ik x_i.  [M, K] x [M] -> [K]."""
+    """load_k = sum_i c_ik x_i.  [M, K] x [M] -> [K]; a fleet's [E, M, K]
+    x [E, M] -> [E, K]."""
     return ref.matvec_t_ref(c, x) if _cpu(c, x) else ba.matvec_t(c, x)
 
 
@@ -113,7 +123,10 @@ def dual_ascent(c, lam, w_pow, beta: float, xcap, mask, cap, cap_safe, *,
                 block_axis: BlockAxis = LOCAL):
     """SP1's dual ascent from ``lam``, :func:`dual_step` sweeps until the
     KKT error is at most ``tol`` or ``max_iters`` ran: ``(lam [K], iters
-    int32 scalar)``.  On the card one launch, no host sync.  On a sharded
+    int32 scalar)``; a fleet's ``(lam [E, K], iters [E])``, each episode
+    with its own count and stop rule.  On the card one launch, no host
+    sync; the twin reads the fleet's KKT errors once an iteration.  On a
+    sharded
     axis the twin's loop with the cross-stripe sums and the KKT error
     finished before the stop rule reads it, so every rank stops at the
     same iteration (:func:`_dual_ascent_sharded`)."""

@@ -17,9 +17,11 @@ set:
 
 Everything is batched over analysts: ``gamma [M, N, K]``, ``mu``/``a``/
 ``active``/``sel`` ``[M, N]``, ``budget [M, K]``; the boost sweeps run as
-one kernel launch over the whole analyst axis.  An exhaustive oracle for
-one analyst at small N lives in :func:`exact_pack` (numpy enumeration,
-boost sweep on ``device``).
+one kernel launch over the whole analyst axis.  Given its budget vector an
+analyst's SP2 is independent of every other, so a lockstep fleet of E
+episodes folds into this axis (E * M rows, episode-major).  An exhaustive
+oracle for one analyst at small N lives in :func:`exact_pack` (numpy
+enumeration, boost sweep on ``device``).
 
 ``block_axis`` (:mod:`repro_torch.core.blockaxis`): on a sharded axis
 ``gamma`` and ``budget`` are block stripes, ``mu`` the global dominant
@@ -166,30 +168,47 @@ def pack_analyst(gamma, mu, a, active, budget, kappa_max: float = 8.0,
 
 
 def pack_all_pruned(gamma, mu, a, active, budget, kappa_max: float = 8.0,
-                    swap_beam: int = 8, block_axis: BlockAxis = LOCAL):
+                    swap_beam: int = 8, block_axis: BlockAxis = LOCAL,
+                    episodes: Optional[int] = None):
     """SP2 for every analyst with the certified swap beam
     (:func:`repro_torch.core.swap.swap_refine_beam`).
 
-    The per-analyst certificates are AND-ed and read on the host once: a
-    certified round finishes on the beam's selections; otherwise the whole
-    round reruns the full compacted sweep.  Only one side runs, never
-    both, and either way the result is :func:`pack_all`'s bit for bit.
+    The per-analyst certificates are AND-ed per episode and read on the
+    host once: a certified episode finishes on the beam's selections; the
+    analysts of every other episode rerun the full compacted sweep.  Only
+    one side runs for an episode, never both, and either way the result is
+    :func:`pack_all`'s bit for bit.
 
-    Returns ``(PackResult, cert_ok scalar bool, margin scalar)``, margin
-    the tightest analyst's certificate margin.  On a sharded axis every
-    quantity behind the certificate is post-collective, so every stripe
-    takes the same side."""
+    ``episodes``: the analyst axis is E episodes' M analysts each
+    (episode-major), and the certificate is per episode.  Returns
+    ``(PackResult, cert_ok, margin)``, margin the tightest analyst's
+    certificate margin: scalars, or ``[E]`` with ``episodes``.  On a
+    sharded axis every quantity behind the certificate is post-collective,
+    so every stripe takes the same side."""
     sel0 = greedy_cover(gamma, mu, active, budget, block_axis)
     sel, ok, margin = _swap.swap_refine_beam(gamma, mu, a, active, sel0,
                                              budget, kappa_max, swap_beam,
                                              block_axis)
-    cert_ok = torch.all(ok)
-    if not bool(cert_ok):                     # the round's one host read
+    E = 1 if episodes is None else int(episodes)
+    cert_ok = torch.all(ok.reshape(E, -1), dim=-1)
+    failed = np.flatnonzero(~cert_ok.cpu().numpy())   # the one host read
+    if failed.size == E:
         sel = _swap.swap_refine_incremental(gamma, mu, a, active, sel0,
                                             budget, kappa_max, block_axis)
+    elif failed.size:
+        m = sel.shape[0] // E
+        rows = torch.as_tensor((failed[:, None] * m + np.arange(m)).ravel(),
+                               device=sel.device)
+        full = _swap.swap_refine_incremental(
+            *(t[rows] for t in (gamma, mu, a, active, sel0, budget)),
+            kappa_max, block_axis)
+        sel = sel.index_copy(0, rows, full)
     pack = _finish_analyst(gamma, mu, a, active, sel0, sel, budget,
                            kappa_max, block_axis)
-    return pack, cert_ok, torch.amin(margin)
+    margin = torch.amin(margin.reshape(E, -1), dim=-1)
+    if episodes is None:
+        return pack, cert_ok[0], margin[0]
+    return pack, cert_ok, margin
 
 
 def _batched_boost_objective(gamma, mu, a, active, sels, budget,

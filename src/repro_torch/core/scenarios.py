@@ -7,7 +7,8 @@ arrival burstiness and analyst churn, per-device budget heterogeneity, and
 demand locality (``repro/core/scenarios.py``'s nine, unchanged).  All
 scenarios share the paper's (M, N, K, R) shape defaults, so their episodes
 stack into one fleet (:func:`make_fleet`) for
-:func:`repro_torch.core.engine.run_fleet`.
+:func:`repro_torch.core.engine.run_fleet`, which on the card runs them in
+lockstep (``mode="auto"`` is ``"vmap"`` there, ``"map"`` on the CPU).
 
     fleet = make_fleet("bursty_arrivals", n_seeds=64)
     out = run_fleet(fleet, SchedulerConfig(beta=2.2), "dpbalance")

@@ -9,7 +9,13 @@ Round flow:
      platform utility (Eq 10), #allocated pipelines, leftover.
 
 :func:`schedule_round` runs on the device of its input tensors; on a CUDA
-device every hot-path sweep is a Hopper kernel.  With a sharded
+device every hot-path sweep is a Hopper kernel.  With a leading episode
+axis on its inputs it runs one lockstep round of a fleet
+(``run_fleet(mode="vmap")``): SP1 keeps the episodes as a batch axis (it
+couples each episode's analysts through its block capacity), SP2 folds
+them into the analyst axis (independent per analyst once SP1 has fixed its
+budget vector), and every kernel launch covers the whole fleet; each
+episode's result is bitwise its lone round's.  With a sharded
 ``block_axis`` (:mod:`repro_torch.shard`) the demand and capacity operands
 are the caller's block stripes; every per-block sweep stays stripe-local
 and only the analyst-level aggregates cross the stripes.
@@ -57,6 +63,8 @@ class SchedulerConfig:
 
 
 class RoundResult(NamedTuple):
+    # one round's shapes; a lockstep fleet's carry a leading episode axis
+    # (a scalar becomes [E])
     x_analyst: torch.Tensor    # [M] SP1 ratios
     x_pipeline: torch.Tensor   # [M, N] final per-pipeline ratios (0 or >= 1)
     selected: torch.Tensor     # [M, N] bool
@@ -88,7 +96,9 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
 
     ``rnd.weight`` (optional [M] tier weight) folds into ``a_i``, so SP1 and
     the Eq 8-10 metrics are tier-weighted; SP2's per-pipeline ``a_ij``
-    stays unweighted (a common factor within one analyst)."""
+    stays unweighted (a common factor within one analyst).  A leading
+    episode axis on ``rnd`` runs a fleet's lockstep round."""
+    lead = rnd.fleet_axes(block_axis)
     gamma = dm.normalized_demand(rnd.demand, rnd.budget_total)
     mu_ij = dm.pipeline_max_share(gamma, block_axis)
 
@@ -102,7 +112,7 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
     view = dm.AnalystView.build(rnd, cfg.tau, block_axis)
 
     # SP1 -- analyst-level alpha-fair allocation.
-    c = (view.gamma_i * view.a_i[:, None] if cfg.weighted_constraints
+    c = (view.gamma_i * view.a_i[..., None] if cfg.weighted_constraints
          else view.gamma_i)
     warm = cfg.sp1_warm_start
     sp1 = alpha_fair_waterfill(
@@ -110,36 +120,40 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
         max_iters=cfg.solver_iters, tol=cfg.solver_tol,
         lam0=rnd.lam if warm else None, adaptive=warm,
         block_axis=block_axis)
-    budget_i = view.gamma_i * sp1.x[:, None]          # [M, K] granted vectors
+    budget_i = view.gamma_i * sp1.x[..., None]        # [M, K] granted vectors
 
     # SP2 -- per-analyst packing; per-pipeline weights a_ij = T(t_ij) l_ij.
+    # A fleet's episodes fold into the analyst axis (E * M rows).
     T_ij = dm.waiting_coefficient(rnd.arrival, rnd.now, cfg.tau)
     a_ij = T_ij * rnd.loss
+    M, N, K = rnd.demand.shape[-3:]
+    sp2 = [t.reshape(-1, *t.shape[len(lead) + 1:])
+           for t in (gamma, mu_ij, a_ij, active, budget_i)]
     if cfg.swap_beam > 0 and cfg.refine and cfg.incremental_swap:
         pack, cert_ok, cert_margin = pack_all_pruned(
-            gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
-            cfg.swap_beam, block_axis)
+            *sp2, cfg.kappa_max, cfg.swap_beam, block_axis,
+            episodes=lead[0] if lead else None)
     else:
-        pack = pack_all(gamma, mu_ij, a_ij, active, budget_i, cfg.kappa_max,
-                        cfg.refine, cfg.incremental_swap, block_axis)
+        pack = pack_all(*sp2, cfg.kappa_max, cfg.refine,
+                        cfg.incremental_swap, block_axis)
         cert_ok = cert_margin = None
+    pack = type(pack)(*(t.reshape(*lead, M, *t.shape[1:]) for t in pack))
 
     x_ij = pack.x_ij
-    M, N, K = rnd.demand.shape
     grants = rnd.demand * x_ij[..., None]             # epsilon units
-    consumed = seq_dot(rnd.demand.reshape(M * N, K), x_ij.reshape(M * N, 1),
-                       0)
+    consumed = seq_dot(rnd.demand.reshape(*lead, M * N, K),
+                       x_ij.reshape(*lead, M * N, 1), -2)
     # Safety: never overdraw physical capacity (numerical guard).
     over = consumed > fma(rnd.capacity, 1.0 + 1e-6, 1e-7)
     scale = torch.where(over, rnd.capacity / torch.clamp(consumed, min=_EPS),
                         torch.ones_like(consumed))
-    grant_scale = block_axis.min(torch.amin(scale))
-    grants = grants * grant_scale
-    consumed = consumed * grant_scale
+    grant_scale = block_axis.min(torch.amin(scale, dim=-1))
+    grants = grants * grant_scale[..., None, None, None]
+    consumed = consumed * grant_scale[..., None]
     leftover = torch.clamp(rnd.capacity - consumed, min=0.0)
 
     # Metrics -- realized dominant share per analyst after SP2 + returns.
-    realized = seq_dot(gamma, x_ij[..., None], 1)               # [M, K]
+    realized = seq_dot(gamma, x_ij[..., None], -2)              # [M, K]
     mu_real = block_axis.max(torch.amax(realized, dim=-1))      # mu_i * x_i
     util = mu_real * view.a_i * view.mask
     return RoundResult(
@@ -150,7 +164,7 @@ def schedule_round(rnd: dm.RoundInputs, cfg: SchedulerConfig,
         platform=ut.platform_utility(util, cfg.beta, cfg.effective_lambda(),
                                      view.mask),
         jain=ut.jain_index(util, view.mask),
-        n_allocated=torch.sum(pack.selected).to(torch.int32),
+        n_allocated=torch.sum(pack.selected, dim=(-2, -1)).to(torch.int32),
         leftover=leftover, sp1_violation=sp1.violation,
         sp1_iters=sp1.iters, mu_real=mu_real, sp2_objective=pack.objective,
         sp2_water=pack.water, swap_accepted=pack.swapped,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..fp import tree_sum
 from .demand import RoundInputs
 from .engine import ROUND_SECONDS, generate_episode, run_episode
 from .registry import get_scheduler
@@ -201,7 +202,7 @@ def run_simulation(scheduler: str, sim_cfg: SimConfig,
         jain.append(float(res.jain))
         nalloc.append(int(res.n_allocated))
         # the same reduction (and summation order) as the engine's
-        leftover.append(float(torch.sum(res.leftover)))
+        leftover.append(float(tree_sum(res.leftover, -1)))
         sim.step_time()
     eff, fair, fnorm = (np.asarray(eff, np.float32),
                         np.asarray(fair, np.float32),

@@ -8,10 +8,18 @@ Conventions:
   both beta regimes (beta < 1: f in (1, m]; beta > 1: f in (-inf, -m]).
   beta = 1 is a pole of Eq 9 and raises.
 * Platform utility Psi_lambda = f_beta * E^lambda (Eq 10).
+
+Every metric reduces the last (analyst) axis, so ``util [E, M]`` gives one
+value per episode of a lockstep fleet.  The analyst-axis sums run in index
+order (:func:`~repro_torch.fp.seq_sum`, XLA's order for a short axis) and
+the powers through :func:`~repro_torch.fp.pow_runs`, so an episode's
+metrics are bitwise its lone round's on the CPU and on the card alike.
 """
 from __future__ import annotations
 
 import torch
+
+from ..fp import pow_runs, seq_sum
 
 _EPS = 1e-12
 
@@ -29,7 +37,7 @@ def dominant_efficiency(util, mask=None):
     """Eq 8: platform dominant efficiency = sum of analyst utilities."""
     if mask is not None:
         util = util * mask
-    return torch.sum(util, dim=-1)
+    return seq_sum(util, -1)
 
 
 def dominant_fairness(util, beta: float, mask=None):
@@ -44,20 +52,20 @@ def dominant_fairness(util, beta: float, mask=None):
         mask = _ones_mask(util)
     mask = mask.to(util.dtype)
     u = util * mask
-    total = torch.clamp(torch.sum(u, dim=-1, keepdim=True), min=_EPS)
+    total = torch.clamp(seq_sum(u, -1)[..., None], min=_EPS)
     share = torch.clamp(u / total, 1e-6, 1.0)
-    powered = torch.where(mask > 0, share ** (1.0 - beta),
+    powered = torch.where(mask > 0, pow_runs(share, 1.0 - beta, 1),
                           torch.zeros_like(share))
-    s = torch.sum(powered, dim=-1)
+    s = seq_sum(powered, -1)
     sgn = float(torch.sign(torch.tensor(1.0 - beta)))
-    return sgn * torch.clamp(s, min=_EPS) ** (1.0 / beta)
+    return sgn * pow_runs(torch.clamp(s, min=_EPS), 1.0 / beta, 0)
 
 
 def platform_utility(util, beta: float, lam: float, mask=None):
     """Eq 10: Psi = f_beta(x) * (sum_i U_i)^lambda."""
     f = dominant_fairness(util, beta, mask)
     e = torch.clamp(dominant_efficiency(util, mask), min=_EPS)
-    return torch.sign(f) * torch.abs(f) * e ** lam
+    return torch.sign(f) * torch.abs(f) * pow_runs(e, lam, 0)
 
 
 def alpha_fair_objective(util, beta: float, mask=None):
@@ -93,8 +101,8 @@ def jain_index(util, mask=None):
     m = mask.to(util.dtype)
     u = util * m
     n = torch.clamp(torch.sum(m, dim=-1), min=1.0)
-    num = torch.sum(u, dim=-1) ** 2
-    den = torch.clamp(n * torch.sum(u * u, dim=-1), min=_EPS)
+    num = seq_sum(u, -1) ** 2
+    den = torch.clamp(n * seq_sum(u * u, -1), min=_EPS)
     return num / den
 
 

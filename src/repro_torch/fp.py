@@ -20,6 +20,9 @@ the port reproduces both rules wherever a value can reach one of them:
   :func:`fma`).
 * :func:`tree_sum` reduces a long axis the way XLA:CPU's tree reduction
   rewriter does: windows of 32, each summed in index order.
+* :func:`pow_runs` is ``x ** p`` whose every run of trailing elements
+  rounds as it would in a tensor of its own, so a batched call equals a
+  call per run bit for bit on the CPU too.
 
 All are device-agnostic elementwise tensor code, so the CPU and the CUDA
 runs of the port round identically too.  Long axes (K blocks) keep
@@ -91,3 +94,36 @@ def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
         x = seq_sum(x.reshape(*x.shape[:-1], -1, _TREE_WINDOW), -1)
     return seq_sum(x, -1)
+
+
+def pow_runs(x: torch.Tensor, p: float, run_dims: int) -> torch.Tensor:
+    """``x ** p`` with each run of the trailing ``run_dims`` dims (each
+    element where ``run_dims`` is 0) rounded as ``run ** p`` alone is.
+
+    On the CPU, torch's ``pow`` by a scalar takes a vector path over
+    whole chunks of a contiguous run and a scalar path over its tail, and
+    the two round an ulp apart; so the same element can round differently
+    as part of ``[E, M]`` and of its own ``[M]``.  Each run is given its
+    own row here (a padded stride, so no two rows coalesce into one run),
+    which puts every element where the run alone would.  On the card, and
+    for a single run, this is ``x ** p``."""
+    n = 1
+    for s in x.shape[x.dim() - run_dims:]:
+        n *= s
+    if x.device.type != "cpu" or x.numel() <= n:
+        return x ** p
+    rows = x.reshape(-1, n)
+    # one row a call past 32768 elements, where torch splits the range
+    # over threads at offsets that need not fall on a row boundary
+    step = max(1, _POW_GRAIN // n)
+    out = []
+    for r0 in range(0, rows.shape[0], step):
+        part = rows[r0:r0 + step]
+        buf = part.new_empty(part.shape[0], n + 1)
+        buf[:, :n] = part
+        out.append(buf[:, :n] ** p)
+    return torch.cat(out).reshape(x.shape)
+
+
+# torch's elementwise grain: a range this long or shorter runs on one thread
+_POW_GRAIN = 32768

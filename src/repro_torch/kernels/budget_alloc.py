@@ -8,6 +8,12 @@ it allocates the outputs with ``torch.empty``, launches the kernel on
 else raises: there is no fallback.  :mod:`repro_torch.core.hotpath` sends
 CPU tensors to the plain twins instead.
 
+:func:`matvec`, :func:`matvec_t` and :func:`dual_ascent` also take a
+fleet of E same-shape episodes stacked on a leading axis (``repro``'s
+``run_fleet(mode="vmap")``), in one launch, each episode's result bitwise
+a lone launch's on its operands; :func:`rowmax` and the boost sweeps take
+a fleet folded into their row axis.
+
 Card figures quoted below are the H100 SXM's published peaks: 3.35 TB/s
 of HBM bandwidth and 67 TFLOP/s of float32 outside the tensor cores.
 """
@@ -104,6 +110,17 @@ def row_split(M: int, K: int) -> int:
     return cs
 
 
+def _fleet(t: torch.Tensor, rank: int) -> int:
+    """Episodes of a launch whose one-episode operand ``t`` has ``rank``
+    dims: 1 without a leading fleet axis, else its length."""
+    if t.dim() == rank:
+        return 1
+    if t.dim() != rank + 1:
+        raise ValueError(f"expected {rank} dims or a leading fleet axis, "
+                         f"got shape {tuple(t.shape)}")
+    return t.shape[0]
+
+
 def rowmax(gamma: torch.Tensor) -> torch.Tensor:
     """mu_i = max_k gamma_ik.  [M, K] -> [M].
 
@@ -129,7 +146,8 @@ def rowmax(gamma: torch.Tensor) -> torch.Tensor:
 
 
 def matvec(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M].
+    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M], or a fleet's [E, M, K]
+    x [E, K] -> [E, M] in one launch.
 
     Replaces ``repro/kernels/budget_alloc.py:matvec``.  Bound: bytes (c
     read once, 2 flops per 4 bytes; v is shared by the rows and stays in
@@ -137,35 +155,43 @@ def matvec(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     blocks per row; an FMA chain per thread over its 16-byte loads (eight
     in flight a thread), warp and block tree sums, and the cs partials
     added in rank order by the cluster's block 0.  Within 1e-5 relative
-    of the twin, and bitwise from launch to launch (cs depends on M and K
-    alone)."""
+    of the twin, and bitwise from launch to launch.  A fleet's E * M rows
+    run on E * M clusters of one episode's ``row_split(M, K)`` blocks, row
+    r reading episode r // M's v; each row is cut on its episode's own
+    16-byte grid, so an episode's y is bitwise a lone launch's."""
     _on_cuda(c, v)
-    M, K = c.shape
-    _check(c, "c", _F32, (M, K))
-    _check(v, "v", _F32, (K,))
-    y = torch.empty(M, dtype=_F32, device=c.device)
+    E = _fleet(c, 2)
+    M, K = c.shape[-2:]
+    lead = tuple(c.shape[:-2])
+    _check(c, "c", _F32, lead + (M, K))
+    _check(v, "v", _F32, lead + (K,))
+    y = torch.empty(lead + (M,), dtype=_F32, device=c.device)
     cs = row_split(M, K)
     _raise_on(_lib().ba_matvec(c.data_ptr(), v.data_ptr(), y.data_ptr(),
-                               M, K, cs, _stream(c)), "ba_matvec")
+                               E, M, K, cs, _stream(c)), "ba_matvec")
     LAUNCHES["matvec"] += 1
-    LAST_GRID["matvec"] = (cs, M)
+    LAST_GRID["matvec"] = (cs, E * M)
     return y
 
 
 def matvec_t(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """load_k = sum_i c_ik x_i.  [M, K] x [M] -> [K].
+    """load_k = sum_i c_ik x_i.  [M, K] x [M] -> [K], or a fleet's [E, M,
+    K] x [E, M] -> [E, K] in one launch.
 
     Replaces ``repro/kernels/budget_alloc.py:matvec_t`` (there ``matvec``
     on a materialised ``c.T``).  Bound: bytes.  Design: one thread per
     column, rows 0..M-1 in order with one FMA each -- coalesced across the
-    warp, no transpose -- which is also the reference's rounding order."""
+    warp, no transpose -- which is also the reference's rounding order;
+    grid y is the episode.  Bitwise equal to the twin."""
     _on_cuda(c, x)
-    M, K = c.shape
-    _check(c, "c", _F32, (M, K))
-    _check(x, "x", _F32, (M,))
-    load = torch.empty(K, dtype=_F32, device=c.device)
+    E = _fleet(c, 2)
+    M, K = c.shape[-2:]
+    lead = tuple(c.shape[:-2])
+    _check(c, "c", _F32, lead + (M, K))
+    _check(x, "x", _F32, lead + (M,))
+    load = torch.empty(lead + (K,), dtype=_F32, device=c.device)
     _raise_on(_lib().ba_matvec_t(c.data_ptr(), x.data_ptr(),
-                                 load.data_ptr(), M, K, _stream(c)),
+                                 load.data_ptr(), E, M, K, _stream(c)),
               "ba_matvec_t")
     LAUNCHES["matvec_t"] += 1
     return load
@@ -187,22 +213,25 @@ def dual_split(M: int, K: int) -> int:
 
 
 def _dual_operands(c, lam, w_pow, xcap, mask, cap, cap_safe, beta):
-    """Check the operands of a dual launch; ``(M, K, cs, 1/beta as
+    """Check the operands of a dual launch, one episode's or a fleet's
+    (a leading axis on every operand); ``(E, M, K, cs, 1/beta as
     float32)``."""
     _on_cuda(c, lam, w_pow, xcap, mask, cap, cap_safe)
-    M, K = c.shape
-    _check(c, "c", _F32, (M, K))
+    E = _fleet(c, 2)
+    M, K = c.shape[-2:]
+    lead = tuple(c.shape[:-2])
+    _check(c, "c", _F32, lead + (M, K))
     for t, n in ((lam, "lam"), (cap, "cap"), (cap_safe, "cap_safe")):
-        _check(t, n, _F32, (K,))
+        _check(t, n, _F32, lead + (K,))
     for t, n in ((w_pow, "w_pow"), (xcap, "xcap")):
-        _check(t, n, _F32, (M,))
-    _check(mask, "mask", _I32, (M,))
+        _check(t, n, _F32, lead + (M,))
+    _check(mask, "mask", _I32, lead + (M,))
     rows = _lib().ba_dual_smem_limit() // 4
     if M > rows:
         raise ValueError(f"dual_step keeps x in shared memory: M={M} rows "
                          f"exceed {rows}")
     inv_beta = float(torch.tensor(1.0 / float(beta), dtype=_F32))
-    return M, K, dual_split(M, K), inv_beta
+    return E, M, K, dual_split(M, K), inv_beta
 
 
 def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
@@ -221,9 +250,13 @@ def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     through distributed shared memory, then the row-ordered FMA load of
     each block's stripe of columns, 8 columns a thread (16-byte loads where
     the rows are 16-byte aligned) -- so g is bitwise the twin's given the
-    same x, and x agrees to 1e-5 relative."""
-    M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
-                                        cap_safe, beta)
+    same x, and x agrees to 1e-5 relative.  One episode only: the
+    ascent (:func:`dual_ascent`) is what a fleet launches."""
+    if c.dim() != 2:
+        raise ValueError(f"dual_step takes one episode's [M, K], got shape "
+                         f"{tuple(c.shape)}")
+    _, M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
+                                           cap_safe, beta)
     x = torch.empty(M, dtype=_F32, device=c.device)
     g = torch.empty(K, dtype=_F32, device=c.device)
     _raise_on(_lib().ba_dual_step(
@@ -237,7 +270,9 @@ def dual_step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
 def dual_ascent(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float, *,
                 adaptive: bool, max_iters: int, tol: float):
     """The whole SP1 dual ascent from ``lam``: ``(lam [K], iters)``, with
-    ``iters`` an int32 scalar on the card.  Never synchronises.
+    ``iters`` an int32 scalar on the card.  Never synchronises.  A fleet
+    (every operand with a leading axis E) gives ``(lam [E, K], iters
+    [E])`` from one launch.
 
     Each iteration is :func:`dual_step`'s sweep, then ``lam = clamp(lam *
     exp(eta * g), 1e-12, 1e12)`` and the KKT error ``max(max(g, 0), lam
@@ -255,20 +290,38 @@ def dual_ascent(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float, *,
     combined through distributed shared memory, lam updated in place in
     the output.  Bound per iteration: 4 * M * K operations; c (in L2 at
     the scheduler's sizes) is read twice an iteration by the cluster's cs
-    SMs alone, and their L2 reads set the time at M=32, K=16384."""
-    M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
-                                        cap_safe, beta)
-    lam_out = torch.empty(K, dtype=_F32, device=c.device)
-    iters = torch.empty((), dtype=_I32, device=c.device)
+    SMs alone, and their L2 reads set the time at M=32, K=16384.
+
+    A fleet's ascents are one launch of E such clusters, cluster e on
+    episode e's operands with its own step size, count and stop rule, as
+    under ``jax.vmap`` of the loop; an episode's lam and count are a lone
+    launch's on its operands.  The launch lasts as long as its longest
+    ascent, and past :func:`dual_waves`' one wave the clusters queue."""
+    E, M, K, cs, inv_beta = _dual_operands(c, lam, w_pow, xcap, mask, cap,
+                                           cap_safe, beta)
+    lead = tuple(c.shape[:-2])
+    lam_out = torch.empty(lead + (K,), dtype=_F32, device=c.device)
+    iters = torch.empty(lead, dtype=_I32, device=c.device)
     tol32 = float(torch.tensor(float(tol), dtype=_F32))
     _raise_on(_lib().ba_dual_ascent(
         c.data_ptr(), lam.data_ptr(), w_pow.data_ptr(), xcap.data_ptr(),
         mask.data_ptr(), cap.data_ptr(), cap_safe.data_ptr(),
-        lam_out.data_ptr(), iters.data_ptr(), M, K, inv_beta,
+        lam_out.data_ptr(), iters.data_ptr(), E, M, K, inv_beta,
         int(max_iters), tol32, int(bool(adaptive)), cs, _stream(c)),
         "ba_dual_ascent")
     LAUNCHES["dual_step"] += 1
     return lam_out, iters
+
+
+def dual_waves(E: int, M: int, K: int) -> int:
+    """Waves a fleet's ascent launch of E episodes of [M, K] runs in: E
+    over the clusters of ``dual_split(M, K)`` blocks the card holds at
+    once (``cudaOccupancyMaxActiveClusters``), rounded up."""
+    n = _lib().ba_dual_max_clusters(M, dual_split(M, K))
+    _raise_on(-min(n, 0), "ba_dual_max_clusters")
+    if n == 0:
+        raise RuntimeError(f"no dual cluster fits the card at M={M}")
+    return _cdiv(E, n)
 
 
 def _cdiv(a: int, b: int) -> int:

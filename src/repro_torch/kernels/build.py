@@ -34,11 +34,13 @@ _L, _Z = ctypes.c_longlong, ctypes.c_size_t
 SIGNATURES = {
     "budget_alloc": {
         "ba_rowmax": ((_P, _P, _I, _I, _I, _P), _I),
-        "ba_matvec": ((_P, _P, _P, _I, _I, _I, _P), _I),
-        "ba_matvec_t": ((_P, _P, _P, _I, _I, _P), _I),
+        "ba_matvec": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+        "ba_matvec_t": ((_P, _P, _P, _I, _I, _I, _P), _I),
         "ba_dual_step": ((_P,) * 9 + (_I, _I, _F, _I, _P), _I),
-        "ba_dual_ascent": ((_P,) * 9 + (_I, _I, _F, _I, _F, _I, _I, _P), _I),
+        "ba_dual_ascent": ((_P,) * 9 + (_I, _I, _I, _F, _I, _F, _I, _I,
+                                        _P), _I),
         "ba_dual_smem_limit": ((), _Z),
+        "ba_dual_max_clusters": ((_I, _I), _I),
         "ba_boost_sweep": ((_P,) * 5 + (_I,) * 4 + (_F, _I, _I, _P), _I),
         "ba_boost_smem_limit": ((), _Z),
     },

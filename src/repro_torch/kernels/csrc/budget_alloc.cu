@@ -26,6 +26,13 @@
 // it into block rank 0's shared memory (distributed shared memory); rank 0
 // combines the cs partials in rank order.  One launch, no workspace, one
 // exposed cluster barrier, a fixed combine order.
+//
+// A fleet of E episodes (repro's run_fleet(mode="vmap")) runs its SP1 in
+// lockstep: matvec, matvec_t and dual_kernel's ascent take E stacked
+// operands ([E, M, K], [E, K], ...) in one launch, and each episode's
+// result is bitwise a lone launch's on its own operands (same cluster size,
+// same order of every sum, whatever E is).  rowmax and the boost sweep take
+// the fleet folded into their row axis (E*M rows) as they stand.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -90,15 +97,23 @@ struct RowChunk {
   int h, nvec, v0, v1;        // head length, float4s in the row, own run
 };
 
-__device__ __forceinline__ RowChunk row_chunk(const float* row, int K,
-                                              int rank, int cs) {
+// The chunks of a row whose head (the scalars before its first 16-byte
+// boundary) is h floats long.
+__device__ __forceinline__ RowChunk row_chunk_at(int h, int K, int rank,
+                                                 int cs) {
   RowChunk c;
-  c.h = (int)((16 - (reinterpret_cast<size_t>(row) & 15)) & 15) >> 2;
-  if (c.h > K) c.h = K;
+  c.h = h > K ? K : h;
   c.nvec = (K - c.h) >> 2;
   c.v0 = (int)((long long)rank * c.nvec / cs);
   c.v1 = (int)((long long)(rank + 1) * c.nvec / cs);
   return c;
+}
+
+__device__ __forceinline__ RowChunk row_chunk(const float* row, int K,
+                                              int rank, int cs) {
+  return row_chunk_at(
+      (int)((16 - (reinterpret_cast<size_t>(row) & 15)) & 15) >> 2, K, rank,
+      cs);
 }
 
 // A split row's cluster meets twice at a hardware cluster barrier.  Every
@@ -174,12 +189,12 @@ __global__ void rowmax_kernel(const float* __restrict__ g,
 }
 
 // acc += sum over float4s j in [v0, v1) of c4[j] . v at the same elements,
-// one __fmaf_rn per element, in order.  v4 is v at the row's first aligned
-// element; kVecV says whether it is 16-byte aligned too (it is for every
-// row when K % 4 == 0), else v is read as scalars.  v is shared by all
-// rows and comes from L2.
-template <bool kVecV>
-__device__ __forceinline__ float dot_run(const float4* __restrict__ c4,
+// one __fmaf_rn per element, in order.  c4 and v4 are c and v at the run's
+// first element; kVecC and kVecV say whether each is 16-byte aligned (else
+// it is read as scalars: the same elements, the same FMAs).  v is shared by
+// all rows of an episode and comes from L2.
+template <bool kVecC, bool kVecV>
+__device__ __forceinline__ float dot_run(const float* __restrict__ c4,
                                          const float* __restrict__ v4,
                                          int v0, int v1, float acc) {
   for (int j = v0 + (int)threadIdx.x; j < v1; j += kUnrollDot * kThreads) {
@@ -189,7 +204,11 @@ __device__ __forceinline__ float dot_run(const float4* __restrict__ c4,
       const int jj = j + u * kThreads;
       a[u] = b[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (jj < v1) {
-        a[u] = __ldg(c4 + jj);
+        if constexpr (kVecC)
+          a[u] = __ldg(reinterpret_cast<const float4*>(c4) + jj);
+        else
+          a[u] = make_float4(__ldg(c4 + 4 * jj), __ldg(c4 + 4 * jj + 1),
+                             __ldg(c4 + 4 * jj + 2), __ldg(c4 + 4 * jj + 3));
         if constexpr (kVecV)
           b[u] = __ldg(reinterpret_cast<const float4*>(v4) + jj);
         else
@@ -210,45 +229,62 @@ __device__ __forceinline__ float dot_run(const float4* __restrict__ c4,
   return acc;
 }
 
-// y_i = sum_k c_ik v_k.  Grid as rowmax_kernel's.  Per thread an FMA
-// chain over its elements (head, its float4s, tail), then warp and block
-// tree sums, then the cs partials added in rank order: within 1e-5
-// relative of the twin, bitwise from launch to launch (cs depends only on
-// M and K).
+// y_i = sum_k c_ik v_k for the E*M rows of a fleet, row i of episode i / M
+// reading that episode's v.  Grid as rowmax_kernel's.  A row is cut on its
+// episode's own 16-byte grid (its head is the floats before the next
+// multiple of 4 counted from the episode's first element), so the chunks
+// and every sum's order depend on (M, K, cs) alone: an episode's y is
+// bitwise a lone launch's on its operands, wherever they sit.  Per thread
+// an FMA chain over its elements (head, its float4s, tail), then warp and
+// block tree sums, then the cs partials added in rank order: within 1e-5
+// relative of the twin.
 __global__ void matvec_kernel(const float* __restrict__ c,
                               const float* __restrict__ v,
-                              float* __restrict__ y, int K) {
+                              float* __restrict__ y, int M, int K) {
   __shared__ float sh[32];
   __shared__ float parts[kMaxCluster];
   const int cs = (int)cg::this_cluster().num_blocks();
   if (cs > 1) cluster_arrive_relaxed();
   const int rank = (int)cg::this_cluster().block_rank();
   const size_t i = blockIdx.x / cs;
+  const size_t e = i / M, il = i - e * M;
   const float* row = c + i * K;
-  const RowChunk ch = row_chunk(row, K, rank, cs);
-  const float4* c4 = reinterpret_cast<const float4*>(row + ch.h);
-  const float* v4 = v + ch.h;
+  const float* ve = v + e * K;
+  const RowChunk ch = row_chunk_at((int)((4 - (il * K & 3)) & 3), K, rank,
+                                   cs);
+  const float* c4 = row + ch.h;
+  const float* v4 = ve + ch.h;
+  const bool vec_c = (reinterpret_cast<size_t>(c4) & 15) == 0;
+  const bool vec_v = (reinterpret_cast<size_t>(v4) & 15) == 0;
   const int t = threadIdx.x;
   float acc = 0.0f;
-  if (rank == 0 && t < ch.h) acc = __fmaf_rn(row[t], v[t], acc);
-  acc = (reinterpret_cast<size_t>(v4) & 15) == 0
-            ? dot_run<true>(c4, v4, ch.v0, ch.v1, acc)
-            : dot_run<false>(c4, v4, ch.v0, ch.v1, acc);
+  if (rank == 0 && t < ch.h) acc = __fmaf_rn(row[t], ve[t], acc);
+  if (vec_c)
+    acc = vec_v ? dot_run<true, true>(c4, v4, ch.v0, ch.v1, acc)
+                : dot_run<true, false>(c4, v4, ch.v0, ch.v1, acc);
+  else
+    acc = vec_v ? dot_run<false, true>(c4, v4, ch.v0, ch.v1, acc)
+                : dot_run<false, false>(c4, v4, ch.v0, ch.v1, acc);
   const int k_tail = ch.h + 4 * ch.nvec + t;
   if (rank == cs - 1 && k_tail < K)
-    acc = __fmaf_rn(row[k_tail], v[k_tail], acc);
+    acc = __fmaf_rn(row[k_tail], ve[k_tail], acc);
   acc = block_reduce<SumOp>(acc, sh);
   cluster_combine<SumOp>(acc, parts, y + i);
 }
 
 // load_k = sum_i c_ik x_i: one thread per column k, rows 0..M-1 in order,
 // one FMA each.  Neighbouring threads read neighbouring columns of a row,
-// so every load is coalesced and no transpose is materialised.
+// so every load is coalesced and no transpose is materialised.  Grid y is
+// the episode of a fleet: its c, x and load lie E-strided.
 __global__ void matvec_t_kernel(const float* __restrict__ c,
                                 const float* __restrict__ x,
                                 float* __restrict__ load, int M, int K) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  const size_t e = blockIdx.y;
+  c += e * M * K;
+  x += e * M;
+  load += e * K;
   float acc = 0.0f;
   for (int i = 0; i < M; ++i) acc = __fmaf_rn(c[(size_t)i * K + k], x[i], acc);
   load[k] = acc;
@@ -297,6 +333,11 @@ __global__ void matvec_t_kernel(const float* __restrict__ c,
 // Remote stores into a block's shared memory happen only between barriers
 // that the block takes part in, so no block exits while another still
 // writes to it.
+// A fleet's ascent is one launch of E such clusters, cluster e on episode
+// e's operands (E-strided) with its own step, count and stop rule; no
+// cluster reads another's memory, so each episode's lam and count are a
+// lone launch's.  Clusters that do not fit on the card at once run in
+// waves (ba_dual_max_clusters).
 // Loads in flight a thread: kDualRows rows x kDualSteps columns in step 1,
 // kDualLoadRows rows (half as many with 4-byte loads) x kDualCols columns
 // in step 3; each depth the fastest tried on an H100.
@@ -320,7 +361,7 @@ struct DualArgs {
   float* g;
   float* lam;         // ascent mode: lam [K] and the iteration count; null
   int* iters;         //   in step mode
-  int M, K;
+  int M, K;           // one episode's rows and columns
   float inv_beta;
   int max_iters;
   float tol;
@@ -454,14 +495,32 @@ __device__ __forceinline__ float load_step(const DualArgs& a,
   return part;
 }
 
+// Episode e's operands: every pointer moved past the e episodes before it.
+__device__ __forceinline__ DualArgs episode_args(DualArgs a, size_t e) {
+  const size_t M = a.M, K = a.K;
+  a.c += e * M * K;
+  a.lam_in += e * K;
+  a.w_pow += e * M;
+  a.xcap += e * M;
+  a.mask += e * M;
+  a.cap += e * K;
+  a.cap_safe += e * K;
+  if (a.x != nullptr) a.x += e * M;
+  if (a.g != nullptr) a.g += e * K;
+  if (a.lam != nullptr) a.lam += e * K;
+  if (a.iters != nullptr) a.iters += e;
+  return a;
+}
+
 __global__ void __launch_bounds__(kThreads)
-dual_kernel(DualArgs a) {
+dual_kernel(DualArgs fleet) {
   extern __shared__ float xs[];                  // x, all M rows
   __shared__ float sh[kDualRows][32];
   __shared__ float parts[kMaxCluster];           // the blocks' KKT parts
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  const DualArgs a = episode_args(fleet, blockIdx.x / cs);
   const int t = threadIdx.x, M = a.M, K = a.K;
   // this block's columns [k0, k1): its share of the Q quads of 4 columns
   const int Q = (K + 3) / 4;
@@ -961,13 +1020,14 @@ int launch_clusters(void (*kernel)(Params...), long long blocks, int cs,
   return (int)cudaGetLastError();
 }
 
-// One cluster of cs blocks running dual_kernel, x in M * 4 bytes of
-// dynamic shared memory.
-int launch_dual(const DualArgs& a, int cs, cudaStream_t stream) {
-  if (a.M < 0 || a.K < 0) return (int)cudaErrorInvalidValue;
+// E clusters of cs blocks running dual_kernel, one an episode, x in M * 4
+// bytes of dynamic shared memory a block.
+int launch_dual(const DualArgs& a, int E, int cs, cudaStream_t stream) {
+  if (a.M < 0 || a.K < 0 || E < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)a.M * sizeof(float);
   if (smem > kSmemXMax) return (int)cudaErrorInvalidValue;
-  return launch_clusters(dual_kernel, cs, cs, smem, stream, a);
+  return launch_clusters(dual_kernel, (long long)E * cs, cs, smem, stream,
+                         a);
 }
 
 // Dynamic shared memory of a sweep block with its leftover stripes in it,
@@ -1016,17 +1076,23 @@ int ba_rowmax(const float* g, float* out, int M, int K, int cs,
                          g, out, K);
 }
 
-int ba_matvec(const float* c, const float* v, float* y, int M, int K, int cs,
-              cudaStream_t stream) {
-  return launch_clusters(matvec_kernel, (long long)M * cs, cs, 0, stream,
-                         c, v, y, K);
+// A fleet of E episodes: c [E, M, K], v [E, K] -> y [E, M] (E = 1: one
+// matrix); cs is one episode's row_split(M, K), so each episode's y is a
+// lone launch's.
+int ba_matvec(const float* c, const float* v, float* y, int E, int M, int K,
+              int cs, cudaStream_t stream) {
+  if (E < 0 || M < 0 || K < 0) return (int)cudaErrorInvalidValue;
+  return launch_clusters(matvec_kernel, (long long)E * M * cs, cs, 0, stream,
+                         c, v, y, M, K);
 }
 
-int ba_matvec_t(const float* c, const float* x, float* load, int M, int K,
-                cudaStream_t stream) {
-  if (K > 0)
-    matvec_t_kernel<<<cdiv(K, kThreads), kThreads, 0, stream>>>(c, x, load,
-                                                                M, K);
+// c [E, M, K], x [E, M] -> load [E, K].
+int ba_matvec_t(const float* c, const float* x, float* load, int E, int M,
+                int K, cudaStream_t stream) {
+  if (E < 0 || M < 0 || K < 0 || E > 65535) return (int)cudaErrorInvalidValue;
+  if (K > 0 && E > 0)
+    matvec_t_kernel<<<dim3(cdiv(K, kThreads), E), kThreads, 0, stream>>>(
+        c, x, load, M, K);
   return (int)cudaGetLastError();
 }
 
@@ -1039,24 +1105,54 @@ int ba_dual_step(const float* c, const float* lam, const float* w_pow,
                  float inv_beta, int cs, cudaStream_t stream) {
   const DualArgs a = {c, lam, w_pow, xcap, mask, cap, cap_safe, x, g,
                       nullptr, nullptr, M, K, inv_beta, 0, 0.0f, 0};
-  return launch_dual(a, cs, stream);
+  return launch_dual(a, 1, cs, stream);
 }
 
-// The whole SP1 dual ascent from lam0 = lam: lam_out [K] and *iters.  tol
-// is float32; adaptive is 0 (step 0.5 / (1 + 0.001 it)) or 1 (x1.2 while
-// the KKT error does not rise, else x0.7, kept in [0.2, 1.5]).
+// The whole SP1 dual ascent from lam0 = lam for each of E episodes: c [E,
+// M, K], lam, cap and cap_safe [E, K], w_pow, xcap and mask [E, M] ->
+// lam_out [E, K] and iters [E].  tol is float32; adaptive is 0 (step 0.5 /
+// (1 + 0.001 it)) or 1 (x1.2 while the KKT error does not rise, else x0.7,
+// kept in [0.2, 1.5]).
 int ba_dual_ascent(const float* c, const float* lam, const float* w_pow,
                    const float* xcap, const int* mask, const float* cap,
-                   const float* cap_safe, float* lam_out, int* iters, int M,
-                   int K, float inv_beta, int max_iters, float tol,
+                   const float* cap_safe, float* lam_out, int* iters, int E,
+                   int M, int K, float inv_beta, int max_iters, float tol,
                    int adaptive, int cs, cudaStream_t stream) {
   const DualArgs a = {c, lam, w_pow, xcap, mask, cap, cap_safe, nullptr,
                       nullptr, lam_out, iters, M, K, inv_beta, max_iters,
                       tol, adaptive};
-  return launch_dual(a, cs, stream);
+  return launch_dual(a, E, cs, stream);
 }
 
 size_t ba_dual_smem_limit(void) { return kSmemXMax; }
+
+// How many dual_kernel clusters of cs blocks (x of M rows in shared memory)
+// the card runs at once (cudaOccupancyMaxActiveClusters); a fleet of more
+// episodes runs its ascents in waves.  Negative: the query's cudaError_t.
+int ba_dual_max_clusters(int M, int cs) {
+  const size_t smem = (size_t)M * sizeof(float);
+  int err = (int)cudaFuncSetAttribute(
+      dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return -err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = (int)cudaOccupancyMaxActiveClusters(&n, dual_kernel, &cfg);
+  if (err != 0) {
+    cudaGetLastError();
+    return -err;
+  }
+  return n;
+}
 
 // kappa_cap is kappa_max - 1, rounded to float32 by the caller.  cs (1,
 // 2, 4 or 8) and T (1..8) are the caller's (sweep_split).  The leftover

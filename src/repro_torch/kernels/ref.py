@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..fp import fma, fma_exact, seq_dot
+from ..fp import fma, fma_exact, pow_runs, seq_dot
 
 DUAL_EPS = 1e-12
 BOOST_EPS = 1e-9
@@ -56,14 +56,27 @@ def rowmax_ref(gamma: torch.Tensor) -> torch.Tensor:
 
 
 def matvec_ref(c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M]."""
-    return c.float() @ v.float()
+    """y_i = sum_k c_ik v_k.  [M, K] x [K] -> [M], or per episode of a
+    fleet, [E, M, K] x [E, K] -> [E, M].
+
+    One ``c @ v`` per episode, each on operands of their own: the CPU's
+    BLAS may sum in an order that depends on where its operands sit in
+    memory, so an episode's slice is copied out first and rounds as a
+    lone call on fresh tensors does."""
+    c, v = c.float(), v.float()
+    if c.dim() == 2:
+        return c @ v
+    M, K = c.shape[-2:]
+    return torch.stack([ci.clone() @ vi.clone() for ci, vi in
+                        zip(c.reshape(-1, M, K), v.reshape(-1, K))]
+                       ).reshape(c.shape[:-1])
 
 
 def matvec_t_ref(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """load_k = sum_i c_ik x_i, rows 0..M-1 in order, one FMA each (what
-    XLA emits for ``x @ c``).  [M, K] x [M] -> [K]."""
-    return seq_dot(c.float(), x.float()[:, None], 0)
+    XLA emits for ``x @ c``).  [M, K] x [M] -> [K], or per episode [E, M,
+    K] x [E, M] -> [E, K]."""
+    return seq_dot(c.float(), x.float()[..., None], -2)
 
 
 def dual_residual_ref(c, x, cap, cap_safe) -> torch.Tensor:
@@ -75,18 +88,20 @@ def dual_step_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float):
     """One SP1 dual-ascent sweep (``repro``'s ``dual_step_ref``):
     ``x_i = min((w_pow_i / max(sum_k c_ik lam_k, 1e-12))^(1/beta), xcap_i)``
     where ``mask`` is set, else 0, and ``g`` from :func:`dual_residual_ref`.
-    Returns ``(x [M], g [K])``."""
+    Returns ``(x [M], g [K])``; with a leading fleet axis ``(x [E, M], g
+    [E, K])``, each episode's bitwise its lone call's."""
     denom = torch.clamp(matvec_ref(c, lam), min=DUAL_EPS)
-    x = (w_pow.float() / denom) ** (1.0 / float(beta))
+    x = pow_runs(w_pow.float() / denom, 1.0 / float(beta), 1)
     x = torch.minimum(x, xcap.float())
     x = torch.where(mask.bool(), x, torch.zeros_like(x))
     return x, dual_residual_ref(c, x, cap, cap_safe)
 
 
 def kkt_error(lam_new, g) -> torch.Tensor:
-    """KKT error max(primal infeasibility, complementary slackness)."""
-    feas = torch.amax(torch.clamp(g, min=0.0))
-    comp = torch.amax(lam_new * torch.abs(g))
+    """KKT error max(primal infeasibility, complementary slackness) over
+    the last axis (one per episode of a fleet)."""
+    feas = torch.amax(torch.clamp(g, min=0.0), dim=-1)
+    comp = torch.amax(lam_new * torch.abs(g), dim=-1)
     return torch.maximum(feas, comp)
 
 
@@ -112,31 +127,49 @@ def dual_ascent_ref(c, lam, w_pow, xcap, mask, cap, cap_safe, beta: float,
                     step=dual_step_ref):
     """The SP1 dual ascent from ``lam`` (``repro``'s ``lax.while_loop`` in
     ``alpha_fair_waterfill``): ``(lam [K], iters)``, ``iters`` an int32
-    scalar.
+    scalar; over a leading fleet axis ``(lam [E, K], iters [E])``.
 
     Each iteration is one ``step`` (:func:`dual_step_ref`, or the card's
     ``dual_step`` launcher to replay the per-iteration loop there), then
     ``lam = clamp(lam * exp(eta * g), 1e-12, 1e12)`` and the KKT error;
     the stop rule ``it < max_iters and error > tol`` is checked on the host
-    every iteration (one device sync each), so the iteration count is
-    ``repro``'s exactly.  The step size is host arithmetic in float32 with
-    ``repro``'s rounding: ``0.5 / (1 + 0.001 it)``, or with ``adaptive``
-    0.5 grown x1.2 while the error does not rise, else shrunk x0.7, kept
-    in [0.2, 1.5] (:func:`decay_eta`, :func:`adapt_eta`)."""
+    every iteration (one device sync each, for all episodes at once), so
+    the iteration count is ``repro``'s exactly.  The step size is host
+    arithmetic in float32 with ``repro``'s rounding: ``0.5 / (1 + 0.001
+    it)``, or with ``adaptive`` 0.5 grown x1.2 while the error does not
+    rise, else shrunk x0.7, kept in [0.2, 1.5] (:func:`decay_eta`,
+    :func:`adapt_eta`).
+
+    Episodes of a fleet keep their own count, step and stop rule, as under
+    ``jax.vmap`` of the loop: an episode that has stopped is frozen (its
+    lam and count no longer change) while the others iterate, so each
+    episode's lam and count are those of its lone loop."""
     F32 = np.float32
     tol32 = float(F32(tol))
-    it, viol = 0, float("inf")
-    eta, viol_prev = F32(0.5), F32(np.inf)
-    while it < max_iters and viol > tol32:
+    batch = tuple(c.shape[:-2])
+    n = int(np.prod(batch, dtype=np.int64))
+    it = np.zeros(n, np.int64)
+    run = np.full(n, max_iters > 0)
+    eta = np.full(n, F32(0.5), F32)
+    viol_prev = np.full(n, np.inf, F32)
+    while run.any():
         _, g = step(c, lam, w_pow, xcap, mask, cap, cap_safe, beta)
-        if not adaptive:
-            eta = decay_eta(it)
-        lam = torch.clamp(lam * torch.exp(float(eta) * g), 1e-12, 1e12)
-        viol = kkt_error(lam, g).item()
+        if not adaptive:      # every running episode is at iteration it
+            eta[run] = decay_eta(int(it[run][0]))
+        new = torch.clamp(
+            lam * torch.exp(torch.as_tensor(eta, device=lam.device)
+                            .reshape(*batch, 1) * g), 1e-12, 1e12)
+        viol = kkt_error(new, g).reshape(-1).cpu().numpy()
+        lam = torch.where(torch.as_tensor(run, device=lam.device)
+                          .reshape(*batch, 1), new, lam)
+        it[run] += 1
         if adaptive:
-            eta, viol_prev = adapt_eta(eta, viol, viol_prev)
-        it += 1
-    return lam, torch.tensor(it, dtype=torch.int32, device=lam.device)
+            for e in np.flatnonzero(run):
+                eta[e], viol_prev[e] = adapt_eta(eta[e], float(viol[e]),
+                                                 viol_prev[e])
+        run &= (it < max_iters) & (viol.astype(np.float64) > tol32)
+    return lam, torch.as_tensor(it.astype(np.int32).reshape(batch),
+                                device=lam.device)
 
 
 def boost_sweep_ref(g_ord, sel, left, kappa_max: float, reduce=None):

@@ -6,8 +6,10 @@
 
 The counterpart of ``examples/scenario_sweep.py``: for each scenario it
 pre-generates ``--seeds`` episodes, stacks them on a fleet axis and runs
-every scheduler over the fleet (:func:`repro_torch.core.run_fleet`,
-episodes one after another), then prints the same table: final
+every scheduler over the fleet (:func:`repro_torch.core.run_fleet` with
+``mode="auto"``: the episodes in lockstep on the card, one round of every
+episode at a time, and one after another on the CPU, as ``repro`` picks
+by backend), then prints the same table: final
 cumulative efficiency and normalized fairness (mean and spread over
 seeds), mean Jain index, pipelines allocated per episode and the fleet's
 wall time.  The default is the paper's §VI geometry (100 devices, 6 x 25
@@ -24,7 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..core import (SCENARIOS, SCHEDULER_NAMES, SchedulerConfig, make_fleet,
-                    run_fleet)
+                    resolve_fleet_mode, run_fleet)
 
 SMOKE = dict(n_devices=4, n_analysts=3, pipelines_per_analyst=6,
              n_rounds=4)
@@ -47,7 +49,8 @@ def sweep(scenario: str, n_seeds: int, sched_cfg: SchedulerConfig,
     gen_s = time.perf_counter() - t0
     M, N, K = fleet.demand.shape[1:]
     log(f"\n=== {scenario}: {n_seeds} seeds, M={M} N={N} K={K} "
-        f"R={fleet.n_rounds} on {dev} (generated in {gen_s:.1f}s) ===")
+        f"R={fleet.n_rounds} on {dev}, fleet mode "
+        f"{resolve_fleet_mode('auto', dev)} (generated in {gen_s:.1f}s) ===")
     log(f"{'scheduler':<10} {'efficiency':>18} {'fairness_norm':>18} "
         f"{'jain':>12} {'alloc':>8} {'wall':>8}")
     res = {}

@@ -37,6 +37,7 @@ import torch
 
 from .. import resolve_device
 from ..core import utility as ut
+from ..fp import tree_sum
 from ..core.blockaxis import LOCAL, BlockAxis
 from ..core.demand import DemandView, RoundInputs
 from ..core.engine import round_diagnostics
@@ -207,7 +208,9 @@ def _chunk_metrics(state: ServiceState, mint_ops, tick0: int, *,
                 res.utility, cfg.beta, mask),
             "round_jain": res.jain,
             "n_allocated": res.n_allocated,
-            "leftover": block_axis.sum(torch.sum(res.leftover)),
+            # in the engine's order (tree_sum), so a wrap-free service
+            # replays run_episode's rows bit for bit
+            "leftover": block_axis.sum(tree_sum(res.leftover, -1)),
             # realized epsilon granted per analyst row this tick -- the
             # cost-cap / per-tenant spend signal (host maps rows to
             # tenants at the boundary)

@@ -251,10 +251,11 @@ def plan_mints(tick0: int, n_ticks: int, block_slots: int,
 
     ``slot_fn`` maps global block ids to ring slots (default ``bid % B``).
     Any layout whose slot is reused exactly by ``bid + B`` works — the
-    sharded service uses a striped layout so each mesh shard owns the
-    ``bid % n_shards`` stripe (the sharded plane, not ported yet).  ``page_shards``
-    > 0 additionally attaches a :class:`PagePlan` over that many shard
-    stripes to retire chunks (None when the hot window spills)."""
+    sharded service (:mod:`repro_torch.shard`) uses a striped layout so
+    each stripe owns the ``bid % n_shards`` blocks
+    (:func:`repro_torch.shard.state.ring_slots`).  ``page_shards`` > 0
+    additionally attaches a :class:`PagePlan` over that many shard stripes
+    to retire chunks (None when the hot window spills)."""
     n_devices = device_budget.shape[0]
     bpr = n_devices * blocks_per_device
     B = block_slots

@@ -19,6 +19,9 @@ from repro.core import scheduler as jsch
 from repro.core import simulation as jsim
 from repro_torch.core import engine as teng
 from repro_torch.core import scheduler as tsch
+from repro_torch.core.blockaxis import BlockAxis
+from repro_torch.core.demand import RoundInputs
+from repro_torch.core.registry import get_round_fn
 from repro_torch.core import simulation as tsim
 
 SMALL = dict(n_devices=4, n_analysts=3, pipelines_per_analyst=6, n_rounds=4)
@@ -100,12 +103,20 @@ def test_validate_raises_on_overdraw():
 
 
 def test_outside_the_slice_raises():
-    """Every scheduler and the diagnostics run in the port now
-    (``test_torch_fleet.py``); a lockstep ``vmap`` fleet is still outside
-    it, and an unknown scheduler is an error."""
+    """Every scheduler, the diagnostics and both fleet modes run in the
+    port now (``test_torch_fleet.py``, ``test_torch_fleet_vmap.py``); a
+    fleet on a sharded block axis is outside it (``repro`` runs no
+    sharded fleet), and an unknown scheduler is an error."""
     ep = teng.generate_episode(tsim.SimConfig(seed=0, **SMALL), device="cpu")
-    fleet = teng.stack_episodes([ep])
-    with pytest.raises(NotImplementedError):
-        teng.run_fleet(fleet, tsch.SchedulerConfig(), "dpf", mode="vmap")
+    fleet = teng.stack_episodes([ep, ep])
+    rnd = RoundInputs(
+        demand=fleet.demand, active=torch.ones(fleet.loss.shape, dtype=bool),
+        arrival=fleet.arrival, loss=fleet.loss,
+        capacity=fleet.block_budget, budget_total=fleet.block_budget,
+        now=torch.tensor(0.0))
+    for name in ("dpbalance", "dpf"):
+        with pytest.raises(NotImplementedError, match="sharded"):
+            get_round_fn(name)(rnd, tsch.SchedulerConfig(),
+                               BlockAxis("shard"))
     with pytest.raises(ValueError):
         teng.run_episode(ep, tsch.SchedulerConfig(), "fifo")

@@ -453,7 +453,7 @@ def test_each_tick_calls_every_budget_twin(monkeypatch, scheduler, warm):
     assert calls == want
 
 
-def test_checkpoint_methods_raise_not_implemented(tmp_path):
+def test_checkpoint_methods_save_and_load(tmp_path):
     """The checkpoint methods are ported: none raises
     ``NotImplementedError`` any more, and a save then a load into a fresh
     service returns the saved tick (the full contract is
