@@ -169,7 +169,23 @@ Phases (each raises on failure; nothing is caught):
      elastic hand-off 1 -> 2 -> 1 stripes within RTOL_SERVICE of the
      unsharded run and 2 -> 2 bitwise; checkpoint ms (sync, async until
      wait returns), restore ms and bytes, ticks/s and collectives per
-     tick at one and two stripes, beside the card's name and power limit.
+     tick at one and two stripes, beside the card's name and power limit;
+ 22. training: (a) the scan's backward kernel (rglru_scan_bwd, no Pallas
+     counterpart) bitwise its twin's backward at B=4 S=2048 D=2560 with
+     h0, B=1 S=2048, the ragged B=3 S=1000 D=2597 with h0 and the
+     training microbatch's B=2 S=128, with times beside the twin's and the
+     bound; (b) repro_torch.launch.train.run at its defaults -- full
+     flaas-100m, 20 steps of B=8 x 128, noise 0.2, checkpoints every 10
+     -- then the step-20 checkpoint deleted and steps 10-19 rerun from
+     step 10: metrics, parameters and optimizer state bitwise; one step
+     traced (wall, card busy share, top kernels); one step without noise
+     card vs CPU (metrics within RTOL_TRAIN, parameters within Adam's 2
+     lr); (c) recurrentgemma-2b at full width, depth cut to one group
+     (RG_TRAIN): two train steps, losses finite, exactly rec layers x
+     microbatches scan and backward launches a step, one microbatch's
+     gradients card vs CPU within GRAD_RTOL_TRAIN of the largest |g|;
+     (d) a DP example-mode step on flaas-100m, rownorms and
+     clip_accumulate launched once each.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -242,6 +258,25 @@ RG_FLASH_CASES = [("rg-serve", 4, 32, True, 2048),
 RG_DECODE_CASES = [("rg-serve-33", 4, 48, 33), ("rg-serve-47", 4, 48, 47),
                    ("rg-2048", 4, 2048, 2048), ("rg-1000", 4, 2048, 1000)]
 P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
+# phase 22: the scan's backward kernel, which replaces no Pallas kernel:
+# repro takes the gradient of linear_scan by autodiff of associative_scan
+RG_BWD_REPLACES = "src/repro/models/recurrent.py:64"
+RG_BWD_NOTE = ("no Pallas counterpart: the gradient of "
+               "src/repro/models/recurrent.py:64 linear_scan (autodiff of "
+               "associative_scan)")
+# recurrentgemma-2b trained at full width with its depth cut to one
+# pattern group (rec, rec, local): 1,508,697,600 float32 parameters, 1.31 B
+# of them the 256,000-word embedding and LM head, 53 GiB at the peak of a
+# step with AdamW and DP state (all 26 layers would need ~85 GB); batch 4
+# of 128 tokens, two microbatches of 2, so the scan runs at B=2 S=128
+RG_TRAIN = dict(n_layers=3, batch=4, seq=128, steps=2)
+# (name, B, S, D, with h0): phase 14's long prefill, one sequence's,
+# the ragged direct-path shape, the training microbatch's
+RG_BWD_CASES = [("2k", 4, 2048, 2560, True), ("b1-2k", 1, 2048, 2560, False),
+                ("ragged", 3, 1000, 2560 + 37, True),
+                ("train", 2, 128, 2560, False)]
+RTOL_TRAIN = 1e-5              # phase 22: card vs CPU loss, relative
+GRAD_RTOL_TRAIN = 1e-4         # card vs CPU gradients, of the largest |g|
 REPLACES = {
     "rowmax": "src/repro/kernels/budget_alloc.py:41",
     "matvec": "src/repro/kernels/budget_alloc.py:75",
@@ -1084,6 +1119,17 @@ def _host_ops(fn):
     rows = sorted(((e.key, e.self_cpu_time_total / 1e3)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     return wall, sum(e.cpu_time_total for e in top) / 1e3, len(top), rows
+
+
+def _op_counts(fn):
+    """Calls of each event (ops, CUDA runtime calls, kernels) during
+    ``fn`` from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()}
 
 
 def _log_host_ops(decode, steps):
@@ -2711,6 +2757,275 @@ def phase_checkpoint_shard(smi):
                 for S in (1, 2)} for k in REPLACES}
 
 
+def _twin_scan_bwd(a, h, g, h0):
+    """The twin's backward (``_TwinScan.backward``) on the same operands."""
+    from repro_torch.kernels import rg_lru
+    ctx = type("Ctx", (), {"saved_tensors": (a, h, h0)})()
+    return rg_lru._TwinScan.backward(ctx, g)
+
+
+def _scan_bwd_cases(card):
+    """Phase 22 (a): the backward kernel bitwise its twin at RG_BWD_CASES,
+    times beside the twin's and the bound; the JSON row."""
+    from repro_torch.kernels import rg_lru
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    row = {"max_abs_err": 0.0, "by_shape": {}}
+    for label, B, S, D, with_h0 in RG_BWD_CASES:
+        a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.499 + 0.5
+        b = torch.randn((B, S, D), generator=gen, device="cuda")
+        g = torch.randn((B, S, D), generator=gen, device="cuda")
+        h0 = torch.randn((B, D), generator=gen, device="cuda") \
+            if with_h0 else None
+        h = rg_lru.rglru_scan_cuda(a, b, h0)
+        got = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+        again = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+        want = _twin_scan_bwd(a, h, g, h0)
+        torch.cuda.synchronize()
+        shape = f"B={B} S={S} D={D} h0={with_h0} ({label})"
+        err = 0.0
+        for part, x, y, w in zip(("dL/da", "dL/db", "dL/dh0"), got, again,
+                                 want):
+            assert (x is None) == (y is None) == (w is None), part
+            if x is None:
+                continue
+            if not torch.equal(x, y):
+                raise AssertionError(f"rglru_scan_bwd {shape} {part}: not "
+                                     "bitwise stable from launch to launch")
+            err = max(err, check(f"rglru_scan_bwd {shape} {part}", x, w,
+                                 True))
+        del got, again, want
+        ms = time_ms(lambda: rg_lru.rglru_scan_bwd_cuda(a, h, g, h0), 20)
+        plain = time_ms(lambda: _twin_scan_bwd(a, h, g, h0), 1, 3)
+        nbytes = 4 * (5 * B * S * D + (2 * B * D if with_h0 else 0))
+        bnd, by = bound_ms(nbytes, 3 * B * S * D)
+        log(f"  rglru_scan_bwd   {shape}: bitwise (dL/da, dL/db"
+            + (", dL/dh0" if with_h0 else "") + f"), stable  kernel "
+            f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
+            f"{card}), share {bnd / ms:.3f}; no single PyTorch call "
+            "computes it")
+        nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=None, shape=shape)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["by_shape"][label] = nums
+        if label == "2k":                  # the JSON line's shape
+            row.update(nums)
+        del a, b, g, h0, h
+        torch.cuda.empty_cache()
+    return row
+
+
+def _states_bitwise(label, a, b):
+    """Raise unless two training states hold equal parameters, optimizer
+    leaves and step."""
+    assert torch.equal(a["params"].flat, b["params"].flat), label
+    for part in ("m", "v", "master"):
+        for k, t in a["opt"][part].items():
+            assert torch.equal(t, b["opt"][part][k]), (label, part, k)
+    assert int(a["step"]) == int(b["step"]), label
+
+
+def _batch_on(cfg, i, batch, seq, device):
+    """``synth_tokens`` step ``i`` as the launcher feeds it."""
+    from repro_torch.data.pipeline import synth_tokens
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in synth_tokens(i, batch, seq, cfg.vocab).items()}
+
+
+def _launcher_runs(card):
+    """Phase 22 (b): the launcher at its defaults, resumed from step 10,
+    one traced step; returns the configuration."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import train_step
+    root = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    t0 = time.perf_counter()
+    full = launcher.run(ckpt=str(root), log=None)
+    full_s = time.perf_counter() - t0
+    cfg, tcfg = full["cfg"], full["tcfg"]
+    assert cfg.name == "flaas-100m" and full["checkpoints"] == [10, 20]
+    assert full["state"]["params"].flat.numel() == P_FLAAS
+    losses = [r["loss"] for r in full["records"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    shutil.rmtree(root / "step_0000000020")
+    rest = launcher.run(steps=10, ckpt=str(root), log=None)
+    assert rest["resumed_from"] == 10
+
+    def strip(records):
+        return [{k: v for k, v in r.items() if k != "wall_s"}
+                for r in records]
+    assert strip(rest["records"]) == strip(full["records"][10:]), "resume"
+    _states_bitwise("resume", rest["state"], full["state"])
+    walls = [r["wall_s"] * 1e3 for r in full["records"][1:]]
+    log(f"  launch/train.run defaults (flaas-100m, {P_FLAAS} parameters, "
+        f"20 steps, B=8 x 128, 2 microbatches, noise 0.2, checkpoints "
+        f"every 10): {full_s:.2f} s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; ms per step (host clock, steps 1-19) median "
+        f"{statistics.median(walls):.2f}, range {min(walls):.2f}-"
+        f"{max(walls):.2f}; resumed at step 10 and rerun to 20: metrics, "
+        f"parameters and optimizer state bitwise ({card})")
+    state = rest["state"]
+    del full, rest
+    shutil.rmtree(root)
+    b = _batch_on(cfg, 20, 8, 128, "cuda")
+    train_step(state, b, cfg, tcfg)                      # warm
+    busy, rows, wall = _device_kernels(
+        lambda: train_step(state, b, cfg, tcfg))
+    log(f"  one traced train step: wall {wall:.2f} ms, card busy "
+        f"{busy:.2f} ms (share {busy / wall:.4f}); top kernels (ms): "
+        + ", ".join(f"{k[:40]} {ms:.2f}" for k, ms in rows[:6]))
+    wall, in_ops, n_ops, rows = _host_ops(
+        lambda: train_step(state, b, cfg, tcfg))
+    launches = sum(n for k, n in _op_counts(
+        lambda: train_step(state, b, cfg, tcfg)).items()
+        if k.startswith("cudaLaunchKernel"))
+    log(f"  host profile of one train step: wall {wall:.2f} ms, inside "
+        f"PyTorch ops {in_ops:.2f} ms in {n_ops} top-level ops, "
+        f"{launches} kernel launches; top ops by self time (ms): "
+        + ", ".join(f"{k[:40]} {ms:.2f}" for k, ms in rows[:8]))
+    return cfg
+
+
+def _train_card_vs_cpu(cfg):
+    """Phase 22 (b): one step without noise on the card and on the CPU
+    from the same state."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import make_state, train_step
+    quiet = launcher.train_config(cfg, 8, 0.0, 1.0)
+    host = make_state(0, cfg, quiet, device="cpu")
+    dev = make_state(0, cfg, quiet, device="cuda")
+    with torch.no_grad():
+        dev["params"].flat.copy_(host["params"].flat)
+        for k, t in host["opt"]["master"].items():
+            dev["opt"]["master"][k].copy_(t)
+    out = {}
+    for name, st in (("cuda", dev), ("cpu", host)):
+        t0 = time.perf_counter()
+        st, m = train_step(st, _batch_on(cfg, 0, 8, 128, name), cfg, quiet)
+        out[name] = (st["params"].flat.cpu(),
+                     {k: float(v) for k, v in m.items()},
+                     time.perf_counter() - t0)
+    (pc, mc, _), (ph, mh, host_s) = out["cuda"], out["cpu"]
+    for k in mh:
+        assert abs(mc[k] - mh[k]) <= RTOL_TRAIN * abs(mh[k]), (k, mc, mh)
+    # Adam's first step moves a parameter by lr * g / (|g| + eps): a
+    # gradient that rounds to the other sign moves it by at most 2 lr
+    pmax = float(ph.abs().max())
+    perr = float((pc - ph).abs().max())
+    assert perr <= 2 * quiet.lr + 1e-6 * pmax, perr
+    n_off = int(((pc - ph).abs() > 1e-6 * pmax).sum())
+    log(f"  one step without noise, card vs CPU: loss {mc['loss']:.6f} / "
+        f"{mh['loss']:.6f}, metrics within {RTOL_TRAIN} relative; "
+        f"parameters max err {perr:.3e} (bound 2 lr = {2 * quiet.lr:g}), "
+        f"{n_off} of {ph.numel()} beyond 1e-6 of max|p|; CPU step "
+        f"{host_s:.2f} s")
+
+
+def _train_hybrid():
+    """Phase 22 (c): recurrentgemma-2b at full width, one group; returns
+    the scan launches of RG_TRAIN["steps"] steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rg_lru
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import Transformer
+    from repro_torch.training import make_loss_fn, make_state, train_step
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b"),
+                              n_layers=RG_TRAIN["n_layers"])
+    n_rec = [k for k, _ in cfg.layer_specs()].count("rec")
+    tcfg = launcher.train_config(cfg, RG_TRAIN["batch"], 0.2, 1.0)
+    n_micro, steps = tcfg.dp.n_micro, RG_TRAIN["steps"]
+    state = make_state(0, cfg, tcfg, device="cuda")
+    batches = [_batch_on(cfg, i, RG_TRAIN["batch"], RG_TRAIN["seq"], "cuda")
+               for i in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    walls, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg, tcfg)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    scan = {**rg_lru.LAUNCHES, **rg_lru.BWD_LAUNCHES}
+    expect = n_rec * n_micro * steps
+    assert scan == {"rglru_scan": expect, "rglru_scan_bwd": expect}, scan
+    assert all(math.isfinite(x) for x in losses), losses
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  recurrentgemma-2b, {cfg.n_layers} layers ({n_rec} rec), "
+        f"{state['params'].flat.numel()} parameters, B={RG_TRAIN['batch']} "
+        f"x {RG_TRAIN['seq']}, {n_micro} microbatches, noise 0.2: losses "
+        f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+        f"{[round(w, 2) for w in walls]}; scan launches {scan} ({n_rec} rec "
+        f"x {n_micro} microbatches x {steps} steps each); peak device "
+        f"memory {peak:.2f} GiB")
+    # one microbatch's gradients, card against CPU, from the same values
+    model = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    host = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        host.flat.copy_(model.flat)
+    loss_fn = make_loss_fn(cfg)
+    mb = {k: v[:RG_TRAIN["batch"] // n_micro] for k, v in batches[0].items()}
+    grads = []
+    for mdl in (model, host):
+        t0 = time.perf_counter()
+        bb = {k: v.to(mdl.flat.device) for k, v in mb.items()}
+        g = torch.autograd.grad(loss_fn(mdl, bb), list(mdl.parameters()))
+        grads.append(torch.cat([x.reshape(-1) for x in g]).cpu())
+        del g
+    gmax = float(grads[1].abs().max())
+    gerr = float((grads[0] - grads[1]).abs().max())
+    assert gerr <= GRAD_RTOL_TRAIN * gmax, (gerr, gmax)
+    log(f"  one microbatch's gradients card vs CPU: max err {gerr:.3e} of "
+        f"max|g| {gmax:.3e} (bound {GRAD_RTOL_TRAIN} x max|g|); CPU "
+        f"{time.perf_counter() - t0:.2f} s")
+    return scan
+
+
+def _train_example_mode(cfg):
+    """Phase 22 (d): one DP example-mode step on flaas-100m."""
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.training import (DPConfig, TrainConfig, make_state,
+                                      train_step)
+    tcfg = TrainConfig(optimizer="adamw", param_dtype="float32",
+                       dp=DPConfig(clip=1.0, noise_multiplier=0.2,
+                                   mode="example"))
+    state = make_state(1, cfg, tcfg, device="cuda")
+    b = _batch_on(cfg, 0, 8, 128, "cuda")
+    dp.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = train_step(state, b, cfg, tcfg)
+    loss = float(m["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(dp.LAUNCHES)
+    assert launches == {"rownorms": 1, "clip_accumulate": 1}, launches
+    assert math.isfinite(loss) and 0.0 <= float(m["clip_frac"]) <= 1.0
+    log(f"  DP example mode, flaas-100m, B=8 x 128 (8 per-example "
+        f"gradients of {P_FLAAS}): loss {loss:.4f}, clip_frac "
+        f"{float(m['clip_frac']):.3f}, {wall:.2f} ms (host clock, first "
+        f"step); launches {launches}")
+    dp.reset_launches()
+
+
+def phase_train(card):
+    log("[22] training: the scan's backward kernel; launch/train.py on "
+        "flaas-100m; recurrentgemma-2b at full width, 3 layers; DP example "
+        "mode")
+    t0 = time.perf_counter()
+    row = _scan_bwd_cases(card)
+    cfg = _launcher_runs(card)
+    torch.cuda.empty_cache()
+    _train_card_vs_cpu(cfg)
+    torch.cuda.empty_cache()
+    scan = _train_hybrid()
+    torch.cuda.empty_cache()
+    _train_example_mode(cfg)
+    torch.cuda.empty_cache()
+    log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    per_step = {k: v // RG_TRAIN["steps"] for k, v in scan.items()}
+    return row, per_step, scan["rglru_scan_bwd"]
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -2737,6 +3052,7 @@ def main() -> int:
                                            beam_row["max_abs_err"])
     service_launches = phase_service(smi)
     shard_launches = phase_checkpoint_shard(smi)
+    bwd_row, per_train_step, bwd_launches = phase_train(smi)
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -2757,8 +3073,15 @@ def main() -> int:
                         replaces=RG_REPLACES,
                         launches=rg_launches["rglru_scan"],
                         launches_long_serve=rg_long_launches["rglru_scan"],
+                        launches_per_train_step=per_train_step["rglru_scan"],
                         **rg_row))
-    assert len(kernels) == 11, [k["name"] for k in kernels]
+    kernels.append(dict(name="rglru_scan_bwd", route="cuda", source=RG_SOURCE,
+                        replaces=RG_BWD_REPLACES, note=RG_BWD_NOTE,
+                        launches=bwd_launches,
+                        launches_per_train_step=per_train_step[
+                            "rglru_scan_bwd"],
+                        **bwd_row))
+    assert len(kernels) == 12, [k["name"] for k in kernels]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

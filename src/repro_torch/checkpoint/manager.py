@@ -10,7 +10,12 @@ The paths are ``repro``'s pytree paths (``repro/checkpoint/manager.py``):
 one segment per level joined by ``|``, ``a:<field>`` for a dataclass or
 named-tuple field, ``d:<key>`` for a dict key (keys in sorted order),
 ``s:<index>`` for a list or tuple item; ``None`` holds no array.  So a
-``state.npz`` written by either package reads in the other.
+``state.npz`` written by either package reads in the other.  A model (an
+``nn.Module`` such as :class:`~repro_torch.models.Transformer`, whose
+parameters are views of one flat buffer) is a node whose children are
+its parameters, ``d:<name>`` by ``named_parameters()``; it restores into
+a new model built like the template's (``type(m)(m.cfg, device=...)``),
+every parameter written into its view.
 
 Beside the arrays a checkpoint can carry a *host payload*: any picklable
 object (queue contents, free lists, RNG states, telemetry counters) saved
@@ -35,6 +40,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 _SEP = "|"
 # repro's packages whose pickled classes have a repro_torch counterpart
@@ -43,6 +49,8 @@ _MAPPED = ("repro.service", "repro.obs")
 
 def _children(node):
     """``[(path segment, child)]`` of a container node, None for a leaf."""
+    if isinstance(node, nn.Module):
+        return [(f"d:{k}", p) for k, p in node.named_parameters()]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return [(f"a:{f.name}", getattr(node, f.name))
                 for f in dataclasses.fields(node)]
@@ -99,6 +107,12 @@ def _unflatten(template, flat: dict, prefix: str = ""):
             else arr
     vals = [_unflatten(child, flat, f"{prefix}{_SEP}{seg}" if prefix
                        else seg) for seg, child in kids]
+    if isinstance(template, nn.Module):
+        model = type(template)(template.cfg, device=template.flat.device)
+        with torch.no_grad():
+            for p, v in zip(model.parameters(), vals):
+                p.copy_(v)
+        return model
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
             f.name: v for f, v in zip(dataclasses.fields(template), vals)})

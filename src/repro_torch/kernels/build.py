@@ -56,6 +56,7 @@ SIGNATURES = {
     },
     "rg_lru": {
         "rg_scan_at": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
+        "rg_scan_bwd": ((_P,) * 7 + (_I,) * 3 + (_P,), _I),
     },
 }
 

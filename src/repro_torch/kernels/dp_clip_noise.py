@@ -3,10 +3,12 @@
 
 :func:`rownorms` and :func:`clip_accumulate` take CUDA tensors only
 (float32, contiguous) and raise on anything else; each adds one to its
-entry of :data:`LAUNCHES` per launch.  :func:`dp_clip_accumulate` is the
-one entry point of the training code: it picks by the device of ``g``
-alone -- a CPU tensor runs the twins of :mod:`repro_torch.kernels.ref`,
-a CUDA tensor the kernels -- with no flag and no fallback.
+entry of :data:`LAUNCHES` per launch.  The training code calls
+:func:`dp_clip_accumulate`, or its two halves :func:`dp_row_scales` and
+:func:`dp_accumulate` where it works on the clipped rows in between;
+each picks by the device of ``g`` alone -- a CPU tensor runs the twins
+of :mod:`repro_torch.kernels.ref`, a CUDA tensor the kernels -- with no
+flag and no fallback.
 
 Bounds quoted below use the H100 SXM's published 3.35 TB/s of HBM.
 """
@@ -86,13 +88,26 @@ def clip_scales(norms: torch.Tensor, clip: float) -> torch.Tensor:
     return torch.clamp(torch.full_like(denom, clip) / denom, max=1.0)
 
 
-def dp_clip_accumulate(g: torch.Tensor, clip: float):
-    """Per-row DP clip and sum: ``(sum_b scale_b * g_b [P], norms [B])``
-    with ``scale_b = min(1, clip / max(||g_b||, 1e-12))``.  ``g [B, P]``
-    float32; CPU tensors run the twins, CUDA tensors the two kernels."""
+def dp_row_scales(g: torch.Tensor, clip: float):
+    """Each row's DP clip factor and norm, ``(scales [B], norms [B])``:
+    ``scale_b = min(1, clip / max(||g_b||, 1e-12))``.  ``g [B, P]``
+    float32; a CPU tensor runs the twin, a CUDA tensor ``rownorms``."""
     cpu = g.device.type == "cpu"
     norms = torch.sqrt(ref.rownorms_ref(g) if cpu else rownorms(g))
-    scales = clip_scales(norms, clip)
-    total = (ref.clip_accumulate_ref(g, scales) if cpu
-             else clip_accumulate(g, scales))
-    return total, norms
+    return clip_scales(norms, clip), norms
+
+
+def dp_accumulate(g: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``sum_b scales_b * g_b [P]``: the twin on a CPU tensor,
+    ``clip_accumulate`` on a CUDA tensor."""
+    if g.device.type == "cpu":
+        return ref.clip_accumulate_ref(g, scales)
+    return clip_accumulate(g, scales)
+
+
+def dp_clip_accumulate(g: torch.Tensor, clip: float):
+    """Per-row DP clip and sum: ``(sum_b scale_b * g_b [P], norms [B])``
+    (:func:`dp_row_scales`, then :func:`dp_accumulate`).  ``g [B, P]``
+    float32; CPU tensors run the twins, CUDA tensors the two kernels."""
+    scales, norms = dp_row_scales(g, clip)
+    return dp_accumulate(g, scales), norms

@@ -1,17 +1,16 @@
-"""Launcher of the Hopper RG-LRU scan (``csrc/rg_lru.cu``, ``rg_scan_at``)
-and the dispatch the ``rec`` blocks call.
+"""Launchers of the Hopper RG-LRU scan and its gradient (``csrc/rg_lru.cu``,
+``rg_scan_at`` and ``rg_scan_bwd``) and the dispatch the ``rec`` blocks
+call.
 
-:func:`rglru_scan_cuda` takes CUDA tensors only (float32, contiguous) and
-raises on anything else; it adds one to ``LAUNCHES["rglru_scan"]`` per
+:func:`rglru_scan_cuda` and :func:`rglru_scan_bwd_cuda` take CUDA tensors
+only (float32, contiguous) and raise on anything else; they add one to
+``LAUNCHES["rglru_scan"]`` and ``BWD_LAUNCHES["rglru_scan_bwd"]`` per
 launch.  :func:`rglru_scan` picks by the device of ``a`` alone -- a CPU
 tensor runs the twin :func:`repro_torch.kernels.ref.rglru_scan_ref`, a
-CUDA tensor the kernel -- with no flag and no fallback.
-
-The kernel has no backward.  On the CPU the twin runs under autograd
-through :class:`_TwinScan`, whose backward is the same recurrence run in
-reverse; on the card, a call that needs a gradient raises
-``NotImplementedError`` (training ``rec`` blocks on the card waits for the
-scan's backward kernel, ROADMAP.md Queue 1 item 9).
+CUDA tensor the kernel -- with no flag and no fallback.  Under autograd
+the CPU runs :class:`_TwinScan`, whose backward is the recurrence run in
+reverse in torch ops, and the card :class:`_CudaScan`, whose backward is
+that recurrence as a kernel, bitwise the twin's.
 """
 from __future__ import annotations
 
@@ -23,8 +22,10 @@ from .budget_alloc import _cdiv, _check, _on_cuda, _raise_on, _stream
 from .build import library
 from . import ref
 
-# Kernel launches since the last reset_launches().
+# Kernel launches since the last reset_launches(): the scan, and its
+# gradient apart (serving launches only the first).
 LAUNCHES = {"rglru_scan": 0}
+BWD_LAUNCHES = {"rglru_scan_bwd": 0}
 
 # The ring's constants, as csrc/rg_lru.cu has them.
 SCAN_STAGES = 4              # kStages: ring slots a warp
@@ -37,6 +38,7 @@ SMEM_MAX = 232_448           # shared memory a block may use on an H100
 
 def reset_launches() -> None:
     LAUNCHES["rglru_scan"] = 0
+    BWD_LAUNCHES["rglru_scan_bwd"] = 0
 
 
 def scan_geometry(B: int, S: int, D: int) -> int:
@@ -94,23 +96,57 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     SCAN_IN_FLIGHT bytes in flight.  S < 32, D % 4 != 0 and operands that
     are not 16-byte aligned take the direct path, which loads ahead in
     registers.  Any S and D; B up to 65,535."""
-    ts = (a, b) if h0 is None else (a, b, h0)
-    _on_cuda(*ts)
-    if a.dim() != 3:
-        raise ValueError(f"a: expected [B, S, D], got {tuple(a.shape)}")
-    B, S, D = a.shape
-    _check(a, "a", torch.float32, (B, S, D))
-    _check(b, "b", torch.float32, (B, S, D))
-    if h0 is not None:
-        _check(h0, "h0", torch.float32, (B, D))
-    for name, t in zip(("a", "b", "h0"), ts):
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: must be 4-byte aligned")
-    if B > 65535:
-        raise ValueError(f"a: at most 65535 rows (the grid's limit), got {B}")
+    _check_operands(("a", a), ("b", b), h0=h0)
     out = _scan(a, b, h0)
     LAUNCHES["rglru_scan"] += 1
     return out
+
+
+def _check_operands(*named, h0):
+    """Raise unless every named [B, S, D] operand and h0 [B, D] (or None)
+    is a contiguous, 4-byte aligned float32 tensor on one CUDA device,
+    with B <= 65,535 (the grid's limit)."""
+    named = named + (() if h0 is None else (("h0", h0),))
+    _on_cuda(*(t for _, t in named))
+    first, a = named[0]
+    if a.dim() != 3:
+        raise ValueError(f"{first}: expected [B, S, D], got {tuple(a.shape)}")
+    B, S, D = a.shape
+    for name, t in named:
+        _check(t, name, torch.float32, (B, D) if name == "h0" else (B, S, D))
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: must be 4-byte aligned")
+    if B > 65535:
+        raise ValueError(f"{first}: at most 65535 rows (the grid's limit), "
+                         f"got {B}")
+
+
+def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
+                        grad_h: torch.Tensor,
+                        h0: Optional[torch.Tensor] = None):
+    """The scan's gradient on the card: a, h (the forward's output) and
+    grad_h = dL/dh [B, S, D] float32, h0 [B, D] or None -> ``(dL/da,
+    dL/db, dL/dh0)``, the last None when h0 is.
+
+    No Pallas kernel replaced: ``repro`` differentiates
+    ``repro/models/recurrent.py:64 linear_scan`` (an associative scan) by
+    autodiff.  Contract: :meth:`_TwinScan.backward`, bitwise.  Bound:
+    bytes (a, grad_h and h read, dL/da and dL/db written: 20*B*S*D).
+    Design (source): one thread a (batch row, channel) walks t from S - 1
+    down, the next 16 steps' operands loaded ahead in registers, one
+    rounded add and two rounded products a step.  Any S and D; B up to
+    65,535."""
+    _check_operands(("a", a), ("h", h), ("grad_h", grad_h), h0=h0)
+    B, S, D = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    _raise_on(library("rg_lru").rg_scan_bwd(
+        a.data_ptr(), grad_h.data_ptr(), h.data_ptr(),
+        None if h0 is None else h0.data_ptr(), da.data_ptr(), db.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), B, S, D, _stream(a)),
+        "rg_scan_bwd")
+    BWD_LAUNCHES["rglru_scan_bwd"] += 1
+    return da, db, dh0
 
 
 class _TwinScan(torch.autograd.Function):
@@ -140,18 +176,31 @@ class _TwinScan(torch.autograd.Function):
         return g * prev, g, grad_h0
 
 
+class _CudaScan(torch.autograd.Function):
+    """The kernel with a gradient: :func:`rglru_scan_cuda` forward,
+    :func:`rglru_scan_bwd_cuda` backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan_cuda(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        a, h, h0 = ctx.saved_tensors
+        return rglru_scan_bwd_cuda(a, h, grad_h.contiguous(), h0)
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The scan by the device of ``a``: the twin on the CPU (under
-    autograd where a gradient is needed), :func:`rglru_scan_cuda` on a
-    CUDA tensor."""
+    """The scan by the device of ``a``: the twin on the CPU, the kernel
+    (:func:`rglru_scan_cuda`) on any other device, each under autograd
+    where a gradient is needed."""
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (a, b, h0))
     if a.device.type == "cpu":
         return _TwinScan.apply(a, b, h0) if needs_grad else \
             ref.rglru_scan_ref(a, b, h0)
-    if needs_grad:
-        raise NotImplementedError(
-            "rglru_scan has no backward kernel on the card yet (ROADMAP.md, "
-            "Queue 1 item 9); run under torch.no_grad() to serve")
-    return rglru_scan_cuda(a, b, h0)
+    return _CudaScan.apply(a, b, h0) if needs_grad else \
+        rglru_scan_cuda(a, b, h0)

@@ -5,7 +5,8 @@ budget over the live blocks; granted pipelines run DP-FedAvg rounds on the
 ~100M-parameter ``flaas-100m`` LM, with noise calibrated from the RDP
 grant, block ledgers debited and stragglers dropped at the deadline.  The
 same loop, defaults and numpy draw order (blocks, demands) as ``repro``'s
-``examples/train_fl_e2e.py``; checkpointing is not in this slice.
+``examples/train_fl_e2e.py``, which also saves pipeline (0, 0)'s training
+state every 4th round (``--ckpt``; ``CheckpointManager(keep_n=2)``).
 
     PYTHONPATH=src python -m repro_torch.launch.fl_e2e      # H100, full 100M
     PYTHONPATH=src python -m repro_torch.launch.fl_e2e --device cpu --small
@@ -14,13 +15,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..checkpoint import CheckpointManager
 from ..configs import get_arch, reduced
 from ..core import RoundInputs, SchedulerConfig, schedule_round
 from ..data.blocks import DeviceDataset
@@ -34,12 +38,16 @@ FEDAVG = dict(cohort_size=5, over_select=1.25, deadline_frac=0.8,
 
 def run(rounds: int = 12, devices: int = 8, analysts: int = 2,
         pipes: int = 3, small: bool = False, seq: int = 256,
-        device="cuda", train: bool = True, log=None) -> Dict:
+        device="cuda", train: bool = True, log=None,
+        ckpt: Optional[str] = None) -> Dict:
     """Run the FL loop; returns ``{"cfg", "records", "pipelines",
-    "ledger"}`` with one record per round.  ``train=False`` runs the
-    scheduler, ledger and accountants alone (the grants do not depend on
-    training).  ``device`` defaults to CUDA and raises without it."""
+    "ledger", "checkpoints"}`` with one record per round.  ``train=False``
+    runs the scheduler, ledger and accountants alone (the grants do not
+    depend on training).  With ``ckpt`` (a directory), pipeline (0, 0)'s
+    state is saved there after every 4th round, under the round's index.
+    ``device`` defaults to CUDA and raises without it."""
     dev = resolve_device(device)
+    mgr = None if ckpt is None else CheckpointManager(ckpt, keep_n=2)
     cfg = get_arch("flaas-100m")
     if small:
         cfg = reduced(cfg)
@@ -145,9 +153,12 @@ def run(rounds: int = 12, devices: int = 8, analysts: int = 2,
         records.append(rec)
         if log is not None:
             log(rec)
+        if mgr is not None and train and rnd_idx % 4 == 3:
+            mgr.save(rnd_idx, pipelines[(0, 0)]["state"])
         now += 10.0
     return {"cfg": cfg, "records": records, "pipelines": pipelines,
-            "ledger": ledger}
+            "ledger": ledger,
+            "checkpoints": [] if mgr is None else mgr.all_steps()}
 
 
 def _client_loader(dataset: DeviceDataset, seq: int, rnd_idx: int, dev):
@@ -169,6 +180,8 @@ def main():
                     help="reduced model (CI-speed)")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "flaas_ckpt"))
     args = ap.parse_args()
 
     def log(r):
@@ -178,13 +191,14 @@ def main():
               f"({r['wall_s']:.1f}s)", flush=True)
 
     out = run(args.rounds, args.devices, args.analysts, args.pipes,
-              args.small, args.seq, args.device, log=log)
+              args.small, args.seq, args.device, log=log, ckpt=args.ckpt)
     cfg = out["cfg"]
     print(f"model={cfg.name} layers={cfg.n_layers} d={cfg.d_model}")
     p00 = out["pipelines"][(0, 0)]
     eps, alpha = p00["acc"].certify(delta=1e-5)
     print(f"pipeline(0,0): losses {p00['losses'][:2]} -> "
           f"{p00['losses'][-2:]}; certified ({eps:.3f}, 1e-5)-DP @ a={alpha}")
+    print(f"checkpoints: {out['checkpoints']}")
     print(json.dumps(out["records"][-1]))
 
 

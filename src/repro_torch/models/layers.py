@@ -172,7 +172,11 @@ def mlp(x, params: Params, act: str):
 
 # ---------------------------------------------------------------- embeddings
 def embed(tokens, params: Params):
-    return params["table"][tokens.long()]
+    """Rows of the table.  ``F.embedding``, not indexing: indexing's
+    backward on the CPU adds repeated tokens' rows with parallel atomics
+    (an order that changes from run to run), embedding's in index order,
+    so a training step is bitwise reproducible on both devices."""
+    return F.embedding(tokens.long(), params["table"])
 
 
 def lm_head(x, params: Params):

@@ -25,9 +25,9 @@ Entry points:
 A block has one code path, :func:`apply_block`, for the training forward,
 the prefill and the decode step (:mod:`repro_torch.models.kv_cache`); only
 the attention call and the recurrent state it is given differ between
-them.  A ``rec`` block trains on the CPU (the scan's twin has a backward)
-and raises ``NotImplementedError`` on the card under autograd: the Hopper
-scan has no backward kernel yet.
+them.  A ``rec`` block trains on both devices: under autograd the scan
+runs its twin's backward on the CPU and the Hopper backward kernel on the
+card (:mod:`repro_torch.kernels.rg_lru`).
 """
 from __future__ import annotations
 

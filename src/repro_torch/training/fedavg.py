@@ -5,8 +5,9 @@ A *pipeline* granted privacy budget by the scheduler runs FL rounds here:
      ceil(over_select * cohort) clients, close the round at the reporting
      deadline, drop stragglers -- DP-FedAvg tolerates partial cohorts);
   2. each client trains locally (SGD epochs) on its granted data blocks;
-  3. client deltas are clipped (client-level DP), averaged, and Gaussian
-     noise calibrated from the pipeline's RDP grant is added;
+  3. client deltas are clipped (client-level DP), optionally int8-compressed
+     with error feedback, averaged, and Gaussian noise calibrated from the
+     pipeline's RDP grant is added;
   4. the accountant records the round; the ledger was already debited by the
      scheduler grant -- training can never exceed it.
 
@@ -20,7 +21,10 @@ draws them first and trains only the clients that report by the deadline,
 writing each one's delta straight into its row of one float32
 ``[keep, P]`` matrix, rows in latency order (the order ``repro`` sums
 them in).  ``aggregate`` clips and sums that matrix with
-``dp_clip_accumulate`` -- two Hopper kernels on the card.  The model is
+``dp_clip_accumulate`` -- two Hopper kernels on the card; compressed, it
+clips each row by ``rownorms``' scales, quantizes each parameter's slice
+of a row on its own scale (``repro``'s per-leaf scale) and sums the
+dequantized rows with ``clip_accumulate`` at unit scales.  The model is
 updated in place (``model.flat += mean``) rather than copied: at
 ``flaas-100m`` a copy is 0.5 GB per pipeline per round.
 """
@@ -32,9 +36,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.dp_clip_noise import dp_clip_accumulate
+from ..kernels.dp_clip_noise import (dp_accumulate, dp_clip_accumulate,
+                                     dp_row_scales)
 from ..models.transformer import Transformer, clone_model
 from ..privacy.accountant import RdpAccountant
+from .compression import compress_rows
 from .dp_sgd import add_noise
 
 
@@ -67,22 +73,38 @@ def client_update(params: Transformer, loss_fn, batches, lr: float,
     return torch.sub(work.flat, params.flat, out=out)
 
 
+def _rows(x) -> torch.Tensor:
+    return (x if isinstance(x, torch.Tensor) else torch.stack(list(x))
+            ).float().contiguous()
+
+
 def aggregate(deltas, clip: float, noise_std: float,
-              generator: torch.Generator, compress: bool = False):
-    """Clip each client delta, average, noise.  ``deltas`` is a float32
-    ``[n, P]`` matrix (or a sequence of ``[P]`` vectors), rows in the
-    order the mean sums them.  Returns ``(mean [P], None)``."""
+              generator: torch.Generator, compress: bool = False,
+              residuals=None, layout: Optional[Transformer] = None):
+    """Clip each client delta, (optionally) int8-compress, average, noise.
+    ``deltas`` is a float32 ``[n, P]`` matrix (or a sequence of ``[P]``
+    vectors), rows in the order the mean sums them.  Compression needs
+    ``layout``, the model whose parameters lay out a row (each is
+    quantized on its own scale), and takes error-feedback ``residuals``
+    (``[n, P]``, or None).  Returns ``(mean [P], new residuals [n, P] or
+    None)``."""
+    D = _rows(deltas)
+    new_residuals = None
     if compress:
-        raise NotImplementedError("compressed aggregation is not ported yet "
-                                  "(training/compression.py, ROADMAP.md)")
-    D = deltas if isinstance(deltas, torch.Tensor) else torch.stack(
-        list(deltas))
-    total, _ = dp_clip_accumulate(D.float().contiguous(), clip)
+        if layout is None:
+            raise ValueError("compressed aggregation needs the layout model")
+        scales, _ = dp_row_scales(D, clip)
+        D, new_residuals = compress_rows(
+            D * scales[:, None], [p.numel() for p in layout.parameters()],
+            None if residuals is None else _rows(residuals))
+        total = dp_accumulate(D, torch.ones_like(scales))
+    else:
+        total, _ = dp_clip_accumulate(D, clip)
     n = float(D.shape[0])
     mean = total / n
     if noise_std > 0:
         mean = add_noise(mean, generator, noise_std / n)
-    return mean, None
+    return mean, new_residuals
 
 
 def fl_round(
@@ -120,7 +142,7 @@ def fl_round(
     gen = torch.Generator(device=params.flat.device).manual_seed(
         cfg.seed * 7919 + round_idx)
     mean_delta, _ = aggregate(deltas, cfg.clip, sigma * cfg.clip, gen,
-                              compress=cfg.compress)
+                              compress=cfg.compress, layout=params)
     with torch.no_grad():
         params.flat.add_(mean_delta)
     if accountant is not None and sigma > 0:

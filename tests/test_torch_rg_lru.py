@@ -102,6 +102,33 @@ def test_twin_gradient_matches_jax_grad(jax_side, with_h0):
         np.testing.assert_allclose(g.numpy(), np.asarray(wg), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("S,D", [(1, 8), (64, 40), (300, 7)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_twin_backward_matches_jax_grad_of_linear_scan(jax_side, S, D,
+                                                       with_h0):
+    """``_TwinScan``'s gradients (the contract of the card's backward
+    kernel) within 1e-5 of the largest |g| of ``jax.grad`` through
+    ``repro``'s associative ``linear_scan``: one step, a multiple of the
+    kernel's 16 steps ahead, a long ragged scan."""
+    jax, _, _, JR = jax_side
+    a, b, h0 = _abh(3, S, D, seed=S * D)
+    h0 = h0 if with_h0 else None
+    w = np.random.default_rng(S).standard_normal((3, S, D)).astype(
+        np.float32)
+    argn = (0, 1, 2) if with_h0 else (0, 1)
+    want = jax.jit(jax.grad(
+        lambda a, b, h0: (JR.linear_scan(a, b, h0) * w).sum(),
+        argnums=argn))(a, b, h0)
+    ta, tb, th = (None if x is None else x.requires_grad_()
+                  for x in _t(a, b, h0))
+    h = rg_lru._TwinScan.apply(ta, tb, th)
+    h.backward(torch.from_numpy(w))
+    for g, wg in zip((ta.grad, tb.grad) + ((th.grad,) if with_h0 else ()),
+                     want):
+        wg = np.asarray(wg)
+        assert np.abs(g.numpy() - wg).max() <= 1e-5 * np.abs(wg).max()
+
+
 def _count_calls(monkeypatch):
     calls, twin = [], ref.rglru_scan_ref
     monkeypatch.setattr(ref, "rglru_scan_ref",
@@ -124,15 +151,21 @@ def test_dispatch_runs_the_twin_on_the_cpu(monkeypatch):
 
 
 def test_no_backward_off_the_cpu():
-    """A tensor that is not on the CPU and needs a gradient raises before
-    any launch (meta tensors stand in for the card's here); without one
-    it goes to the launcher, which takes CUDA tensors only."""
+    """Off the CPU there is no twin backward: a tensor that needs a
+    gradient goes to the kernel's autograd function and one that does not
+    to the launcher; both take CUDA tensors only and raise before any
+    launch (meta tensors stand in for the card's here)."""
     a = torch.empty((1, 4, 8), device="meta", requires_grad=True)
     b = torch.empty((1, 4, 8), device="meta")
-    with pytest.raises(NotImplementedError):
+    rg_lru.reset_launches()
+    with pytest.raises(ValueError, match="no Hopper kernel"):
         rg_lru.rglru_scan(a, b)
     with torch.no_grad(), pytest.raises(ValueError):
         rg_lru.rglru_scan(a, b)
+    with pytest.raises(ValueError, match="no Hopper kernel"):
+        rg_lru.rglru_scan_bwd_cuda(a.detach(), b, b)
+    assert rg_lru.LAUNCHES == {"rglru_scan": 0}
+    assert rg_lru.BWD_LAUNCHES == {"rglru_scan_bwd": 0}
 
 
 # ------------------------------------------------------- the ring's geometry
@@ -286,8 +319,8 @@ def test_cuda_scan_rejects_what_the_kernel_does_not_take(hopper,
         rg_lru.rglru_scan_cuda(a, b, h0.cpu())            # mixed devices
     with pytest.raises(ValueError):
         rg_lru.rglru_scan_cuda(a, b, h0[:1])              # wrong h0 shape
-    with pytest.raises(NotImplementedError):
-        rg_lru.rglru_scan(a.requires_grad_(), b, h0)      # no backward
+    with pytest.raises(TypeError):
+        rg_lru.rglru_scan_bwd_cuda(a, b, b.double(), h0)  # grad_h's dtype
     big = torch.zeros((65536, 1, 1), device=hopper)
     with pytest.raises(ValueError):
         rg_lru.rglru_scan_cuda(big, big)                  # past the grid

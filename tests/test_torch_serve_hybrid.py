@@ -188,13 +188,14 @@ def test_init_cache_layout(setup):
 
 
 def test_rec_forward_off_the_cpu_with_grad_raises():
-    """Training ``rec`` blocks off the CPU needs the scan's backward kernel
-    (not ported): the forward raises before any launch.  A meta model
-    stands in for the card's here; ``tests/test_torch_rg_lru.py`` holds
-    the same rule on a CUDA tensor."""
+    """Training ``rec`` blocks off the CPU runs the scan through the
+    kernel's autograd function, which takes CUDA tensors only: a meta
+    model (standing in for the card's here) raises at the scan, before
+    any launch.  ``tests/test_torch_rg_lru_bwd_cuda.py`` trains on the
+    card."""
     model = Transformer(CFG, device="meta")
     tok = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no Hopper kernel"):
         forward(model, tok, CFG)
 
 

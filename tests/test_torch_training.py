@@ -156,8 +156,22 @@ def test_aggregate_matches_repro_without_noise():
     want = torch.cat([torch.tensor(np.asarray(jmean[k])).reshape(-1)
                       for k in unflatten(model, tmean)])
     _close(tmean, want)
-    with pytest.raises(NotImplementedError):
-        aggregate(torch.from_numpy(D), 0.05, 0.0, None, compress=True)
+    # compressed: the same clip, then int8 on each leaf of each row
+    # (repro's per-tree-leaf scale).  The clip scales differ by ulps, so a
+    # value on a rounding boundary may take the next code: within one
+    # quantum (the leaf's largest clipped |value| / 127) of repro's mean
+    jmean, _ = jfedavg.aggregate(trees, 0.05, 0.0, jax.random.PRNGKey(0),
+                                 compress=True)
+    tmean, res = aggregate(torch.from_numpy(D), 0.05, 0.0, None,
+                           compress=True, layout=model)
+    scales = np.minimum(1.0, 0.05 / np.linalg.norm(D, axis=1))
+    clipped = unflatten(model, torch.from_numpy(
+        np.abs(D * scales[:, None]).max(axis=0).astype(np.float32)))
+    for k, v in unflatten(model, tmean).items():
+        quantum = float(clipped[k].max()) / 127.0
+        w = torch.tensor(np.asarray(jmean[k]))
+        assert float((v - w).abs().max()) <= quantum * (1 + 1e-5), k
+    assert tuple(res.shape) == D.shape
 
 
 def _fl_setup(n_dev):
@@ -248,6 +262,7 @@ def test_make_state_is_float32_only():
     st = make_state(0, CFG, TrainConfig(param_dtype="float32"), device="cpu")
     assert st["params"].flat.dtype == torch.float32
     assert set(st["opt"]) == {"m", "v", "count", "master"}
-    with pytest.raises(NotImplementedError):
-        TrainConfig(optimizer="adafactor").make_optimizer()
+    st = make_state(0, CFG, TrainConfig(optimizer="adafactor",
+                                        param_dtype="float32"), device="cpu")
+    assert set(st["opt"]) == {"stats", "count", "master"}
 
