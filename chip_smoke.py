@@ -252,9 +252,12 @@ RG_CASES = [("serve", 4, 32, 2560, False), ("2k", 4, 2048, 2560, True),
             ("decode", 4, 1, 2560, True), ("ragged", 3, 1000, 2560 + 37, True),
             ("b1-2k", 1, 2048, 2560, False)]
 # the serve defaults' shapes (prompt 32; a 48-slot ring at cache_len 33..47)
-# and the long serve's (prompt 2048; the 2048-slot ring full, and half full)
+# and the long serve's (prompt 2048; the 2048-slot ring full, and half full);
+# flash also at the card tests' ragged shape and one sequence's long prefill
 RG_FLASH_CASES = [("rg-serve", 4, 32, True, 2048),
-                  ("rg-2k", 4, 2048, True, 2048)]
+                  ("rg-2k", 4, 2048, True, 2048),
+                  ("rg-ragged", 2, 1037, True, 300),
+                  ("rg-b1-2k", 1, 2048, True, 2048)]
 RG_DECODE_CASES = [("rg-serve-33", 4, 48, 33), ("rg-serve-47", 4, 48, 47),
                    ("rg-2048", 4, 2048, 2048), ("rg-1000", 4, 2048, 1000)]
 P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
@@ -1509,6 +1512,8 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
         shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S} causal={causal} "
                  f"window={window} ({label})")
         err = _att_check("flash_attention " + shape, got, again, want)
+        log(f"  flash_attention  {shape}: launched "
+            f"{fa.LAST_ENTRY['flash_attention']}")
         del want
         qt = q.transpose(1, 2).contiguous()
         kr, vr = _repeat_kv(k, G), _repeat_kv(v, G)

@@ -38,17 +38,17 @@
 // Design.
 //   * flash: one block per (tile of 64 query rows, query head, batch row);
 //     the Pallas grid's sequential kv axis becomes a loop inside the block
-//     over 64-key tiles staged in shared memory.  Key tiles wholly outside
+//     over key tiles staged in shared memory.  Key tiles wholly outside
 //     the causal / window band are skipped -- the only skipped work, and it
 //     does not change the result.  Ragged S: loads past S are zero-filled
-//     and masked.  Causal tiles start heaviest first.  Two templates:
-//     - dh 16, 32, 256 (flash_fwd_kernel): 256 threads; rows padded by one
+//     and masked.  Four kernels:
+//     - dh 16, 32 (flash_fwd_kernel): 256 threads; rows padded by one
 //       float so scalar column reads are conflict-free.  Each thread owns 4
-//       query rows x 4 keys of the score tile and 4 rows x dh/16 columns of
-//       the accumulator; a row's max and sum reduce over the 16 lanes that
-//       share it (butterfly shuffles: every lane gets the same bits).  Each
-//       QK^T step makes 8 scalar shared loads for 16 FMAs, so the loop is
-//       bound by shared-memory instruction throughput.
+//       query rows x 4 keys of a 64-key score tile and 4 rows x dh/16
+//       columns of the accumulator; a row's max and sum reduce over the 16
+//       lanes that share it (butterfly shuffles: every lane gets the same
+//       bits).  Causal tiles start heaviest first within a head and batch
+//       row.
 //     - dh 64, 128 (flash_fwd_tiled_kernel): 128 threads as 16 row groups
 //       x 8 lanes (ty = t / 8, tx = t % 8).  A thread owns rows ty + 16i
 //       (i < 4) x keys tx + 8j (j < 8) of the score tile and the same rows
@@ -63,18 +63,59 @@
 //       (all 32 banks), and the warp's 4 row groups read the same 8 key rows
 //       (broadcast) and 4 q rows 4 banks apart.  PV walks keys by 4: a
 //       float4 of p for each row, dh/32 float4s of v for each key (8 lanes
-//       on 128 contiguous bytes), 12 loads for 128 FMAs at dh 64.  Scores
-//       and PV sums are the same FMA chains in the same order as in the
-//       other template; only the row sum l adds over 8 lanes, not 16.  q, k
+//       on 128 contiguous bytes), 12 loads for 128 FMAs at dh 64.  q, k
 //       and v are staged with 16-byte global loads, 8 in flight a tile per
 //       thread before the stores, no per-element divides.  The grid is
 //       (head, batch row, q tile), x fastest, so the heaviest causal tile
-//       row of every head and batch row starts before any lighter one
-//       (the other template orders tiles within a head and batch row only):
+//       row of every head and batch row starts before any lighter one:
 //       at B=4 S=2048 the last blocks to start are the lightest, not a
 //       late head's 32-tile block.  ptxas (CUDA 12.8): 168 registers at dh
 //       64, 167 at dh 128, no spills, so registers and shared memory alike
 //       hold three dh-64 blocks (12 warps) on an SM.
+//     - dh 256 has two kernels; the launcher picks one by the key span of
+//       a block (kernels/flash_attention.py::wide_tiles): the wide kernel
+//       where a block of 64 rows sees a whole 256-key tile, the narrow one
+//       below that (recurrentgemma-2b's 32-token serve prompt, a short
+//       window).  Both use the (head, batch row, q tile) grid above, stage
+//       q, k and v with cp.async (16 bytes a copy, L2 only, zero-filled
+//       past S) so the next keys land while the current ones are used,
+//       keep rows on the 16-byte grid (dh + 4 floats) and take every
+//       shared operand in 16-byte loads.  In both, each score is one FMA
+//       chain in d order and each output one chain in key order.
+//     - dh 256, narrow (flash_fwd_narrow_kernel): 8 warps; warp w owns
+//       rows 8w .. 8w + 7, its lanes 4 row lanes x 8 key lanes, so a
+//       thread holds 2 rows x 4 keys (kx + 8j) of a 32-key score tile and
+//       2 rows x 32 columns (4 (kx + 8c) .. + 3) of the accumulator.  A
+//       row's p comes from the 8 lanes of its row lane, so p passes
+//       through shared memory under __syncwarp, not a block barrier.  K
+//       and V come in 32-key stages, two of them: one __syncthreads a
+//       stage, after which the next stage is issued.  A warp none of whose
+//       rows sees a key of the stage skips it.  209,920 bytes of shared
+//       memory (q, two K/V stages, p), one block an SM; ptxas 194
+//       registers, no spills.  Each QK^T step is 6 16-byte loads for 32
+//       FMAs, so the kernel is bound by shared-memory loads (PERF.md).
+//     - dh 256, wide (flash_fwd_wide_kernel): 512 threads in two groups
+//       of 8 warps, warp w of each owning rows 8w .. 8w + 7 of the block's
+//       64.  The scorers hold 8 rows x 8 keys (32j + lane) of a 256-key
+//       tile a lane; the accumulators 8 rows x 8 columns (4 lane .. + 3,
+//       128 + 4 lane .. + 3).  So both products make 16 FMAs per 16-byte
+//       load, against 5-8 in the narrow kernel, and neither thread holds
+//       both tiles: 128 registers a thread at launch, 136 for the
+//       scorers and 120 for the accumulators after setmaxnreg (ptxas,
+//       CUDA 12.8: 40 bytes spilled, per-tile scalars outside the FMA
+//       loops).  The scorers run QK^T over K chunks of 16 columns x 256
+//       keys through a three-slot ring, then the online softmax (full
+//       32-lane butterflies), and pass p (64 x 256) and each row's rescale
+//       through shared memory; the accumulators run PV over 16-key V
+//       chunks through a two-slot ring.  Named barriers: one per group for
+//       its ring, and the p tile's empty / full pair, so QK^T of tile
+//       t + 1 runs while PV of tile t does.  A warp whose rows see no key
+//       of a tile skips it; in a tile it does see, it also computes the
+//       32-key chunks its rows cannot see (masked; at most one tile a
+//       q tile).  228,608 bytes of shared memory (q, p, the rings, the row
+//       statistics), one block an SM.  Measured (PERF.md, Findings): 0.47 of
+//       the operations bound at B=4 S=2048; the two groups' times add
+//       rather than overlap.
 //   * decode: the Pallas grid walks (b, query head) and reads each kv head
 //     G = H/KH times; here a block serves the query heads of one kv head
 //     (all G of them, or at dh 256 half of recurrentgemma-2b's ten: two
@@ -104,14 +145,16 @@
 //     dependent launch of the combine, issuing the first step's loads before
 //     q is staged, and staging the combine's weights in shared memory.
 //
-// Instantiations: flash at dh 16, 32, 256 (flash_fwd_kernel) and 64, 128
-// (flash_fwd_tiled_kernel), any H/KH; decode at dh 16-128 with G = H/KH in
-// {1, 2, 3, 4, 6, 8}, and at dh 256 with G = 10 (recurrentgemma-2b's 10
-// query heads over 1 kv head).  Flash shared memory: 214,016 bytes at dh
-// 256 (one block per SM); 69,632 at dh 64 (three blocks per SM) and
-// 118,784 at dh 128 (one) in the tiled template.  A decode block at dh 256
-// keeps its five heads' q in shared memory (5 x 8 floats a lane would take
-// 40 registers) beside a 41,280-byte merge buffer, 46,400 bytes in all.
+// Instantiations: flash at dh 16, 32 (flash_fwd_kernel), 64, 128
+// (flash_fwd_tiled_kernel) and 256 (flash_fwd_narrow_kernel through
+// att_flash, flash_fwd_wide_kernel through att_flash_wide), any H/KH;
+// decode at dh 16-128 with G = H/KH in {1, 2, 3, 4, 6, 8}, and at dh 256
+// with G = 10 (recurrentgemma-2b's 10 query heads over 1 kv head).  Flash
+// shared memory: 69,632 bytes at dh 64 (three blocks per SM), 118,784 at
+// dh 128 (one), 209,920 (narrow) and 228,608 (wide) at dh 256 (one).  A
+// decode block at dh 256 keeps its five heads' q in shared memory (5 x 8
+// floats a lane would take 40 registers) beside a 41,280-byte merge
+// buffer, 46,400 bytes in all.
 // ptxas (CUDA 12.8): 128 registers at dh 256 / G 10 (__launch_bounds__
 // asks for two blocks an SM) and 80 at dh 64 / G 3 (three), no spills.
 
@@ -533,6 +576,646 @@ int launch_flash_tiled(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- flash, dh 256: shared
+constexpr int kDH256 = 256;
+
+// Asynchronous 16-byte copy global -> shared (cp.async, L2 only); the 16
+// bytes are zero-filled instead where `in` is false (src is not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` over n threads: wait for all of them, or only arrive.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------- flash, dh 256, short key spans (narrow)
+// 8 warps; a warp owns 8 query rows, its lanes 4 row lanes x 8 key lanes.
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowBK = 32;       // keys per K/V stage
+constexpr int kNarrowStages = 2;    // K/V stages: tile t + 1 lands during t
+constexpr int kNarrowPLD = kNarrowBK + 8;  // row of the probability tile
+
+constexpr int flash_narrow_smem_bytes() {
+  return (kBQ * (kDH256 + 4) + kNarrowStages * 2 * kNarrowBK * (kDH256 + 4) +
+          kBQ * kNarrowPLD) * (int)sizeof(float);
+}
+
+// NR positions p0.. of one head (rows `stride` floats apart in HBM) into
+// shared rows of 260 floats, zero past S: thread t copies the float4s
+// t + n * kNarrowThreads, 64 consecutive threads to a row.
+template <int NR>
+__device__ __forceinline__ void narrow_stage(float* dst, const float* src,
+                                             size_t stride, int p0, int S) {
+  constexpr int D4 = kDH256 / 4;
+  static_assert((NR * D4) % kNarrowThreads == 0, "whole passes");
+#pragma unroll
+  for (int n = 0; n < NR * D4 / kNarrowThreads; ++n) {
+    const int i = (int)threadIdx.x + n * kNarrowThreads;
+    const int r = i / D4, c = (i % D4) * 4;
+    const bool in = p0 + r < S;
+    cp_async16(dst + r * (kDH256 + 4) + c,
+               src + (size_t)(in ? p0 + r : 0) * stride + c, in);
+  }
+}
+
+__global__ void __launch_bounds__(kNarrowThreads, 1)
+flash_fwd_narrow_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        int S, int H, int KH, int causal, int window,
+                        float scale) {
+  constexpr int DH = kDH256, LD = DH + 4;  // padded row of the q/k/v tiles
+  constexpr int NV = DH / 32;    // float4 column groups of acc per thread
+  constexpr int KV = 2 * kNarrowBK * LD;  // one stage: K then V
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // [kBQ][LD]
+  float* sKV = sQ + kBQ * LD;      // [stage][K, V][kNarrowBK][LD]
+  float* sP = sKV + kNarrowStages * KV;  // [kBQ][kNarrowPLD]
+
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - (int)blockIdx.z;  // heaviest tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KH);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ry = lane >> 3, kx = lane & 7;
+  const int q0 = qt * kBQ;
+  const int r0 = 8 * warp + ry;  // the thread's tile rows r0 and r0 + 4
+  const int w0 = q0 + 8 * warp;  // the warp's first position
+  const int w_last = min(w0 + 7, S - 1);  // and last valid (< w0: none)
+  const size_t q_stride = (size_t)H * DH;    // between positions of q / o
+  const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
+  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+
+  // key tiles any row of this block may see: [t_begin, t_end)
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / kNarrowBK;
+  const int t_end = (k_end + kNarrowBK - 1) / kNarrowBK;
+
+  narrow_stage<kBQ>(sQ, qb, q_stride, q0, S);
+  narrow_stage<kNarrowBK>(sKV, kb, kv_stride, t_begin * kNarrowBK, S);
+  narrow_stage<kNarrowBK>(sKV + kNarrowBK * LD, vb, kv_stride,
+                          t_begin * kNarrowBK, S);
+  cp_async_commit();
+
+  // rows r0 + 4i; keys kx + 8j; acc columns 4 * (kx + 8c) + e
+  float m[2], l[2], acc[2][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const float* sK = sKV + ((t - t_begin) % kNarrowStages) * KV;
+    const float* sV = sK + kNarrowBK * LD;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every reader of tile t - 1 is done
+    if (t + 1 < t_end) {  // tile t + 1 into the stage tile t - 1 left
+      float* nK = sKV + ((t + 1 - t_begin) % kNarrowStages) * KV;
+      narrow_stage<kNarrowBK>(nK, kb, kv_stride, (t + 1) * kNarrowBK, S);
+      narrow_stage<kNarrowBK>(nK + kNarrowBK * LD, vb, kv_stride,
+                              (t + 1) * kNarrowBK, S);
+    }
+    cp_async_commit();
+    const int k0 = t * kNarrowBK;
+    // a warp none of whose rows sees a key of the tile skips it: exactly
+    // what the tile would add (a row with no score yet is wiped later)
+    bool live = w0 <= w_last;
+    if (causal) live = live && k0 <= w_last;
+    if (window > 0) live = live && k0 + kNarrowBK - 1 > w0 - window;
+    if (!live) continue;
+
+    // s[i][j] = q[row i] . k[key j], one FMA per d in d order
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float qv[2][4], kv[4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) lds4(qv[i], sQ + (r0 + 4 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lds4(kv[j], sK + (kx + 8 * j) * LD + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[i][j] = __fmaf_rn(qv[i][e], kv[j][e], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = q0 + r0 + 4 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + kx + 8 * j;
+        bool ok = kp < S;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max<8>(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sP[(r0 + 4 * i) * kNarrowPLD + kx + 8 * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * corr + group_sum<8>(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NV; ++c) acc[i][c] *= corr;
+    }
+    __syncwarp();  // a row's p comes from the 8 lanes of its row lane
+
+    // acc[row][col] += sum_key p[row][key] * v[key][col], keys in order
+#pragma unroll 2
+    for (int kk = 0; kk < kNarrowBK; kk += 4) {
+      float p[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        lds4(p[i], sP + (r0 + 4 * i) * kNarrowPLD + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[4 * NV];
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+          lds4(vv + 4 * c, sV + (kk + u) * LD + 4 * (kx + 8 * c));
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4 * NV; ++c)
+            acc[i][c] = __fmaf_rn(p[i][u], vv[c], acc[i][c]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy may be in flight when the block exits
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + 4 * i;
+    if (qp >= S) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride +
+                                 4 * (kx + 8 * c)) =
+          make_float4(acc[i][4 * c] / denom, acc[i][4 * c + 1] / denom,
+                      acc[i][4 * c + 2] / denom, acc[i][4 * c + 3] / denom);
+  }
+}
+
+int launch_flash_narrow(const float* q, const float* k, const float* v,
+                        float* o, int B, int S, int H, int KH, int causal,
+                        int window, float scale, cudaStream_t stream) {
+  constexpr int smem = flash_narrow_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
+  flash_fwd_narrow_kernel<<<grid, kNarrowThreads, smem, stream>>>(
+      q, k, v, o, S, H, KH, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------- flash, dh 256, long key spans (wide)
+// Two warp groups of 8 warps share a block's 64 query rows, warp w of
+// each taking rows 8w .. 8w + 7: the scorers hold 8 x 8 scores a lane
+// (keys 32j + lane of a 256-key tile), the accumulators 8 x 8 outputs a
+// lane (columns 4 lane .. + 3 and 128 + 4 lane .. + 3).  The probability
+// tile passes between them through shared memory.
+constexpr int kWideRows = 8;                  // query rows of a warp
+constexpr int kWideWarps = kBQ / kWideRows;   // warps of a group
+constexpr int kWideGroup = 32 * kWideWarps;   // threads of a group
+constexpr int kWideThreads = 2 * kWideGroup;
+constexpr int kWideBK = 256;                  // keys per tile
+constexpr int kWideLD = kDH256 + 4;           // padded row of q, p and v
+constexpr int kWideKLD = 16 + 4;              // row of a K chunk: 16 columns
+constexpr int kWideKSlot = kWideBK * kWideKLD;  // K chunk: 256 keys
+constexpr int kWideVSlot = 16 * kWideLD;      // V chunk: 16 keys
+// named barriers (0 is __syncthreads): each group's ring, the
+// probability tile's two states, and the final row sums
+constexpr int kBarK = 1, kBarV = 2, kBarPEmpty = 3, kBarPFull = 4,
+              kBarDone = 5;
+
+// Shared memory, in floats from its start: q [kBQ][kWideLD], p of a tile
+// [kBQ][kWideLD], the K ring [3][kWideKSlot], the V ring [2][kWideVSlot],
+// and per row the running max, the running sum and a tile's rescale.
+constexpr int kWideP = kBQ * kWideLD, kWideK = 2 * kBQ * kWideLD,
+              kWideV = kWideK + 3 * kWideKSlot,
+              kWideM = kWideV + 2 * kWideVSlot, kWideL = kWideM + kBQ,
+              kWideC = kWideL + kBQ;
+
+constexpr int flash_wide_smem_bytes() {
+  return (kWideC + kBQ) * (int)sizeof(float);
+}
+
+// The 32-key chunks of tile t that some row of the block sees,
+// [lo, lo + n) of its 8.  The tile's K arrives in 16 chunks of 16
+// columns of the 256 keys from k0 + 32 lo (those past the visible chunks
+// are not read), its V in 2n chunks of 16 keys.
+struct WideTile {
+  int k0, lo, n;
+};
+
+__device__ __forceinline__ WideTile wide_tile(int t, int k_begin,
+                                              int k_end) {
+  WideTile w;
+  w.k0 = t * kWideBK;
+  w.lo = max(0, k_begin - w.k0) >> 5;
+  w.n = (min(kWideBK, k_end - w.k0 + 31) >> 5) - w.lo;
+  return w;
+}
+
+// K chunk `idx` of tile t into a slot, 1024 float4 copies over the scorers:
+// columns [16 idx, +16) of keys k0 + 32 lo .. + 255, rows of kWideKLD;
+// keys past the visible chunks or k_end are zero-filled.
+__device__ __forceinline__ void wide_issue_k(float* slot, const float* kb,
+                                             size_t stride, int t, int idx,
+                                             int k_begin, int k_end,
+                                             int tid) {
+  const WideTile w = wide_tile(t, k_begin, k_end);
+  const int kin = min(k_end, w.k0 + 32 * (w.lo + w.n));
+#pragma unroll
+  for (int m = 0; m < 1024 / kWideGroup; ++m) {
+    const int f = tid + m * kWideGroup;
+    const int r = f >> 2, c = (f & 3) * 4;
+    const int key = w.k0 + 32 * w.lo + r;
+    const bool in = key < kin;
+    cp_async16(slot + r * kWideKLD + c,
+               kb + (size_t)(in ? key : 0) * stride + 16 * idx + c, in);
+  }
+}
+
+// V chunk `idx` of tile t (keys k0 + 32 lo + 16 idx ..  + 15, rows of
+// kWideLD floats) into a slot, 1024 float4 copies over the accumulators.
+__device__ __forceinline__ void wide_issue_v(float* slot, const float* vb,
+                                             size_t stride, int t, int idx,
+                                             int k_begin, int k_end,
+                                             int tid) {
+  const WideTile w = wide_tile(t, k_begin, k_end);
+#pragma unroll
+  for (int m = 0; m < 1024 / kWideGroup; ++m) {
+    const int f = tid + m * kWideGroup;
+    const int r = f >> 6, c = (f & 63) * 4;
+    const int key = w.k0 + 32 * w.lo + 16 * idx + r;
+    const bool in = key < k_end;
+    cp_async16(slot + r * kWideLD + c,
+               vb + (size_t)(in ? key : 0) * stride + c, in);
+  }
+}
+
+// What a block's warp of either group knows of its rows and keys.
+struct WideBlock {
+  int S, causal, window;
+  float scale;
+  size_t kv_stride;
+  const float *kb, *vb;  // this batch row's kv head
+  int k_begin, k_end;    // keys any row of the block sees
+  int t_begin, t_end;    // its tiles
+  int q0;                // the block's first position
+  int w0;                // the warp's first position
+  int tid, lane, warp;   // within the group
+};
+
+// Whether the warp's rows see a key of the tile's visible chunks, keys
+// [kc, kc + 32 n); a warp that sees none skips the tile: exactly what the
+// tile would add (a row with no score yet is wiped by its first one).
+__device__ __forceinline__ bool wide_live(const WideBlock& B,
+                                          const WideTile& w) {
+  const int kc = w.k0 + 32 * w.lo;
+  const int last = min(B.w0 + kWideRows - 1, B.S - 1);  // its last row
+  return B.w0 <= last &&
+         (B.window <= 0 || B.w0 - B.window < kc + 32 * w.n - 1) &&
+         (!B.causal || last >= kc);
+}
+
+// s[i][j] += q[row i] . k[key 32j + lane] over a K chunk's 16 columns,
+// one FMA per d in d order, for the tile's first n
+// chunks of 32 keys (ALL: all 8), two keys' float4s at a time.
+template <bool ALL>
+__device__ __forceinline__ void wide_qk(float (&s)[kWideRows][8],
+                                        const float* qc, const float* sK,
+                                        int lane, int n) {
+  constexpr int LDK = kWideKLD;
+  const float* kl = sK + lane * LDK;
+#pragma unroll 2
+  for (int d = 0; d < 16; d += 4) {
+    float qv[kWideRows][4], kv[2][4];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) lds4(qv[i], qc + i * kWideLD + d);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      if (!ALL && j >= n) continue;
+      lds4(kv[0], kl + 32 * j * LDK + d);
+      lds4(kv[1], kl + 32 * (j + 1) * LDK + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < kWideRows; ++i) {
+          s[i][j] = __fmaf_rn(qv[i][e], kv[0][e], s[i][j]);
+          s[i][j + 1] = __fmaf_rn(qv[i][e], kv[1][e], s[i][j + 1]);
+        }
+    }
+  }
+}
+
+// The scorers: for every tile, s = q k^T over the K ring, then the online
+// softmax, p into the shared tile and each row's rescale into sC.
+__device__ __forceinline__ void wide_scores(const WideBlock& B,
+                                            float* smem) {
+  constexpr int LD = kWideLD;
+  const float* sQ = smem;
+  float *sP = smem + kWideP, *kring = smem + kWideK, *sM = smem + kWideM,
+        *sL = smem + kWideL, *sC = smem + kWideC;
+  const int lane = B.lane, warp = B.warp;
+  float* sPw = sP + kWideRows * warp * LD;
+  // three K slots: chunk c is computed while c + 1 and c + 2 land.  The
+  // kernel issued chunk 0 of the first tile into slot 0
+  wide_issue_k(kring + kWideKSlot, B.kb, B.kv_stride, B.t_begin, 1,
+               B.k_begin, B.k_end, B.tid);
+  cp_async_commit();
+  for (int t = B.t_begin; t < B.t_end; ++t) {
+    const WideTile w = wide_tile(t, B.k_begin, B.k_end);
+    const bool live = wide_live(B, w);
+    const int kc = w.k0 + 32 * w.lo;
+    float s[kWideRows][8];
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+    for (int c = 0; c < 16; ++c) {
+      // chunk c of tile t is the (16 (t - t_begin) + c)-th: its slot
+      const int slot = (t - B.t_begin + c) % 3;
+      cp_async_wait<1>();
+      bar_sync(kBarK, kWideGroup);  // chunk c is in; the slot of c - 1
+                                    // has no reader left
+      // chunk c + 2: of this tile, or the next's
+      const bool here = c + 2 < 16;
+      const int tn = here ? t : t + 1;
+      if (tn < B.t_end)
+        wide_issue_k(kring + (slot + 2) % 3 * kWideKSlot, B.kb, B.kv_stride,
+                     tn, here ? c + 2 : c - 14, B.k_begin, B.k_end, B.tid);
+      cp_async_commit();
+      if (!live) continue;
+      const float* sK = kring + slot * kWideKSlot;
+      const float* qc = sQ + kWideRows * warp * LD + 16 * c;
+      if (w.n == 8)
+        wide_qk<true>(s, qc, sK, lane, 8);
+      else
+        wide_qk<false>(s, qc, sK, lane, w.n);
+    }
+    // the accumulators are done with the previous tile's p.  A warp that
+    // is not live runs this too, in step with the others: with no chunk
+    // of its own it writes no p, and m and l come out unchanged
+    bar_sync(kBarPEmpty, kWideThreads);
+    {
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) {
+        const int qp = B.w0 + i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int kp = kc + 32 * j + lane;
+          bool ok = live && j < w.n && kp < B.S;
+          if (B.causal) ok = ok && kp <= qp;
+          if (B.window > 0) ok = ok && kp > qp - B.window;
+          s[i][j] = ok ? s[i][j] * B.scale : kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_old = sM[kWideRows * warp + i];
+        const float m_new = fmaxf(m_old, group_max<32>(mx));
+        const float corr = expf(m_old - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (!live || j >= w.n) continue;
+          const float p = expf(s[i][j] - m_new);
+          sPw[i * LD + 32 * j + lane] = p;
+          sum += p;
+        }
+        const float l_new =
+            sL[kWideRows * warp + i] * corr + group_sum<32>(sum);
+        __syncwarp();  // every lane has read the row's sM and sL
+        if (lane == 0) {
+          sM[kWideRows * warp + i] = m_new;
+          sL[kWideRows * warp + i] = l_new;
+          sC[kWideRows * warp + i] = corr;
+        }
+      }
+    }
+    bar_arrive(kBarPFull, kWideThreads);
+  }
+}
+
+// The accumulators: for every tile, rescale by sC, then acc += p v over the
+// V ring; at the end, the outputs of the warp's rows.
+__device__ __forceinline__ void wide_outputs(const WideBlock& B,
+                                             float* smem, float* ob,
+                                             size_t q_stride) {
+  constexpr int LD = kWideLD;
+  const float *sP = smem + kWideP, *sL = smem + kWideL, *sC = smem + kWideC;
+  float* vring = smem + kWideV;
+  const int lane = B.lane, warp = B.warp;
+  const float* sPw = sP + kWideRows * warp * LD;
+  float acc[kWideRows][8];
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i)
+#pragma unroll
+    for (int x = 0; x < 8; ++x) acc[i][x] = 0.0f;
+  int slot = 0;
+  for (int t = B.t_begin; t < B.t_end; ++t) {
+    const WideTile w = wide_tile(t, B.k_begin, B.k_end);
+    const bool live = wide_live(B, w);
+    bar_sync(kBarPFull, kWideThreads);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) {
+        const float corr = sC[kWideRows * warp + i];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[i][x] *= corr;
+      }
+    }
+    for (int idx = 0; idx < 2 * w.n; ++idx, slot ^= 1) {
+      cp_async_wait<0>();
+      bar_sync(kBarV, kWideGroup);
+      const bool here = idx + 1 < 2 * w.n;  // chunk idx + 1, or the next
+      const int tn = here ? t : t + 1;       // tile's first
+      if (tn < B.t_end)
+        wide_issue_v(vring + (slot ^ 1) * kWideVSlot, B.vb, B.kv_stride, tn,
+                     here ? idx + 1 : 0, B.k_begin, B.k_end, B.tid);
+      cp_async_commit();
+      if (!live) continue;
+      // acc[row][col] += sum_key p[row][key] * v[key][col] over V's 16
+      // keys, keys in order
+      const float* sV = vring + slot * kWideVSlot;
+      const float* pc = sPw + 16 * idx;
+#pragma unroll 4
+      for (int kk = 0; kk < 16; kk += 2) {
+        float2 p[kWideRows];
+#pragma unroll
+        for (int i = 0; i < kWideRows; ++i)
+          p[i] = *reinterpret_cast<const float2*>(pc + i * LD + kk);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float vv[8];
+          lds4(vv, sV + (kk + u) * LD + 4 * lane);
+          lds4(vv + 4, sV + (kk + u) * LD + 128 + 4 * lane);
+#pragma unroll
+          for (int i = 0; i < kWideRows; ++i)
+#pragma unroll
+            for (int x = 0; x < 8; ++x)
+              acc[i][x] = __fmaf_rn(u ? p[i].y : p[i].x, vv[x], acc[i][x]);
+        }
+      }
+    }
+    if (t + 1 < B.t_end) bar_arrive(kBarPEmpty, kWideThreads);
+  }
+  cp_async_wait<0>();
+  bar_sync(kBarDone, kWideThreads);  // the scorers' row sums are final
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i) {
+    const int qp = B.w0 + i;
+    if (qp >= B.S) continue;
+    const float denom = fmaxf(sL[kWideRows * warp + i], 1e-20f);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride + 128 * e +
+                                 4 * lane) =
+          make_float4(acc[i][4 * e] / denom, acc[i][4 * e + 1] / denom,
+                      acc[i][4 * e + 2] / denom, acc[i][4 * e + 3] / denom);
+  }
+}
+
+// The launch's view of one warp of either group (blockIdx, threadIdx).
+__device__ __forceinline__ WideBlock wide_block(const float* k,
+                                                const float* v, int S,
+                                                int H, int KH, int causal,
+                                                int window, float scale) {
+  WideBlock B;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * kBQ;  // heaviest first
+  const int kvh = (int)blockIdx.x / (H / KH);
+  B.S = S;
+  B.causal = causal;
+  B.window = window;
+  B.scale = scale;
+  B.kv_stride = (size_t)KH * kDH256;  // between positions of k / v
+  B.kb = k + (size_t)blockIdx.y * S * B.kv_stride + (size_t)kvh * kDH256;
+  B.vb = v + (size_t)blockIdx.y * S * B.kv_stride + (size_t)kvh * kDH256;
+  B.tid = threadIdx.x & (kWideGroup - 1);
+  B.lane = B.tid & 31;
+  B.warp = B.tid >> 5;
+  B.q0 = q0;
+  B.w0 = q0 + kWideRows * B.warp;
+  B.k_end = causal ? min(q0 + kBQ, S) : S;
+  B.k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  B.t_begin = B.k_begin / kWideBK;
+  B.t_end = (B.k_end + kWideBK - 1) / kWideBK;
+  return B;
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_fwd_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int S, int H, int KH, int causal, int window,
+                      float scale) {
+  constexpr int LD = kWideLD;
+  static_assert(kBQ == kWideRows * kWideWarps, "whole warps of rows");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const size_t q_stride = (size_t)H * kDH256;    // between positions of q, o
+  const size_t bh = (size_t)blockIdx.y * S * q_stride + blockIdx.x * kDH256;
+
+  // 128 registers a thread at launch; the scorers take 136 (64 scores, q
+  // and k fragments), the accumulators give up 8 (64 outputs, p and v
+  // fragments need fewer).  setmaxnreg counts in multiples of 8.
+  if (threadIdx.x < kWideGroup) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 136;\n" ::);
+    const WideBlock B = wide_block(k, v, S, H, KH, causal, window, scale);
+#pragma unroll
+    for (int m = 0; m < kBQ * kDH256 / 4 / kWideGroup; ++m) {
+      const int f = B.tid + m * kWideGroup;
+      const int r = f >> 6, c = (f & 63) * 4;
+      const bool in = B.q0 + r < S;
+      cp_async16(smem + r * LD + c,
+                 q + bh + (size_t)(in ? B.q0 + r : 0) * q_stride + c, in);
+    }
+    wide_issue_k(smem + kWideK, B.kb, B.kv_stride, B.t_begin, 0, B.k_begin,
+                 B.k_end, B.tid);
+    cp_async_commit();
+    if (B.lane < kWideRows) {
+      smem[kWideM + kWideRows * B.warp + B.lane] = kNegInf;
+      smem[kWideL + kWideRows * B.warp + B.lane] = 0.0f;
+    }
+    wide_scores(B, smem);
+    cp_async_wait<0>();  // no copy may be in flight when a thread exits
+    bar_arrive(kBarDone, kWideThreads);
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n" ::);
+    const WideBlock B = wide_block(k, v, S, H, KH, causal, window, scale);
+    wide_issue_v(smem + kWideV, B.vb, B.kv_stride, B.t_begin, 0,
+                 B.k_begin, B.k_end, B.tid);
+    cp_async_commit();
+    bar_arrive(kBarPEmpty, kWideThreads);  // the probability tile is free
+    wide_outputs(B, smem, o + bh, q_stride);
+  }
+}
+
+int launch_flash_wide(const float* q, const float* k, const float* v,
+                      float* o, int B, int S, int H, int KH, int causal,
+                      int window, float scale, cudaStream_t stream) {
+  constexpr int smem = flash_wide_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
+  flash_fwd_wide_kernel<<<grid, kWideThreads, smem, stream>>>(
+      q, k, v, o, S, H, KH, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ decode
 // Lane mapping of a cache row: VEC floats per lane (16-byte loads), LG
 // lanes per row, U positions per lane group per step, STEP = NGR * U
@@ -891,9 +1574,22 @@ int att_flash(const float* q, const float* k, const float* v, float* o, int B,
     case 32: return launch_flash<32>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 64: return launch_flash_tiled<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     case 128: return launch_flash_tiled<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 256: return launch_flash<256>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 256: return launch_flash_narrow(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// att_flash at dh 256 through the wide kernel, for key spans of a whole
+// 256-key tile or more (the launcher's rule:
+// kernels/flash_attention.py::wide_tiles).
+int att_flash_wide(const float* q, const float* k, const float* v, float* o,
+                   int B, int S, int H, int KH, int dh, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  if (B <= 0 || S <= 0) return (int)cudaGetLastError();
+  if (dh != kDH256 || KH <= 0 || H % KH != 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_flash_wide(q, k, v, o, B, S, H, KH, causal, window, scale,
+                           stream);
 }
 
 // o[b,h] = attention of q[b,h] over cache positions [lo, hi), cut into

@@ -25,11 +25,17 @@ from . import ref
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"flash_attention": 0}
+# The C entry point of the last launch: att_flash, or att_flash_wide (dh 256
+# where wide_tiles holds).
+LAST_ENTRY = {"flash_attention": None}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+BQ = 64           # query rows of a block (csrc/attention.cu: kBQ)
+WIDE_KEYS = 256   # keys of a tile of the wide dh-256 kernel (kWideBK)
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+    LAST_ENTRY["flash_attention"] = None
 
 
 def _window(window: Optional[int]) -> int:
@@ -40,6 +46,32 @@ def _window(window: Optional[int]) -> int:
     return int(window)
 
 
+def wide_tiles(S: int, causal: bool, window: Optional[int]) -> bool:
+    """Whether a dh-256 call runs the wide kernel (``att_flash_wide``)
+    rather than the narrow one (``att_flash``): where the block of BQ
+    query rows that sees the most keys sees a whole WIDE_KEYS tile.  A
+    causal window of w keys limits that span to w + BQ - 1; without a
+    window, or without the causal mask, the span is S.  Below a tile the
+    wide kernel still walks all 16 K chunks of a tile for few keys, and
+    the narrow kernel is faster (PERF.md, Findings)."""
+    span = S if window is None or not causal else min(S, window + BQ - 1)
+    return span >= WIDE_KEYS
+
+
+def _att_flash(entry: str, q, k, v, causal: bool, window: Optional[int]):
+    """One launch of the C entry ``entry`` on checked tensors; returns the
+    output and counts the launch."""
+    B, S, H, dh = q.shape
+    out = torch.empty_like(q)
+    _raise_on(getattr(library("attention"), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        k.shape[2], dh, int(causal), _window(window), 1.0 / math.sqrt(dh),
+        _stream(q)), entry)
+    LAUNCHES["flash_attention"] += 1
+    LAST_ENTRY["flash_attention"] = entry
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
@@ -48,13 +80,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Replaces ``repro/kernels/flash_attention.py:flash_attention``.  Bound:
     operations (4*dh FLOPs per query-key pair the masks keep).  Design
-    (source header): a block per (64 query rows, head, batch row), key
-    tiles of 64 in shared memory, online softmax in registers; any S,
-    causal or not, optional sliding window.  Two templates: at dh 64 and
-    128, 128 threads, each with a 4 x 8 score tile and 4 x dh/8
-    accumulator fed by 16-byte shared loads, q, k and v staged with
-    16-byte global loads; at dh 16, 32 and 256, 256 threads with a 4 x 4
-    tile fed by scalar loads.  q, k and v must be 16-byte aligned."""
+    (source header): a block per (64 query rows, head, batch row), the
+    grid (head, batch row, q tile) with the heaviest causal tiles first,
+    key tiles staged in shared memory, online softmax; any S, causal or
+    not, optional sliding window.  By head dim:
+
+    * dh 64, 128: 128 threads, a 4 x 8 score tile and 4 x dh/8
+      accumulator a thread fed by 16-byte shared loads.
+    * dh 256, key spans under a 256-key tile (``wide_tiles`` false, e.g.
+      recurrentgemma-2b's 32-token prompt): 8 warps of 8 rows, a 2 x 4
+      score tile and 2 x 32 accumulator a thread, 32-key K/V stages
+      loaded by cp.async while the previous stage is used; 209,920 bytes
+      of shared memory, one block an SM.
+    * dh 256, longer spans: two groups of 8 warps on the same 64 rows,
+      8 x 8 scores a lane in one and 8 x 8 outputs in the other, p passed
+      between them in shared memory; 256-key tiles whose K arrives in
+      16-column chunks through a three-slot cp.async ring and V in
+      16-key chunks through a two-slot one; 136 registers a scorer and
+      120 an accumulator thread (setmaxnreg), 228,608 bytes of shared
+      memory.
+    * dh 16, 32: 256 threads with a 4 x 4 tile fed by scalar loads.
+
+    q, k and v must be 16-byte aligned."""
     _on_cuda(q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q: expected [B, S, H, dh], got {tuple(q.shape)}")
@@ -70,13 +117,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
-    out = torch.empty_like(q)
-    _raise_on(library("attention").att_flash(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KH, dh, int(causal), _window(window), 1.0 / math.sqrt(dh),
-        _stream(q)), "att_flash")
-    LAUNCHES["flash_attention"] += 1
-    return out
+    wide = dh == 256 and wide_tiles(S, causal, window)
+    return _att_flash("att_flash_wide" if wide else "att_flash", q, k, v,
+                      causal, window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -100,14 +100,25 @@ def test_flash_twin_at_ragged_s(jax_side, S, causal, window):
     np.testing.assert_allclose(got, np.asarray(chunked), **TOL)
 
 
+# the edges of the dh-256 kernel's tiles (64 query rows, 8 a warp; 32-key
+# stages): a single position, recurrentgemma-2b's serve prefill, one row
+# past a tile, a ragged last tile, a window narrower than a thread's keys
+# (kx + 8j spans 25), one sequence's long prefill, a non-causal prompt
+RG_EDGES = [(1, 10, 1, 1, 256, True, 2048), (4, 10, 1, 32, 256, True, 2048),
+            (1, 10, 1, 65, 256, True, 2048), (1, 10, 1, 2047, 256, True, 2048),
+            (2, 10, 1, 300, 256, True, 5), (1, 10, 1, 2048, 256, True, 2048),
+            (1, 10, 1, 300, 256, False, None)]
+
+
 @pytest.mark.parametrize("B,H,KH,S,dh,causal,window", [
     (1, 12, 4, 100, 64, True, None), (1, 4, 4, 65, 64, False, None),
     (2, 12, 4, 70, 64, True, 7), (1, 6, 2, 90, 128, True, None),
-    (1, 12, 4, 1, 64, True, None), (1, 4, 2, 66, 128, False, 9)])
+    (1, 12, 4, 1, 64, True, None), (1, 4, 2, 66, 128, False, 9)] + RG_EDGES)
 def test_flash_twin_at_tile_edges(jax_side, B, H, KH, S, dh, causal, window):
-    """The dh 64 / 128 kernel's tile edges (ragged last tile, G = 1 or 3,
-    a window narrower than 8 keys, S = 1): the twin, which the card-only
-    test holds the kernel to, against repro's oracle."""
+    """The tile edges of the dh 64 / 128 kernel (ragged last tile, G = 1 or
+    3, a window narrower than 8 keys, S = 1) and of the dh-256 kernel
+    (RG_EDGES): the twin, which the card-only test holds the kernel to,
+    against repro's oracle."""
     jnp, _, jref, _ = jax_side
     q, k, v = _qkv(B, H, KH, S, dh, seed=S)
     got = ref.flash_attention_ref(*_t(q, k, v), causal=causal,
@@ -116,6 +127,39 @@ def test_flash_twin_at_tile_edges(jax_side, B, H, KH, S, dh, causal, window):
         *(jnp.asarray(_heads_first(x)) for x in (q, k, v)), causal=causal,
         window=window)
     np.testing.assert_allclose(got, _heads_first(np.asarray(oracle)), **TOL)
+
+
+# (S, causal, window, wide): recurrentgemma-2b's serve prompt and long
+# prefill, the card tests' dh-256 edges, and the tile's edge (255 / 256
+# keys; a causal window's span is window + 63)
+WIDE_RULE = [(32, True, 2048, False), (2048, True, 2048, True),
+             (1, True, 2048, False), (65, True, 2048, False),
+             (2047, True, 2048, True), (300, True, 5, False),
+             (300, False, None, True), (1037, True, 300, True),
+             (255, True, None, False), (256, True, None, True),
+             (300, False, 5, True), (2048, True, 192, False),
+             (2048, True, 193, True)]
+
+
+@pytest.mark.parametrize("S,causal,window,wide", WIDE_RULE)
+def test_flash_wide_rule(S, causal, window, wide):
+    """dh 256 runs the wide kernel where a block of 64 query rows can see
+    a whole 256-key tile, the narrow one below that."""
+    assert fa.wide_tiles(S, causal, window) is wide
+
+
+def test_flash_tiles_mirror_the_kernel():
+    """The launcher's BQ and WIDE_KEYS are the source's kBQ and kWideBK,
+    att_flash runs the narrow kernel at dh 256 and att_flash_wide the
+    wide one, and both entries are bound."""
+    src = (build.CSRC / "attention.cu").read_text()
+    for line in ("constexpr int kBQ = 64;", "constexpr int kWideBK = 256;",
+                 "case 256: return launch_flash_narrow(",
+                 "return launch_flash_wide(q, k, v, o, B, S, H, KH, causal,"):
+        assert line in src, line
+    assert (fa.BQ, fa.WIDE_KEYS) == (64, 256)
+    assert {"att_flash", "att_flash_wide"} <= set(
+        build.SIGNATURES["attention"])
 
 
 def _count_calls(monkeypatch, name):
@@ -283,10 +327,11 @@ CARD_FLASH = [(4, 12, 4, 32, 64, True, None), (2, 12, 4, 1000, 64, True, 256),
               (2, 10, 1, 1037, 256, True, 300)] + [
     # the edges of the dh 64 / 128 template's 4 x 8 tile: a ragged last
     # tile, one query head per kv head past one tile, a window narrower
-    # than a thread's 8 keys, G = 3 at dh 128, a single position
+    # than a thread's 8 keys, G = 3 at dh 128, a single position; then the
+    # dh-256 kernel's edges (RG_EDGES)
     (1, 12, 4, 1000, 64, True, None), (1, 4, 4, 65, 64, False, None),
     (2, 12, 4, 300, 64, True, 7), (1, 6, 2, 200, 128, True, None),
-    (1, 12, 4, 1, 64, True, None)]
+    (1, 12, 4, 1, 64, True, None)] + RG_EDGES
 # (B, H, KH, L, dh, cache_len, window); at dh 256 the local ring (2048
 # slots, full and partly filled) and a ragged cache
 CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
@@ -316,6 +361,25 @@ def test_cuda_flash_matches_twin(hopper, B, H, KH, S, dh, causal, window):
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                   # bitwise stable
     assert fa.LAUNCHES == {"flash_attention": 2}
+    wide = dh == 256 and fa.wide_tiles(S, causal, window)
+    assert fa.LAST_ENTRY["flash_attention"] == (
+        "att_flash_wide" if wide else "att_flash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["att_flash", "att_flash_wide"])
+@pytest.mark.parametrize("B,H,KH,S,dh,causal,window",
+                         [c for c in CARD_FLASH if c[4] == 256])
+def test_cuda_dh256_kernels_match_twin(hopper, entry, B, H, KH, S, dh,
+                                       causal, window):
+    """Both dh-256 kernels at every dh-256 card shape, whichever the
+    launcher's rule would pick there."""
+    q, k, v = (x.to(hopper) for x in _t(*_qkv(B, H, KH, S, dh, seed=S)))
+    got = fa._att_flash(entry, q, k, v, causal, window)
+    again = fa._att_flash(entry, q, k, v, causal, window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -355,6 +419,8 @@ def test_cuda_launchers_reject_what_the_kernels_do_not_take(hopper):
     shifted.copy_(q64)                       # contiguous, 4 bytes off the grid
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(shifted, k64, v64)
+    with pytest.raises(RuntimeError):                    # the wide kernel:
+        fa._att_flash("att_flash_wide", q64, k64, v64, True, None)  # dh 256
     qd, kc, vc = (x.to(hopper) for x in _t(*_cache(1, 10, 2, 16, 32)))
     with pytest.raises(ValueError):
         da.decode_attention_cuda(qd, kc, vc, 8)          # 5 heads per kv head
