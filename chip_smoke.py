@@ -172,10 +172,13 @@ Phases (each raises on failure; nothing is caught):
      tick at one and two stripes, beside the card's name and power limit;
  22. training: (a) the scan's backward kernel (rglru_scan_bwd, no Pallas
      counterpart) bitwise its twin's backward at B=4 S=2048 D=2560 with
-     h0, B=1 S=2048, the ragged B=3 S=1000 D=2597 with h0 and the
-     training microbatch's B=2 S=128, with times beside the twin's and the
-     bound; (b) repro_torch.launch.train.run at its defaults -- full
-     flaas-100m, 20 steps of B=8 x 128, noise 0.2, checkpoints every 10
+     h0, B=1 S=2048, the ragged B=3 S=1000 D=2597 with h0 (the direct
+     path), the training microbatch's B=2 S=128 and B=2 S=1000 D=2560
+     with h0 (a stage that does not divide S), each with the stage it ran
+     and its time beside the twin's and the bound, and the ring kernel
+     free of spills in phase 2; (b) repro_torch.launch.train.run at its
+     defaults -- full flaas-100m, 20 steps of B=8 x 128, noise 0.2,
+     checkpoints every 10
      -- then the step-20 checkpoint deleted and steps 10-19 rerun from
      step 10: metrics, parameters and optimizer state bitwise; one step
      traced (wall, card busy share, top kernels); one step without noise
@@ -274,10 +277,12 @@ RG_BWD_NOTE = ("no Pallas counterpart: the gradient of "
 # of 128 tokens, two microbatches of 2, so the scan runs at B=2 S=128
 RG_TRAIN = dict(n_layers=3, batch=4, seq=128, steps=2)
 # (name, B, S, D, with h0): phase 14's long prefill, one sequence's,
-# the ragged direct-path shape, the training microbatch's
+# the ragged direct-path shape, the training microbatch's, and an S that
+# the ring's stage (24) does not divide
 RG_BWD_CASES = [("2k", 4, 2048, 2560, True), ("b1-2k", 1, 2048, 2560, False),
                 ("ragged", 3, 1000, 2560 + 37, True),
-                ("train", 2, 128, 2560, False)]
+                ("train", 2, 128, 2560, False),
+                ("ragged-s", 2, 1000, 2560, True)]
 RTOL_TRAIN = 1e-5              # phase 22: card vs CPU loss, relative
 GRAD_RTOL_TRAIN = 1e-4         # card vs CPU gradients, of the largest |g|
 REPLACES = {
@@ -475,6 +480,9 @@ def phase_build():
                 entry = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {entry}: {line.strip()}")
+                if "rg_scan_bwd_ring" in entry and "spill" in line:
+                    assert line.count(" 0 bytes spill") == 2, \
+                        f"{entry} spills: {line.strip()}"
     log(f"build total {time.perf_counter() - t0:.2f} s")
 
 
@@ -2803,13 +2811,19 @@ def _scan_bwd_cases(card):
         plain = time_ms(lambda: _twin_scan_bwd(a, h, g, h0), 1, 3)
         nbytes = 4 * (5 * B * S * D + (2 * B * D if with_h0 else 0))
         bnd, by = bound_ms(nbytes, 3 * B * S * D)
+        stage = rg_lru.scan_bwd_geometry(B, S, D)  # fresh: 16-byte aligned
+        geo = (f"stage {stage}, ring of {rg_lru.SCAN_STAGES * stage} steps "
+               f"({(rg_lru.SCAN_STAGES - 1) * stage * 12 * B * D} B in "
+               f"flight), {rg_lru.SCAN_BWD_CHANNELS} channels a block"
+               if stage else f"stage 0: direct path (no ring), "
+               f"{rg_lru.SCAN_CHANNELS} channels a block")
         log(f"  rglru_scan_bwd   {shape}: bitwise (dL/da, dL/db"
             + (", dL/dh0" if with_h0 else "") + f"), stable  kernel "
             f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
-            f"{card}), share {bnd / ms:.3f}; no single PyTorch call "
+            f"{card}), share {bnd / ms:.3f}; {geo}; no single PyTorch call "
             "computes it")
         nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                    library_ms=None, shape=shape)
+                    library_ms=None, shape=shape, stage=stage)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["by_shape"][label] = nums
         if label == "2k":                  # the JSON line's shape

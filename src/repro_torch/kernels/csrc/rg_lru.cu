@@ -59,6 +59,26 @@
 // 0 from the launcher: the direct path, no ring, the next kAhead steps
 // loaded into registers (one load round, one FMA and one store at S = 1).
 // The last block masks a ragged D; any S.
+//
+// The gradient (rg_scan_bwd_at) has the same two paths.  Its chain runs
+// from t = S - 1 down and moves 20 bytes a step and channel (a, dL/dh and
+// h_{t-1} read, dL/da and dL/db written).  The parent's register prefetch
+// of kAhead steps kept 0.5-2 MB in flight and ran at 0.20 of the bound at
+// B = 1.  rg_scan_bwd_ring_kernel streams a, dL/dh and h through three
+// rings of kStages slots a warp, stages on multiples of `stage` walked
+// from the last (the h box one step earlier, so that its row r holds
+// h_{t-1} of the a row r), and stores dL/da and dL/db as boxes from two
+// slots each: (3 kStages + 4) x stage x 128 bytes a warp, 98,304 at the
+// largest stage.  Where the stage does not divide S the first stage runs
+// past S: those rows load as zeros, which keep the carry +0, and are
+// clipped on store; the h row of step 0 is overwritten with h0 (or 0).
+// The launcher takes the largest stage that keeps at most 4.5 MB of the
+// three operands in flight (rg_lru.py:scan_bwd_geometry): 8 steps at B*D
+// = 10,240, 24 at 5,120, 48 at 2,560.  On an H100 a larger stage was
+// faster up to ~4.4 MB in flight and 3-16% slower past it; one-warp
+// blocks (kBwdChannels) put B = 1 x D = 2,560 on 80 SMs and beat two-warp
+// blocks there (PERF.md).  Stage 0 (S < 32, D % 4 != 0, operands off
+// 16-byte alignment) runs rg_scan_bwd_kernel, the direct path.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -70,6 +90,7 @@ constexpr int kStages = 4;       // ring slots
 constexpr int kStep = 8;         // a stage is a multiple of kStep steps
 constexpr int kStageMax = 48;    // steps a stage
 constexpr int kChannels = 64;    // channels (threads) a block
+constexpr int kBwdChannels = 32; // the gradient's ring: channels a block
 constexpr int kAhead = 16;       // direct path: steps loaded ahead
 
 // A warp's shared memory, in floats: the a and b rings (kStages slots of
@@ -81,6 +102,15 @@ __host__ __device__ constexpr size_t warp_floats(int stage) {
 __host__ __device__ constexpr size_t smem_bytes(int stage) {
   return (size_t)(kChannels / 32) *
          (warp_floats(stage) * sizeof(float) + kStages * sizeof(uint64_t));
+}
+// The gradient's ring, per warp: the a, dL/dh and h rings and two slots
+// each of dL/da and dL/db; per block, its warps' and their mbarriers.
+__host__ __device__ constexpr size_t bwd_warp_floats(int stage) {
+  return (size_t)(3 * kStages + 4) * stage * 32;
+}
+__host__ __device__ constexpr size_t bwd_smem_bytes(int stage) {
+  return (size_t)(kBwdChannels / 32) *
+         (bwd_warp_floats(stage) * sizeof(float) + kStages * sizeof(uint64_t));
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -115,14 +145,23 @@ __device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(t), "r"(r),
       "r"(smem_u32(bar)) : "memory");
 }
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const float* src, int c, int t,
-                                          int r) {
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map,
+                                              const float* src, int c, int t,
+                                              int r) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, "
       "%3}], [%4];" ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(t),
       "r"(r), "r"(smem_u32(src)) : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// one box, its own bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const float* src, int c, int t,
+                                          int r) {
+  tma_store_box(map, src, c, t, r);
+  tma_store_commit();
 }
 template <int kPending>
 __device__ __forceinline__ void tma_store_wait_read() {
@@ -264,11 +303,13 @@ rg_scan_ring_kernel(const float* __restrict__ h0, int S, int D, int stage,
 //
 // Bound: bytes.  a, dL/dh and h are read once, dL/da and dL/db written
 // once: 20*B*S*D bytes, 0.1252 ms at B=4, S=2048, D=2560 on an H100 SXM.
-// Design: the forward's direct path run backward -- one thread a (b, d)
-// channel, a warp 32 consecutive channels (coalesced rows), the next
-// kAhead steps of a, dL/dh and h_{t-1} loaded into registers while the
-// current kAhead are folded.  Any B (up to 65,535), S and D; a ragged D
-// masked in the last block.
+// Two kernels, as in the forward: rg_scan_bwd_ring_kernel (below) where
+// the launcher gives a stage, and this one, the direct path, at stage 0:
+// the forward's direct path run backward -- one thread a (b, d) channel,
+// a warp 32 consecutive channels (coalesced rows), the next kAhead steps
+// of a, dL/dh and h_{t-1} loaded into registers while the current kAhead
+// are folded.  Any B (up to 65,535), S and D; a ragged D masked in the
+// last block.
 __global__ void __launch_bounds__(kChannels)
 rg_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ gh,
                    const float* __restrict__ h, const float* __restrict__ h0,
@@ -320,6 +361,114 @@ rg_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ gh,
   if (dh0 != nullptr) dh0[row * D + d] = carry;
 }
 
+// The gradient's ring path: rg_scan_ring_kernel's design run from the
+// end of S down.  Each warp owns 32 channels, three input rings (a, dL/dh
+// and h) of kStages slots of `stage` steps, and two slots each of dL/da
+// and dL/db (bwd_warp_floats).  Stages sit on multiples of `stage` from
+// step 0: stage st covers steps [t_lo, t_lo + stage) with t_lo = (nst - 1
+// - st) * stage, in slot st % kStages; the next kStages - 1 stages are in
+// flight while one is folded.  Lane 0 loads a stage's a and dL/dh boxes
+// at step t_lo and its h box at t_lo - 1, so that row r of the h slot
+// holds h_{t-1} of step t = t_lo + r; all three count on the slot's
+// mbarrier.  Where the stage does not divide S, the first stage runs past
+// S: the tensor maps zero-fill those rows (and rows past D) and clip them
+// on store, and folding zeros keeps the carry +0, as it starts.  The h
+// row of step 0 (at step -1, zero-filled) is overwritten with h0 (or 0)
+// before the last stage's fold; no later stage refills that slot.
+// (Stages cut from S down instead, the last starting before step 0, put
+// the a, dL/dh, dL/da and dL/db boxes at negative steps; on an H100 that
+// faulted with an illegal instruction.)  The warp writes dL/da and dL/db
+// into the slot pair st & 1 and lane 0 stores both as boxes in one bulk
+// group.
+__global__ void __launch_bounds__(kBwdChannels)
+rg_scan_bwd_ring_kernel(const float* __restrict__ h0,
+                        float* __restrict__ dh0, int S, int D, int stage,
+                        const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap th,
+                        const __grid_constant__ CUtensorMap tda,
+                        const __grid_constant__ CUtensorMap tdb) {
+  extern __shared__ __align__(128) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w0 = blockIdx.x * kBwdChannels + warp * 32;  // warp's 1st channel
+  if (w0 >= D) return;                                   // the whole warp
+  const int d = w0 + lane;
+  const int row = blockIdx.y;
+  const int slot = stage * 32;                           // floats a slot
+  float* ra = smem + warp * bwd_warp_floats(stage);
+  float* rg = ra + kStages * slot;
+  float* rh = rg + kStages * slot;
+  float* rda = rh + kStages * slot;
+  float* rdb = rda + 2 * slot;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+                       smem + (kBwdChannels / 32) * bwd_warp_floats(stage)) +
+                   warp * kStages;
+  const int nst = (S + stage - 1) / stage;
+
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+
+  // Start stage st's loads into slot st % kStages.
+  auto issue = [&](int st) {
+    if (lane == 0 && st < nst) {
+      const int s = st % kStages;
+      const int t_lo = (nst - 1 - st) * stage;
+      mbar_expect(bars + s, 3u * (unsigned)slot * 4u);
+      tma_load(ra + s * slot, &ta, w0, t_lo, row, bars + s);
+      tma_load(rg + s * slot, &tg, w0, t_lo, row, bars + s);
+      tma_load(rh + s * slot, &th, w0, t_lo - 1, row, bars + s);
+    }
+  };
+
+  for (int st = 0; st < kStages - 1; ++st) issue(st);
+  const float first = d < D && h0 != nullptr ? h0[(size_t)row * D + d] : 0.0f;
+  float carry = 0.0f;
+  for (int st = 0; st < nst; ++st) {
+    __syncwarp();   // every lane is done with the slot this refills
+    issue(st + kStages - 1);
+    const int s = st % kStages;
+    const int t_lo = (nst - 1 - st) * stage;
+    const float* sa = ra + s * slot + lane;
+    const float* sg = rg + s * slot + lane;
+    float* sh = rh + s * slot + lane;
+    mbar_wait(bars + s, (unsigned)(st / kStages) & 1u);
+    if (lane == 0) tma_store_wait_read<1>();     // slot pair's stores of st - 2
+    __syncwarp();
+    if (t_lo == 0) sh[0] = first;                // h_{-1} of step 0
+    float* oa = rda + (st & 1) * slot + lane;
+    float* ob = rdb + (st & 1) * slot + lane;
+    for (int u = stage - kStep; u >= 0; u -= kStep) {
+      float av[kStep], gv[kStep], pv[kStep];
+#pragma unroll
+      for (int v = 0; v < kStep; ++v) {
+        av[v] = sa[(u + v) * 32];
+        gv[v] = sg[(u + v) * 32];
+        pv[v] = sh[(u + v) * 32];
+      }
+#pragma unroll
+      for (int v = kStep - 1; v >= 0; --v) {
+        carry = __fadd_rn(gv[v], carry);
+        ob[(u + v) * 32] = carry;
+        oa[(u + v) * 32] = __fmul_rn(carry, pv[v]);
+        carry = __fmul_rn(av[v], carry);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_box(&tda, oa - lane, w0, t_lo, row);
+      tma_store_box(&tdb, ob - lane, w0, t_lo, row);
+      tma_store_commit();
+    }
+  }
+  if (lane == 0) tma_store_wait_read<0>();
+  if (dh0 != nullptr && d < D) dh0[(size_t)row * D + d] = carry;
+}
+
 // cuTensorMapEncodeTiled from libcuda, found through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -356,10 +505,10 @@ bool box_map(CUtensorMap* map, const float* x, int B, int S, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool wide(const float* a, const float* b, const float* h, int D) {
-  return D % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(h) % 16 == 0;
+// Whether the tensor maps take [B, S, D] operands at these addresses.
+template <typename... P>
+bool wide(int D, const P*... x) {
+  return D % 4 == 0 && ((reinterpret_cast<uintptr_t>(x) % 16 == 0) && ...);
 }
 
 cudaError_t launch_ring(const float* a, const float* b, const float* h0,
@@ -380,6 +529,29 @@ cudaError_t launch_ring(const float* a, const float* b, const float* h0,
   return cudaGetLastError();
 }
 
+cudaError_t launch_bwd_ring(const float* a, const float* gh, const float* h,
+                            const float* h0, float* da, float* db, float* dh0,
+                            int B, int S, int D, int stage,
+                            cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      rg_scan_bwd_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bwd_smem_bytes(kStageMax));
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap maps[5];
+  if (!(box_map(&maps[0], a, B, S, D, stage) &&
+        box_map(&maps[1], gh, B, S, D, stage) &&
+        box_map(&maps[2], h, B, S, D, stage) &&
+        box_map(&maps[3], da, B, S, D, stage) &&
+        box_map(&maps[4], db, B, S, D, stage)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((D + kBwdChannels - 1) / kBwdChannels),
+                  (unsigned)B);
+  rg_scan_bwd_ring_kernel<<<grid, kBwdChannels, bwd_smem_bytes(stage),
+                            stream>>>(h0, dh0, S, D, stage, maps[0], maps[1],
+                                      maps[2], maps[3], maps[4]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -395,7 +567,7 @@ int rg_scan_at(const float* a, const float* b, const float* h0, float* h,
                int B, int S, int D, int stage, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || D <= 0) return (int)cudaGetLastError();
   if (B > 65535 || stage < 0 || stage > kStageMax || stage % kStep != 0 ||
-      (stage > 0 && !wide(a, b, h, D)))
+      (stage > 0 && !wide(D, a, b, h)))
     return (int)cudaErrorInvalidValue;
   if (stage > 0) return (int)launch_ring(a, b, h0, h, B, S, D, stage, stream);
   const dim3 grid((unsigned)((D + kChannels - 1) / kChannels), (unsigned)B);
@@ -403,15 +575,25 @@ int rg_scan_at(const float* a, const float* b, const float* h0, float* h,
   return (int)cudaGetLastError();
 }
 
-// The scan's gradient (rg_scan_bwd_kernel): da, db [B, S, D] and, when
-// dh0 is not null, dh0 [B, D] from a, gh = dL/dh and h [B, S, D] and h0
-// [B, D] (null: zeros).  Blocks of kChannels threads, grid (D / kChannels,
-// B).
-int rg_scan_bwd(const float* a, const float* gh, const float* h,
-                const float* h0, float* da, float* db, float* dh0, int B,
-                int S, int D, cudaStream_t stream) {
+// The scan's gradient: da, db [B, S, D] and, when dh0 is not null, dh0
+// [B, D] from a, gh = dL/dh and h [B, S, D] and h0 [B, D] (null: zeros).
+// Stage 0 runs the direct path (rg_scan_bwd_kernel, blocks of kChannels
+// threads); any other stage the ring (rg_scan_bwd_ring_kernel, blocks of
+// kBwdChannels) with stages of `stage` steps (a multiple of kStep, at
+// most kStageMax), which needs D % 4 == 0 and 16-byte aligned a, gh, h,
+// da and db.  The stage comes from the launcher
+// (rg_lru.py:scan_bwd_geometry); one it does not take returns
+// cudaErrorInvalidValue.
+int rg_scan_bwd_at(const float* a, const float* gh, const float* h,
+                   const float* h0, float* da, float* db, float* dh0, int B,
+                   int S, int D, int stage, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || D <= 0) return (int)cudaGetLastError();
-  if (B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 65535 || stage < 0 || stage > kStageMax || stage % kStep != 0 ||
+      (stage > 0 && !wide(D, a, gh, h, da, db)))
+    return (int)cudaErrorInvalidValue;
+  if (stage > 0)
+    return (int)launch_bwd_ring(a, gh, h, h0, da, db, dh0, B, S, D, stage,
+                                stream);
   const dim3 grid((unsigned)((D + kChannels - 1) / kChannels), (unsigned)B);
   rg_scan_bwd_kernel<<<grid, kChannels, 0, stream>>>(a, gh, h, h0, da, db,
                                                       dh0, S, D);

@@ -1,5 +1,5 @@
 """Launchers of the Hopper RG-LRU scan and its gradient (``csrc/rg_lru.cu``,
-``rg_scan_at`` and ``rg_scan_bwd``) and the dispatch the ``rec`` blocks
+``rg_scan_at`` and ``rg_scan_bwd_at``) and the dispatch the ``rec`` blocks
 call.
 
 :func:`rglru_scan_cuda` and :func:`rglru_scan_bwd_cuda` take CUDA tensors
@@ -32,7 +32,9 @@ SCAN_STAGES = 4              # kStages: ring slots a warp
 SCAN_STEP = 8                # kStep: a stage is a multiple of this many steps
 SCAN_STAGE_MAX = 48          # kStageMax: steps a stage
 SCAN_CHANNELS = 64           # kChannels: channels (threads) a block
+SCAN_BWD_CHANNELS = 32       # kBwdChannels: the gradient's ring's block
 SCAN_IN_FLIGHT = 3_500_000   # bytes of a and b to keep in flight
+SCAN_BWD_IN_FLIGHT = 4_500_000  # the gradient's: at most, a, dL/dh and h
 SMEM_MAX = 232_448           # shared memory a block may use on an H100
 
 
@@ -58,6 +60,34 @@ def scan_geometry(B: int, S: int, D: int) -> int:
     stage = _cdiv(_cdiv(ahead, SCAN_STAGES - 1), SCAN_STEP) * SCAN_STEP
     fit = S // SCAN_STAGES // SCAN_STEP * SCAN_STEP
     return min(stage, SCAN_STAGE_MAX, fit)
+
+
+def scan_bwd_geometry(B: int, S: int, D: int) -> int:
+    """Steps a stage of the scan's gradient over B rows x S steps x D
+    channels: each warp streams a, dL/dh and h through rings of
+    SCAN_STAGES slots of that many steps, from the end of S down; 0 runs
+    the direct path (no ring).
+
+    The largest stage, a multiple of SCAN_STEP, whose SCAN_STAGES - 1
+    stages in flight hold at most SCAN_BWD_IN_FLIGHT bytes of the three
+    operands (12 bytes a step and channel), and at least SCAN_STEP steps;
+    capped by SCAN_STAGE_MAX and so that the ring never exceeds S (S < 32
+    gives 0).  D % 4 != 0 gives 0.  On an H100 a larger stage was faster
+    up to ~4.4 MB in flight and slower past it (PERF.md)."""
+    if D % 4:
+        return 0
+    most = SCAN_BWD_IN_FLIGHT // ((SCAN_STAGES - 1) * 12 * B * D)
+    stage = max(most // SCAN_STEP * SCAN_STEP, SCAN_STEP)
+    fit = S // SCAN_STAGES // SCAN_STEP * SCAN_STEP
+    return min(stage, SCAN_STAGE_MAX, fit)
+
+
+def scan_bwd_smem(stage: int) -> int:
+    """Dynamic shared memory of a block on the gradient's ring, bytes:
+    each warp's a, dL/dh and h rings, its two slots each of dL/da and
+    dL/db, and its SCAN_STAGES mbarriers."""
+    return SCAN_BWD_CHANNELS // 32 * ((3 * SCAN_STAGES + 4) * stage * 32 * 4
+                                      + SCAN_STAGES * 8)
 
 
 def scan_smem(stage: int) -> int:
@@ -130,20 +160,28 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
 
     No Pallas kernel replaced: ``repro`` differentiates
     ``repro/models/recurrent.py:64 linear_scan`` (an associative scan) by
-    autodiff.  Contract: :meth:`_TwinScan.backward`, bitwise.  Bound:
-    bytes (a, grad_h and h read, dL/da and dL/db written: 20*B*S*D).
-    Design (source): one thread a (batch row, channel) walks t from S - 1
-    down, the next 16 steps' operands loaded ahead in registers, one
-    rounded add and two rounded products a step.  Any S and D; B up to
-    65,535."""
+    autodiff.  Contract: :meth:`_TwinScan.backward`, bitwise: one thread a
+    (batch row, channel) walks t from S - 1 down, one rounded add and two
+    rounded products a step.  Bound: bytes (a, grad_h and h read, dL/da
+    and dL/db written: 20*B*S*D).  Design (source header): each warp of
+    SCAN_BWD_CHANNELS-channel blocks streams a, grad_h and h through rings
+    of SCAN_STAGES slots in shared memory, filled from the end of S with
+    tensor-map boxes, and stores dL/da and dL/db as boxes from two slots
+    each; :func:`scan_bwd_geometry` takes the largest stage that keeps at
+    most SCAN_BWD_IN_FLIGHT bytes in flight (:func:`scan_bwd_smem` bytes a
+    block).  S < 32, D % 4 != 0 and operands off 16-byte alignment take
+    the direct path, which loads 16 steps ahead in registers.  Any S and
+    D; B up to 65,535."""
     _check_operands(("a", a), ("h", h), ("grad_h", grad_h), h0=h0)
     B, S, D = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    _raise_on(library("rg_lru").rg_scan_bwd(
+    stage = scan_bwd_geometry(B, S, D) \
+        if ring_takes(a, grad_h, h, da, db) else 0
+    _raise_on(library("rg_lru").rg_scan_bwd_at(
         a.data_ptr(), grad_h.data_ptr(), h.data_ptr(),
         None if h0 is None else h0.data_ptr(), da.data_ptr(), db.data_ptr(),
-        None if dh0 is None else dh0.data_ptr(), B, S, D, _stream(a)),
+        None if dh0 is None else dh0.data_ptr(), B, S, D, stage, _stream(a)),
         "rg_scan_bwd")
     BWD_LAUNCHES["rglru_scan_bwd"] += 1
     return da, db, dh0

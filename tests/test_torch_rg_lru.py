@@ -252,6 +252,90 @@ def test_scan_mode_by_alignment():
     assert rg_lru.scan_geometry(4, 800, 13) == 0
 
 
+# ------------------------------------------------- the gradient's geometry
+# GEO_SHAPES and the training microbatch's shape (chip_smoke.py RG_TRAIN)
+BWD_GEO_SHAPES = GEO_SHAPES + [(2, 128, 2560)]
+
+
+@pytest.mark.parametrize("B,S,D", BWD_GEO_SHAPES)
+def test_scan_bwd_geometry_keeps_its_invariants(B, S, D):
+    """The stages in flight hold at most SCAN_BWD_IN_FLIGHT bytes of a,
+    dL/dh and h unless the stage is SCAN_STEP, and the next larger stage
+    would hold more unless a cap binds; a block's rings fit the card's
+    shared memory; the ring never exceeds S; a stage is a multiple of
+    SCAN_STEP; S < 32 and D % 4 != 0 take the direct path."""
+    stage = rg_lru.scan_bwd_geometry(B, S, D)
+    assert stage % rg_lru.SCAN_STEP == 0 and 0 <= stage
+    assert rg_lru.SCAN_STAGES * stage <= S
+    assert (stage == 0) == (S < rg_lru.SCAN_STAGES * rg_lru.SCAN_STEP
+                            or D % 4 != 0)
+    assert rg_lru.scan_bwd_smem(stage) <= rg_lru.SMEM_MAX
+    if stage:
+        fit = S // rg_lru.SCAN_STAGES // rg_lru.SCAN_STEP * rg_lru.SCAN_STEP
+        ahead = (rg_lru.SCAN_STAGES - 1) * 12 * B * D
+        assert ahead * stage <= rg_lru.SCAN_BWD_IN_FLIGHT or \
+            stage == rg_lru.SCAN_STEP
+        assert ahead * (stage + rg_lru.SCAN_STEP) > \
+            rg_lru.SCAN_BWD_IN_FLIGHT or \
+            stage in (rg_lru.SCAN_STAGE_MAX, fit)
+
+
+def test_scan_bwd_smem_fits_at_every_stage():
+    """Every stage the C entry takes fits a block of the card's shared
+    memory, two blocks an SM at the largest."""
+    for stage in range(0, rg_lru.SCAN_STAGE_MAX + 1, rg_lru.SCAN_STEP):
+        assert rg_lru.scan_bwd_smem(stage) <= rg_lru.SMEM_MAX
+    assert 2 * rg_lru.scan_bwd_smem(rg_lru.SCAN_STAGE_MAX) <= \
+        rg_lru.SMEM_MAX
+    assert rg_lru.scan_bwd_smem(48) == 98_336
+
+
+# chip_smoke.py's RG_BWD_CASES: (B, S, D) -> (stage, ring, bytes in
+# flight, blocks of the kernel that runs)
+BWD_GEO_PINS = {(4, 2048, 2560): (8, 32, 2_949_120, 320),
+                (1, 2048, 2560): (48, 192, 4_423_680, 80),
+                (3, 1000, 2597): (0, 0, 0, 123),
+                (2, 128, 2560): (24, 96, 4_423_680, 160),
+                (2, 1000, 2560): (24, 96, 4_423_680, 160)}
+
+
+@pytest.mark.parametrize("shape", sorted(BWD_GEO_PINS))
+def test_scan_bwd_geometry_at_the_smoke_shapes(shape):
+    """The stage, ring, bytes in flight and blocks at chip_smoke.py's
+    backward shapes: the stage the card measured fastest at each B*D
+    (PERF.md) -- 8 steps at 10,240 (16 held 5.9 MB and lost), 24
+    at 5,120 (the training microbatch's 128 steps: the first stage runs
+    16 steps past S), the largest at 2,560 on 80 blocks of 32 channels
+    (one an SM); the ragged D on the direct path's 64-channel blocks."""
+    B, S, D = shape
+    stage = rg_lru.scan_bwd_geometry(B, S, D)
+    ch = rg_lru.SCAN_BWD_CHANNELS if stage else rg_lru.SCAN_CHANNELS
+    got = (stage, rg_lru.SCAN_STAGES * stage,
+           (rg_lru.SCAN_STAGES - 1) * stage * 12 * B * D, B * -(-D // ch))
+    assert got == BWD_GEO_PINS[shape]
+
+
+def test_scan_bwd_constants_mirror_the_source():
+    """The gradient's block and shared memory rule are the source's."""
+    src = (build.CSRC / "rg_lru.cu").read_text()
+    assert int(re.search(r"\bkBwdChannels = (\d+);", src).group(1)) == \
+        rg_lru.SCAN_BWD_CHANNELS
+    assert "(3 * kStages + 4) * stage * 32" in src
+    assert "rg_scan_bwd_at" in build.SIGNATURES["rg_lru"]
+
+
+def test_scan_bwd_mode_by_alignment():
+    """The gradient's ring where D % 4 == 0 and every operand is 16-byte
+    aligned; the direct path otherwise."""
+    buf = torch.zeros(4 * 800 * 12 + 1)
+    a, off = buf[:-1].view(4, 800, 12), buf[1:].view(4, 800, 12)
+    assert rg_lru.ring_takes(a, a, a, a, a)
+    assert not rg_lru.ring_takes(a, a, off, a, a)
+    assert rg_lru.scan_bwd_geometry(4, 800, 12) > 0
+    assert rg_lru.scan_bwd_geometry(4, 800, 13) == 0
+    assert rg_lru.scan_bwd_geometry(4, 31, 12) == 0
+
+
 # ------------------------------------------------------------ on the card
 # (B, S, D, with h0, forced stage or None for scan_geometry's): ragged S
 # and D, the decode shape (S = 1), the serve's widths; S one below, at and

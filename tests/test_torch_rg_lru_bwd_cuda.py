@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, reduced
-from repro_torch.kernels import rg_lru
+from repro_torch.kernels import build, rg_lru
 from repro_torch.models import Transformer, forward, lm_loss
 
 
@@ -45,10 +45,15 @@ def _twin_grads(a, b, h0, g):
 
 
 # (B, S, D, with h0): one step, one step past kAhead (16) and a multiple
-# of it, a D below a warp, a ragged D across blocks, serving widths
+# of it, a D below a warp, a ragged D across blocks, serving widths; the
+# ring's edges: S just below, at and above its smallest length (31, 32,
+# 33), an S that the stage (24) does not divide, one sequence's 2048
+# steps (stage 40) and the training microbatch's 128 (stage 24)
 CASES = [(1, 1, 7, False), (2, 17, 64, True), (2, 32, 100, False),
          (3, 1000, 2597, True), (4, 64, 2560, True), (1, 300, 5, True),
-         (4, 33, 2560, False)]
+         (4, 33, 2560, False), (4, 31, 2560, True), (4, 32, 2560, False),
+         (2, 33, 2560, True), (2, 1000, 2560, True), (1, 2048, 2560, False),
+         (2, 128, 2560, False)]
 
 
 @pytest.mark.cuda
@@ -66,6 +71,76 @@ def test_cuda_scan_backward_is_bitwise_the_twin(hopper, B, S, D, with_h0):
         assert torch.equal(dh0, want[2])
     assert torch.equal(da, again[0]) and torch.equal(db, again[1])
     assert rg_lru.BWD_LAUNCHES == {"rglru_scan_bwd": 2}
+
+
+# (B, S, D, with h0) run at every stage the C entry takes: S not a
+# multiple of any stage (the first stage runs 3 to 43 steps past S), a D
+# that ends inside a warp; S below one stage of 48
+FORCED = [(2, 333, 2596, True), (3, 37, 100, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 8, 16, 24, 32, 40, 48])
+@pytest.mark.parametrize("B,S,D,with_h0", FORCED)
+def test_cuda_scan_backward_is_bitwise_the_twin_at_every_stage(
+        hopper, monkeypatch, B, S, D, with_h0, stage):
+    monkeypatch.setattr(rg_lru, "scan_bwd_geometry", lambda B, S, D: stage)
+    a, b, h0, g = _inputs(B, S, D, stage + S, hopper)
+    h0 = h0 if with_h0 else None
+    h, want = _twin_grads(a, b, h0, g)
+    rg_lru.reset_launches()
+    got = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+    again = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+    for x, y, w in zip(got, again, want + [None] * (3 - len(want))):
+        assert (x is None) == (w is None)
+        if x is not None:
+            assert torch.equal(x, w) and torch.equal(x, y)
+    assert rg_lru.BWD_LAUNCHES == {"rglru_scan_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_scan_backward_takes_operands_off_16_byte_alignment(hopper):
+    """Views one float into larger buffers: 4-byte but not 16-byte
+    aligned a, h and dL/dh, D a multiple of 4, so the direct path;
+    bitwise the twin, one launch a call."""
+    B, S, D = 2, 130, 256
+    a, b, h0, g = _inputs(B, S, D, 9, hopper)
+    h, want = _twin_grads(a, b, h0, g)
+
+    def off(t):
+        return torch.cat([torch.zeros(1, device=hopper),
+                          t.flatten()])[1:].view(t.shape)
+    a, h, g = off(a), off(h), off(g)
+    assert all(t.data_ptr() % 16 == 4 for t in (a, h, g))
+    assert rg_lru.scan_bwd_geometry(B, S, D) > 0
+    assert not rg_lru.ring_takes(a, g, h)
+    rg_lru.reset_launches()
+    got = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+    again = rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+    for x, y, w in zip(got, again, want):
+        assert torch.equal(x, w) and torch.equal(x, y)
+    assert rg_lru.BWD_LAUNCHES == {"rglru_scan_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_refused_backward_stage_raises(hopper, monkeypatch):
+    """A stage the C entry does not take raises and counts no launch; a
+    ring over operands the tensor maps do not take is refused."""
+    a, b, h0, g = _inputs(2, 64, 16, 0, hopper)
+    h = rg_lru.rglru_scan_cuda(a, b, h0)
+    rg_lru.reset_launches()
+    for stage in (4, 56, -8):
+        monkeypatch.setattr(rg_lru, "scan_bwd_geometry",
+                            lambda B, S, D: stage)
+        with pytest.raises(RuntimeError, match="rg_scan_bwd"):
+            rg_lru.rglru_scan_bwd_cuda(a, h, g, h0)
+    assert rg_lru.BWD_LAUNCHES == {"rglru_scan_bwd": 0}
+    buf = torch.zeros(a.numel() + 1, device=hopper)
+    off, out = buf[1:].view(a.shape), torch.empty_like(a)
+    assert build.library("rg_lru").rg_scan_bwd_at(
+        off.data_ptr(), off.data_ptr(), off.data_ptr(), None, out.data_ptr(),
+        out.data_ptr(), None, *a.shape, 8,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.cuda
