@@ -162,7 +162,9 @@ Phases (each raises on failure; nothing is caught):
      the stripe shapes; ShardedFlaasService through torch.multiprocessing
      spawn -- one stripe under NCCL and two under Gloo with CUDA tensors,
      both ranks on cuda:0 -- for every scheduler (dpbalance with warm
-     SP1) over 48 ticks (two ring wraps) against the unsharded card run
+     SP1) over 48 ticks (two ring wraps; dpbalance's two-stripe run and
+     the others' one-stripe runs 24, past the first wrap) against the
+     unsharded card run
      with the same config (selections equal, rows within
      RTOL_SERVICE, gap and overdraw <= 1e-4; one stripe's bitwise-ness
      reported), the sharded path's kernels launched every tick, dpf's
@@ -188,7 +190,49 @@ Phases (each raises on failure; nothing is caught):
      microbatches scan and backward launches a step, one microbatch's
      gradients card vs CPU within GRAD_RTOL_TRAIN of the largest |g|;
      (d) a DP example-mode step on flaas-100m, rownorms and
-     clip_accumulate launched once each.
+     clip_accumulate launched once each;
+ 23. both attention kernels against their twins at the dense family's
+     heads (dh 128): qwen2.5-3b 16 / 2, starcoder2-3b 24 / 2, qwen2.5-32b
+     40 / 8 (decode G 5) and starcoder2-15b 48 / 4 (G 12, two head groups
+     a kv head); flash at B=4 S=32 and S=2048 causal, decode at the serve
+     defaults' 48-slot cache (n 33, 47) and the long serve's 2112 (n 2080,
+     1000), with times, bound and SDPA; the G-12 decode against G 6 on the
+     same cache with the L2 flushed before each launch (does the second
+     head group's read of K/V come from L2?);
+ 24. serving the dense family through repro_torch.launch.serve:
+     qwen2.5-3b (drawn by serve.make_model on the host, timed) and
+     starcoder2-3b whole, starcoder2-15b at 8 of its 40 layers and
+     qwen2.5-32b at 4 of 64 (drawn on the card); each cut to 2 layers of
+     full width card vs CPU as in phase 12; each at the launcher's
+     defaults and at B=4, prompt 2048, gen 64 with exactly one flash
+     launch a layer and one decode launch a layer a step after the first,
+     prefill ms, decode ms/step (median, range), tokens/s, peak memory and
+     the card's busy share over a traced prefill and 4 decode steps at
+     the same shape;
+ 25. serving xlstm-125m whole (12 layers, 114,510,408 parameters; no
+     kernel on its path, none launched), card vs CPU: every block fed the
+     CPU's input to it (a 32-token prefill and one decode step: outputs
+     within RTOL_SERVE, states within RTOL_STATE of their largest value);
+     one pattern group (mlstm x 3, slstm) of full width as in phase 15;
+     the whole model's teacher-forced logits within SPREAD_FACTOR times
+     what one-ulp parameter noise moves them by on the CPU (the model is
+     that ill-conditioned at init: ~1.2e-3 of max|logit|) or RTOL_SERVE,
+     the larger; then the
+     defaults and the long serve as in phase 24, and the mLSTM / sLSTM
+     time (synchronised spans) in a long prefill and 8 decode steps;
+ 26. training: two steps of qwen2.5-3b at full width cut to 2 layers at
+     launch/train.py's configuration (B=8 x 128, two microbatches, noise
+     0.2) and one microbatch's gradients card vs CPU as in phase 22 (c);
+     launch/train.run(arch="xlstm-125m", steps=2); every xLSTM block's
+     gradients card vs CPU on the same input and upstream gradient within
+     GRAD_RTOL_TRAIN; the whole model's DP gradients without noise at
+     the launcher's first step (its parameters, drawn on the card, and
+     its batch), in microbatch mode (B=8 x 128, two microbatches) and
+     example mode (4 examples): the card's loss, norm
+     mean and max and clipped mean gradient each no further from the
+     exact value (the same code in float64 on the card) than the larger
+     of RTOL_TRAIN and SPREAD_FACTOR times the CPU float32's distance;
+     finite losses, ms per step and peak memory throughout.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
 The second-to-last lines are a JSON object listing the kernels and the
@@ -264,6 +308,48 @@ RG_FLASH_CASES = [("rg-serve", 4, 32, True, 2048),
 RG_DECODE_CASES = [("rg-serve-33", 4, 48, 33), ("rg-serve-47", 4, 48, 47),
                    ("rg-2048", 4, 2048, 2048), ("rg-1000", 4, 2048, 1000)]
 P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
+# phases 23-26: the dense GQA family at dh 128 and xLSTM.  (name, layers
+# served -- None: all -- and the label prefix of its kernel cases):
+# qwen2.5-3b and starcoder2-3b whole; starcoder2-15b (63.8 GB whole) and
+# qwen2.5-32b (131 GB) cut to 8 and 4 layers to fit float32 on one card
+DENSE = (("qwen2.5-3b", None, "q3b"), ("starcoder2-3b", None, "sc3b"),
+         ("starcoder2-15b", 8, "sc15b"), ("qwen2.5-32b", 4, "q32b"))
+P_DENSE = {"qwen2.5-3b": 3_397_103_616, "starcoder2-3b": 3_180_813_312}
+# drawn by serve.make_model on the host (the launcher's path, timed); the
+# others by init_model on the card, which takes a fraction of a second
+# where a host draw takes ~8 s a billion parameters
+DENSE_HOST_DRAW = "qwen2.5-3b"
+DENSE_CPU_LAYERS = 2           # card vs CPU: the model cut to 2 layers
+DENSE_FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None)]
+# the serve defaults' cache (48 slots) and the long serve's (2112)
+DENSE_DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-47", 4, 48, 47),
+                      ("long-2080", 4, 2112, 2080),
+                      ("long-1000", 4, 2112, 1000)]
+SERVE_RUNS = (("defaults", 4, 32, 16), ("long", 4, 2048, 64))
+P_XLSTM = 114_510_408          # xlstm-125m parameters
+# kernels phase 2 holds free of spills (mangled-name fragments): the scan's
+# backward ring, and the decode split kernel at dh 128 for G 5 and 12
+NO_SPILL = ("rg_scan_bwd_ring", "decode_split_kernelILi128ELi5E",
+            "decode_split_kernelILi128ELi12E")
+PARAM_NOISE = 1e-7             # one float32 ulp, relative: the spread probe
+# xlstm-125m whole is ill-conditioned at init in float32 (the mLSTM divides
+# by max(|q.n|, exp(-m)); a position near that max's kink takes the other
+# branch under a rounding's difference): its logits move ~1.2e-3 of
+# max|logit| on the CPU itself when every parameter moves PARAM_NOISE, and
+# its float32 gradient is 5-33% from the exact one on the CPU.  So the
+# whole model's logits are held to the larger of the usual bound and
+# SPREAD_FACTOR times that spread, and its training loss, DP norms and
+# gradient to the larger of RTOL_TRAIN and SPREAD_FACTOR times the CPU
+# float32's distance from the exact (float64) value, both measured in the
+# run; one pattern group to RTOL_SERVE, every block to RTOL_SERVE
+# (outputs) and RTOL_STATE (states), every block's gradients to
+# GRAD_RTOL_TRAIN
+SPREAD_FACTOR = 4.0
+RTOL_STATE = 1e-5              # recurrent states, of their largest |value|
+# launch/train.py's defaults (B=8 x 128, two microbatches, noise 0.2), two
+# steps; qwen2.5-3b at full width cut to 2 layers (776 M parameters, 622 M
+# of them the 151,936-word embedding and LM head), xlstm-125m whole
+NEW_TRAIN = dict(batch=8, seq=128, steps=2, dense_layers=2)
 # phase 22: the scan's backward kernel, which replaces no Pallas kernel:
 # repro takes the gradient of linear_scan by autodiff of associative_scan
 RG_BWD_REPLACES = "src/repro/models/recurrent.py:64"
@@ -386,6 +472,15 @@ ONE_STRIPE_TICKS = 24                 # one stripe: past the first wrap
 # 0.12 ticks/s at one / two stripes), warm ~830, so the sharded runs and
 # their unsharded yardstick take dpbalance with warm SP1
 SHARD_WARM = ("dpbalance",)
+# ticks of each scheduler's sharded runs at (one, two) stripes: the warm
+# dpbalance run's SP1 host loop runs ~2 ticks/s under NCCL but 0.3-0.6
+# under Gloo (48 ticks at two stripes took ~180 s of the script's time
+# limit on an H100 host), so it crosses the second ring wrap on one
+# stripe and the first on two; the others run SHARD_TICKS at two stripes
+STRIPE_TICKS = {"dpbalance": (SHARD_TICKS, ONE_STRIPE_TICKS),
+                "dpf": (ONE_STRIPE_TICKS, SHARD_TICKS),
+                "dpk": (ONE_STRIPE_TICKS, SHARD_TICKS),
+                "fcfs": (ONE_STRIPE_TICKS, SHARD_TICKS)}
 ELASTIC_AT = (16, 32)                 # dpf: 1 -> 2 stripes, then 2 -> 1
 # the sharded path's budget kernels: SP1's two-matvec path and the row-max
 SHARD_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t"),
@@ -397,7 +492,14 @@ SHARD_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t"),
 PROD = ("prod", 1024, 131072)
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
+    """Print and flush; a phase's header line (``[N] ...``) also shows the
+    seconds since the script started."""
+    if a and isinstance(a[0], str) and a[0][:1] == "[":
+        a = (*a, f"(t = {time.perf_counter() - T_START:.1f} s)")
     print(*a, flush=True)
 
 
@@ -480,7 +582,7 @@ def phase_build():
                 entry = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {entry}: {line.strip()}")
-                if "rg_scan_bwd_ring" in entry and "spill" in line:
+                if "spill" in line and any(k in entry for k in NO_SPILL):
                     assert line.count(" 0 bytes spill") == 2, \
                         f"{entry} spills: {line.strip()}"
     log(f"build total {time.perf_counter() - t0:.2f} s")
@@ -2697,21 +2799,21 @@ def phase_checkpoint_shard(smi):
     e1, e2, e3 = (str(root / d) for d in ("e1", "e2", "e3"))
     t0 = time.perf_counter()
     one = spawn(service_jobs, 1, backend="nccl", device="cuda", args=(
-        [_shard_job(n, ONE_STRIPE_TICKS) for n in SCHEDULER_NAMES] +
+        [_shard_job(n, STRIPE_TICKS[n][0]) for n in SCHEDULER_NAMES] +
         [_shard_job("dpf", ELASTIC_AT[0], save=e1)],), timeout=900)[0]
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     two = spawn(service_jobs, 2, backend="gloo", device="cuda", args=(
-        [_shard_job(n, SHARD_TICKS) for n in SCHEDULER_NAMES] +
+        [_shard_job(n, STRIPE_TICKS[n][1]) for n in SCHEDULER_NAMES] +
         [_shard_job("dpf", ELASTIC_AT[1], restore=e1, save=e2),
          _shard_job("dpf", SHARD_TICKS // 2, save=e3, async_save=True),
          _shard_job("dpf", SHARD_TICKS, restore=e3)],), timeout=900)[0]
     two_s = time.perf_counter() - t0
     launches = {}
-    for S, runs, secs, backend, n in (
-            (1, one, one_s, "nccl", ONE_STRIPE_TICKS),
-            (2, two, two_s, "gloo", SHARD_TICKS)):
+    for S, runs, secs, backend in ((1, one, one_s, "nccl"),
+                                   (2, two, two_s, "gloo")):
         for name, got in zip(SCHEDULER_NAMES, runs):
+            n = STRIPE_TICKS[name][S - 1]
             want = dict(plain[name], rows={
                 k: v[:n] for k, v in plain[name]["rows"].items()})
             label = f"S={S} {backend} {name}" + (
@@ -2944,8 +3046,7 @@ def _train_hybrid():
     from repro_torch.configs import get_arch
     from repro_torch.kernels import rg_lru
     from repro_torch.launch import train as launcher
-    from repro_torch.models import Transformer
-    from repro_torch.training import make_loss_fn, make_state, train_step
+    from repro_torch.training import make_state, train_step
     cfg = dataclasses.replace(get_arch("recurrentgemma-2b"),
                               n_layers=RG_TRAIN["n_layers"])
     n_rec = [k for k, _ in cfg.layer_specs()].count("rec")
@@ -2979,11 +3080,21 @@ def _train_hybrid():
     model = state["params"]
     del state
     torch.cuda.empty_cache()
-    host = Transformer(cfg, device="cpu")
+    _grads_card_vs_cpu(model, {k: v[:RG_TRAIN["batch"] // n_micro]
+                               for k, v in batches[0].items()})
+    return scan
+
+
+def _grads_card_vs_cpu(model, mb):
+    """Phases 22 (c) and 26: the loss's gradients on the microbatch
+    ``mb``, card against CPU from the same values, within GRAD_RTOL_TRAIN
+    of the largest |g|."""
+    from repro_torch.models import Transformer
+    from repro_torch.training import make_loss_fn
+    host = Transformer(model.cfg, device="cpu")
     with torch.no_grad():
         host.flat.copy_(model.flat)
-    loss_fn = make_loss_fn(cfg)
-    mb = {k: v[:RG_TRAIN["batch"] // n_micro] for k, v in batches[0].items()}
+    loss_fn = make_loss_fn(model.cfg)
     grads = []
     for mdl in (model, host):
         t0 = time.perf_counter()
@@ -2994,10 +3105,9 @@ def _train_hybrid():
     gmax = float(grads[1].abs().max())
     gerr = float((grads[0] - grads[1]).abs().max())
     assert gerr <= GRAD_RTOL_TRAIN * gmax, (gerr, gmax)
-    log(f"  one microbatch's gradients card vs CPU: max err {gerr:.3e} of "
-        f"max|g| {gmax:.3e} (bound {GRAD_RTOL_TRAIN} x max|g|); CPU "
-        f"{time.perf_counter() - t0:.2f} s")
-    return scan
+    log(f"  one microbatch's gradients ({tuple(mb['tokens'].shape)} tokens) "
+        f"card vs CPU: max err {gerr:.3e} of max|g| {gmax:.3e} (bound "
+        f"{GRAD_RTOL_TRAIN} x max|g|); CPU {time.perf_counter() - t0:.2f} s")
 
 
 def _train_example_mode(cfg):
@@ -3045,6 +3155,516 @@ def phase_train(card):
     return row, per_step, scan["rglru_scan_bwd"]
 
 
+def _l2_flushed_ms(fn, trials: int = 20) -> float:
+    """Median device ms of one ``fn()`` launched right after 256 MB were
+    written (five times the 50 MB L2), so its inputs come from HBM."""
+    junk = torch.empty(64 * 2 ** 20, device="cuda")
+    fn()
+    times = []
+    for _ in range(trials):
+        junk.fill_(1.0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del junk
+    return statistics.median(times)
+
+
+def phase_dense_attention(card, att_rows):
+    log("[23] attention kernels at the dense family's heads (dh 128)")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    for name, _, short in DENSE:
+        cfg = get_arch(name)
+        log(f"  {name}: {cfg.n_heads} query heads over {cfg.kv_heads} kv "
+            f"heads, dh {cfg.dh}; decode head groups "
+            f"{da.HEAD_GROUPS[cfg.dh, cfg.n_heads // cfg.kv_heads]}, "
+            f"resident split blocks per SM "
+            f"{da.resident_blocks(cfg.dh, cfg.n_heads // cfg.kv_heads)}")
+        _attention_cases(
+            card, (cfg.n_heads, cfg.kv_heads, cfg.dh),
+            [(f"{short}-{lb}", *c) for lb, *c in DENSE_FLASH_CASES],
+            [(f"{short}-{lb}", *c) for lb, *c in DENSE_DECODE_CASES],
+            att_rows)
+    # starcoder2-15b's two head groups each read their kv head's K/V.  The
+    # cache (34 MB) fits the 50 MB L2, so back-to-back launches read it
+    # from L2; with the L2 flushed before each launch, a launch whose
+    # second group also went to HBM would pay two reads of the cache over
+    # the warm time, one whose second read hit L2 one.  G 6 (24 heads, one
+    # group) on the same cache is the one-read yardstick.
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, L, n = 4, 2112, 2080
+    k = torch.randn((B, L, 4, 128), generator=gen, device="cuda")
+    v = torch.randn((B, L, 4, 128), generator=gen, device="cuda")
+    nbytes = 2 * B * n * 4 * 128 * 4
+    one_read = bound_ms(nbytes, 0)[0]
+    for H in (48, 24):
+        q = torch.randn((B, H, 128), generator=gen, device="cuda")
+        warm = time_ms(lambda: da.decode_attention_cuda(q, k, v, n), 20)
+        cold = _l2_flushed_ms(lambda: da.decode_attention_cuda(q, k, v, n))
+        log(f"  {H} query heads over 4 (G {H // 4}, "
+            f"{da.HEAD_GROUPS[128, H // 4]} head group(s)), B={B} n={n}: "
+            f"L2 flushed {cold:.4f} ms, warm {warm:.4f} ms, difference "
+            f"{cold - warm:.4f} ms against one HBM read of the "
+            f"{nbytes}-byte cache {one_read:.4f} ms ({card})")
+    da.reset_launches()
+
+
+def _cut_model(model, n_layers, device):
+    """``model``'s embedding, first ``n_layers`` blocks, final norm and LM
+    head as a model of ``n_layers`` layers on ``device``."""
+    from repro_torch.models import Transformer
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    out = Transformer(cfg, device=device)
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(src[name])
+    return out
+
+
+def _busy_shares(model, B, prompt, steps=4):
+    """The card's busy share (torch.profiler) over a traced prefill of B
+    seeded prompts of ``prompt`` tokens and over ``steps`` traced decode
+    steps after it, each after an untraced warm-up of the same work.
+    Short windows: tracing a whole long serve costs tens of seconds of
+    the profiler's own host work."""
+    from repro_torch.models import forward_with_cache
+    from repro_torch.training import serve_step
+    cfg = model.cfg
+    prompts = torch.randint(0, cfg.vocab, (B, prompt),
+                            generator=torch.Generator().manual_seed(0),
+                            dtype=torch.int32).cuda()
+    total = prompt + 2 * steps + 1
+
+    def prefill():
+        logits, cache = forward_with_cache(model, prompts, cfg, total)
+        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), cache
+
+    def decode(tok, cache, start):
+        for i in range(steps):
+            tok, _, cache = serve_step(model, tok, cache, start + i, cfg)
+        return tok
+
+    prefill()
+    state = {}
+    pre_busy, _, pre_wall = _device_kernels(
+        lambda: state.update(zip(("tok", "cache"), prefill())))
+    tok = decode(state["tok"], state["cache"], prompt)
+    dec_busy, _, dec_wall = _device_kernels(
+        lambda: decode(tok, state["cache"], prompt + steps))
+    return pre_busy / pre_wall, dec_busy / dec_wall
+
+
+def _serve_runs(model, expect_fn, label, trace_prompt=None):
+    """The launcher's defaults and the long serve on ``model``, each
+    checked for its launches (``expect_fn(gen)``) and tokens, then the
+    card's busy share over a traced prefill and 4 decode steps at the
+    same shape (the traced prompt cut to ``trace_prompt`` tokens where
+    given).  Returns ``{run: launches}``."""
+    from repro_torch.launch import serve
+    cfg = model.cfg
+    out = {}
+    for run_name, B, prompt, gen in SERVE_RUNS:
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve.run(model=model, batch=B, prompt_len=prompt, gen=gen,
+                        log=None)
+        assert run["launches"] == expect_fn(gen), \
+            (label, run_name, run["launches"])
+        tok = run["tokens"]
+        assert tok.shape == (B, gen) and int(tok.min()) >= 0 and \
+            int(tok.max()) < cfg.vocab
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        traced = min(prompt, trace_prompt or prompt)
+        pre, dec = _busy_shares(model, B, traced)
+        steps = run["step_ms"]
+        log(f"  {label} {run_name} (B={B}, prompt {prompt}, gen {gen}): "
+            f"prefill {run['prefill_ms']:.2f} ms, decode "
+            f"{statistics.median(steps):.3f} ms/step median "
+            f"({min(steps):.3f}-{max(steps):.3f}), {run['tok_per_s']:.1f} "
+            f"tok/s; card busy share {pre:.4f} over a traced prefill "
+            f"of {traced} tokens, "
+            f"{dec:.4f} over 4 traced decode steps; launches "
+            f"{run['launches']}; peak card memory {peak:.2f} GiB")
+        out[run_name] = run["launches"]
+    _reset_launches()
+    return out
+
+
+def phase_serve_dense():
+    log("[24] serve the dense family through repro_torch.launch.serve")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    gen = 16
+    launches = {}
+    for name, layers, _ in DENSE:
+        t_cfg = time.perf_counter()
+        full = get_arch(name)
+        cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == DENSE_HOST_DRAW:
+            model = serve.make_model(cfg, 0, torch.device("cuda"))
+            how = "drawn on the host by serve.make_model and copied"
+        else:
+            model = init_model(cfg, 0, device="cuda")
+            how = "drawn on the card by init_model"
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        if name in P_DENSE:
+            assert model.flat.numel() == P_DENSE[name], model.flat.numel()
+        log(f"  {name}: {cfg.n_layers} of {full.n_layers} layers, "
+            f"{model.flat.numel()} float32 parameters "
+            f"({model.flat.numel() * 4 / 1e9:.1f} GB), {how} in "
+            f"{draw_s:.2f} s (host clock)")
+
+        # card vs CPU on the model cut to DENSE_CPU_LAYERS layers
+        nl = DENSE_CPU_LAYERS
+        card_m = _cut_model(model, nl, "cuda")
+        host_m = _cut_model(card_m, nl, "cpu")
+        _reset_launches()
+        card = serve.run(model=card_m, gen=gen, keep_logits=True, log=None)
+        assert card["launches"] == {"flash_attention": nl,
+                                    "decode_attention": nl * (gen - 1),
+                                    "rglru_scan": 0}, card["launches"]
+        t0 = time.perf_counter()
+        host = serve.run(model=host_m, gen=gen, keep_logits=True, log=None)
+        host_s = time.perf_counter() - t0
+        forced = serve.run(model=card_m, gen=gen, feed=host["tokens"],
+                           keep_logits=True, log=None)
+        errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
+        log(f"  {name} at {nl} layers ({card_m.flat.numel()} parameters) "
+            f"card vs CPU: prefill logits max err {errs['prefill']:.3e}, "
+            f"teacher-forced decode logits max err {errs['decode']:.3e} "
+            f"(bound {RTOL_SERVE} x max|logit| = {bound:.3e}); tokens equal "
+            f"except at {len(ties)} printed near-ties; CPU run "
+            f"{host_s:.2f} s")
+        del card_m, host_m, card, host, forced
+        torch.cuda.empty_cache()
+
+        n = cfg.n_layers
+        launches[name] = _serve_runs(
+            model, lambda g: {"flash_attention": n,
+                              "decode_attention": n * (g - 1),
+                              "rglru_scan": 0}, name)
+        del model
+        torch.cuda.empty_cache()
+        log(f"  {name} took {time.perf_counter() - t_cfg:.1f} s")
+    return launches
+
+
+def _rel_err(got, want):
+    """Max |got - want| over max |want| (``got`` on either device)."""
+    return float((got.cpu().double() - want.double()).abs().max() /
+                 max(float(want.double().abs().max()), 1e-30))
+
+
+def _xlstm_blocks_card_vs_cpu(model, host, prompt):
+    """Phase 25: every block on the card fed the CPU model's input to it,
+    a prefill of ``prompt`` tokens and one decode step from its state:
+    block outputs within RTOL_SERVE and states within RTOL_STATE of their
+    largest |value|.  Returns the worst of each."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import apply_block
+    cfg = model.cfg
+    tok = torch.randint(0, cfg.vocab, (4, prompt + 1),
+                        generator=torch.Generator().manual_seed(2))
+    worst = {"out": 0.0, "state": 0.0, "decode": 0.0}
+    with torch.no_grad():
+        h = L.embed(tok[:, :prompt], host.embed)
+        x = L.embed(tok[:, prompt:], host.embed)
+        pos, step = torch.arange(prompt), torch.full((1,), prompt)
+        for i, (bh, bc) in enumerate(zip(host.blocks, model.blocks)):
+            want, sw = apply_block(h, bh, bh.kind, cfg, positions=pos,
+                                   attend=None)
+            got, sg = apply_block(h.cuda(), bc, bc.kind, cfg,
+                                  positions=pos.cuda(), attend=None)
+            dw, _ = apply_block(x, bh, bh.kind, cfg, positions=step,
+                                attend=None, state=sw)
+            dg, _ = apply_block(x.cuda(), bc, bc.kind, cfg,
+                                positions=step.cuda(), attend=None,
+                                state=tuple(t.cuda() for t in sw))
+            errs = {"out": _rel_err(got - h.cuda(), want - h),
+                    "state": max(_rel_err(a, b) for a, b in zip(sg, sw)),
+                    "decode": _rel_err(dg - x.cuda(), dw - x)}
+            assert errs["out"] <= RTOL_SERVE and \
+                errs["decode"] <= RTOL_SERVE and \
+                errs["state"] <= RTOL_STATE, (i, bh.kind, errs)
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+            h = want
+    return worst
+
+
+def phase_serve_xlstm():
+    log("[25] serve xlstm-125m through repro_torch.launch.serve")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.models import recurrent as R
+    t_phase = time.perf_counter()
+    cfg = get_arch("xlstm-125m")
+    gen = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = serve.make_model(cfg, 0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert model.flat.numel() == P_XLSTM
+    log(f"  make_model(xlstm-125m): {P_XLSTM} float32 parameters, "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    host_m = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        host_m.flat.copy_(model.flat)
+    worst = _xlstm_blocks_card_vs_cpu(model, host_m, 32)
+    log(f"  every block fed the CPU's input to it, card vs CPU: outputs "
+        f"{worst['out']:.3e}, states {worst['state']:.3e}, one decode "
+        f"step's outputs {worst['decode']:.3e} of their largest |value| "
+        f"(bounds {RTOL_SERVE}, {RTOL_STATE}, {RTOL_SERVE})")
+
+    # one pattern group (mlstm x 3, slstm) of full width, as phase 15
+    zero = {"flash_attention": 0, "decode_attention": 0, "rglru_scan": 0}
+    group = len(cfg.pattern)
+    runs = {}
+    for name, mdl, hm in (("group", _cut_model(model, group, "cuda"),
+                           _cut_model(host_m, group, "cpu")),
+                          ("whole", model, host_m)):
+        _reset_launches()
+        card = serve.run(model=mdl, gen=gen, keep_logits=True, log=None)
+        assert card["launches"] == zero, card["launches"]
+        host = serve.run(model=hm, gen=gen, keep_logits=True, log=None)
+        forced = serve.run(model=mdl, gen=gen, feed=host["tokens"],
+                           keep_logits=True, log=None)
+        runs[name] = (card, host, forced, hm)
+    card, host, forced, _ = runs["group"]
+    errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
+    log(f"  one group ({group} layers, {card['cfg'].n_layers} of "
+        f"{cfg.n_layers}) card vs CPU: prefill logits max err "
+        f"{errs['prefill']:.3e}, teacher-forced decode logits max err "
+        f"{errs['decode']:.3e} (bound {RTOL_SERVE} x max|logit| = "
+        f"{bound:.3e}); tokens equal except at {len(ties)} printed "
+        f"near-ties")
+    # the whole model beside its own spread: the CPU run again with every
+    # parameter moved PARAM_NOISE relative (one float32 ulp)
+    card, host, forced, hm = runs.pop("whole")
+    noisy = Transformer(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        noisy.flat.copy_(hm.flat * (1 + PARAM_NOISE * torch.randn(
+            hm.flat.shape, generator=g)))
+    spread = serve.run(model=noisy, gen=gen, feed=host["tokens"],
+                       keep_logits=True, log=None)
+    for part in ("prefill", "decode"):
+        err = _rel_err(forced["logits"][part], host["logits"][part])
+        own = _rel_err(spread["logits"][part], host["logits"][part])
+        assert err <= max(RTOL_SERVE, SPREAD_FACTOR * own), (part, err, own)
+        log(f"  whole model, {part} logits (teacher-forced): card vs CPU "
+            f"{err:.3e} of max|logit|; the CPU against itself with every "
+            f"parameter moved {PARAM_NOISE:g} relative {own:.3e} (bound "
+            f"the larger of {RTOL_SERVE} and {SPREAD_FACTOR} x that)")
+    same = float((card["tokens"] == host["tokens"]).float().mean())
+    log(f"  whole model, free-running greedy tokens equal to the CPU's: "
+        f"{same:.4f} of {card['tokens'].numel()}")
+    del runs, card, host, forced, hm, noisy, spread
+    # a traced prefill of 2048 tokens is ~90,000 launches of the sLSTM's
+    # loop (each step the same ~15), tens of seconds of the profiler's own
+    # work: the busy share is taken over 256 tokens
+    launches = _serve_runs(model, lambda _: zero, "xlstm-125m",
+                           trace_prompt=256)
+    # the sLSTM's host loop: its share of a long prefill and 8 decode steps
+    spans = {}
+    B, prompt = SERVE_RUNS[1][1:3]
+    with _timed_spans([(R, "slstm_scan", "slstm"),
+                       (R, "mlstm_chunkwise", "mlstm"),
+                       (R, "mlstm_decode_step", "mlstm step")], spans):
+        run = serve.run(model=model, batch=B, prompt_len=prompt, gen=9,
+                        log=None)
+    log(f"  synchronised spans over a B={B} x {prompt} prefill "
+        f"({run['prefill_ms']:.2f} ms) and 8 decode steps "
+        f"({sum(run['step_ms']):.2f} ms): "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in spans.items())
+        + f" (3 sLSTM blocks: {prompt} host steps each in the prefill, 1 "
+        f"a decode step); phase 25 took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return launches
+
+
+def _xlstm_block_grads(model, host, tokens):
+    """Phase 26: every block's gradients on the card (``model``), fed the
+    CPU model's (``host``, the same values) input to it and the same
+    seeded upstream gradient: the input's and every parameter's within
+    GRAD_RTOL_TRAIN of its largest |g|.  Returns the worst."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import apply_block_train
+    cfg = model.cfg
+    with torch.no_grad():
+        h = L.embed(tokens, host.embed)
+    gen = torch.Generator().manual_seed(3)
+    pos = torch.arange(tokens.shape[1])
+    worst = 0.0
+    for i, (bh, bc) in enumerate(zip(host.blocks, model.blocks)):
+        gy = torch.randn(h.shape, generator=gen)
+        out = []
+        for blk, dev in ((bh, "cpu"), (bc, "cuda")):
+            x = h.to(dev).requires_grad_(True)
+            y = apply_block_train(x, blk, blk.kind, cfg,
+                                  positions=pos.to(dev))
+            out.append(torch.autograd.grad((y * gy.to(dev)).sum(),
+                                           [x, *blk.parameters()]))
+        for want, got in zip(*out):
+            err = _rel_err(got, want)
+            assert err <= GRAD_RTOL_TRAIN, (i, bh.kind, err)
+            worst = max(worst, err)
+        with torch.no_grad():
+            h = apply_block_train(h, bh, bh.kind, cfg, positions=pos)
+    return worst
+
+
+def _xlstm_dp_card_vs_exact(cfg, card):
+    """Phase 26: DP-SGD's gradients of xlstm-125m at ``card``'s parameters
+    (on the card) without noise, in the launcher's microbatch mode (B=8 x
+    128, two microbatches) and in example mode (its first 4 examples): the
+    card's float32, the CPU's float32 and the exact values (float64 on the
+    card, ``repro_torch.fp.float64``; for example mode, microbatches of one
+    example).  The card's loss, norm mean and max and clipped mean
+    gradient are each no further from the exact value than the larger of
+    RTOL_TRAIN (relative) and SPREAD_FACTOR times the CPU's own distance
+    from it."""
+    from repro_torch.fp import float64
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.models import Transformer
+    from repro_torch.training import dp_gradients, make_loss_fn
+    loss_fn = make_loss_fn(cfg)
+    host = Transformer(cfg, device="cpu")
+    exact = Transformer(cfg, device="cuda")
+    with torch.no_grad():
+        host.flat.copy_(card.flat)
+        exact.flat.copy_(card.flat)
+    exact = exact.double()
+    full = _batch_on(cfg, 0, NEW_TRAIN["batch"], NEW_TRAIN["seq"], "cpu")
+    for mode, B, n_micro in (("microbatch", NEW_TRAIN["batch"], 2),
+                             ("example", 4, 1)):
+        out, secs = {}, {}
+        for name, mdl, kw in (
+                ("card", card, dict(mode=mode, n_micro=n_micro)),
+                ("cpu", host, dict(mode=mode, n_micro=n_micro)),
+                ("exact", exact, dict(mode="microbatch", n_micro=(
+                    n_micro if mode == "microbatch" else B)))):
+            dev = next(mdl.parameters()).device
+            bb = {k: v[:B].to(dev) for k, v in full.items()}
+            t0 = time.perf_counter()
+            with float64() if name == "exact" else contextlib.nullcontext():
+                g, m = dp_gradients(loss_fn, mdl, bb, torch.Generator(
+                    device=dev).manual_seed(0), clip=1.0, **kw)
+            out[name] = (torch.cat([x.reshape(-1) for x in g.values()]
+                                   ).double().cpu(),
+                         {k: float(v) for k, v in m.items()})
+            secs[name] = time.perf_counter() - t0
+            del g
+        dp.reset_launches()
+        ref_g, ref_m = out["exact"]
+        dist = {n: float((out[n][0] - ref_g).norm() / ref_g.norm())
+                for n in ("card", "cpu")}
+        assert dist["card"] <= max(RTOL_TRAIN, SPREAD_FACTOR * dist["cpu"]), \
+            (mode, dist)
+        for k in ("loss_mean", "grad_norm_mean", "grad_norm_max"):
+            err = {n: abs(out[n][1][k] - ref_m[k]) for n in ("card", "cpu")}
+            assert err["card"] <= max(RTOL_TRAIN * abs(ref_m[k]),
+                                      SPREAD_FACTOR * err["cpu"]), \
+                (mode, k, {n: out[n][1] for n in out})
+        assert out["card"][1]["clip_frac"] == ref_m["clip_frac"], mode
+        show = {n: {k: round(out[n][1][k], 7) for k in
+                    ("loss_mean", "grad_norm_mean", "grad_norm_max")}
+                for n in ("card", "cpu", "exact")}
+        log(f"  whole model, DP {mode} mode, B={B} x {NEW_TRAIN['seq']}, "
+            f"{n_micro if mode == 'microbatch' else B} units, no noise: "
+            f"{show}; clipped mean gradient, |g - exact| / |exact| card "
+            f"{dist['card']:.4e}, CPU {dist['cpu']:.4e} (bound the larger "
+            f"of {RTOL_TRAIN} and {SPREAD_FACTOR} x the CPU's, each number "
+            f"alike); host clock card {secs['card']:.2f} s, CPU "
+            f"{secs['cpu']:.2f} s, exact {secs['exact']:.2f} s")
+    del host, exact
+
+
+def phase_train_new():
+    log("[26] training the dense family and xlstm-125m at launch/train.py's "
+        "configuration, card vs CPU")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import Transformer
+    from repro_torch.training import make_state, train_step
+    t_phase = time.perf_counter()
+    B, S, steps = NEW_TRAIN["batch"], NEW_TRAIN["seq"], NEW_TRAIN["steps"]
+
+    # qwen2.5-3b at full width, cut to 2 layers: two steps, then one
+    # microbatch's gradients card vs CPU (as phase 22 (c))
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b"),
+                              n_layers=NEW_TRAIN["dense_layers"])
+    tcfg = launcher.train_config(cfg, B, 0.2, 1.0)
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state(0, cfg, tcfg, device="cuda")
+    batches = [_batch_on(cfg, i, B, S, "cuda") for i in range(steps)]
+    walls, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg, tcfg)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"  qwen2.5-3b at full width, {cfg.n_layers} layers "
+        f"({state['params'].flat.numel()} parameters), B={B} x {S}, "
+        f"{tcfg.dp.n_micro} microbatches, noise 0.2: losses "
+        f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+        f"{[round(w, 2) for w in walls]}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    model = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    _grads_card_vs_cpu(model, {k: v[:B // tcfg.dp.n_micro]
+                               for k, v in batches[0].items()})
+    del model, batches
+    torch.cuda.empty_cache()
+
+    # xlstm-125m whole through the launcher itself
+    root = Path(tempfile.mkdtemp(prefix="train_xlstm_"))
+    torch.cuda.reset_peak_memory_stats()
+    run = launcher.run(arch="xlstm-125m", steps=steps, batch=B, seq=S,
+                       ckpt=str(root), log=None)
+    shutil.rmtree(root)
+    losses = [r["loss"] for r in run["records"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert run["state"]["params"].flat.numel() == P_XLSTM
+    log(f"  launch/train.run(arch='xlstm-125m', steps={steps}): B={B} x "
+        f"{S}, {run['tcfg'].dp.n_micro} microbatches, noise 0.2: losses "
+        f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+        f"{[round(r['wall_s'] * 1e3, 2) for r in run['records']]}; peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB")
+    model, cfg, run_tcfg = run["state"]["params"], run["cfg"], run["tcfg"]
+    del run
+    mb = {k: v[:B // 2] for k, v in _batch_on(cfg, 0, B, S, "cpu").items()}
+    host = Transformer(cfg, device="cpu")
+    with torch.no_grad():
+        host.flat.copy_(model.flat)
+    worst = _xlstm_block_grads(model, host, mb["tokens"])
+    log(f"  every block's gradients (input and parameters) fed the CPU's "
+        f"input to it and the same upstream gradient, card vs CPU: worst "
+        f"{worst:.3e} of the largest |g| (bound {GRAD_RTOL_TRAIN})")
+    del model, host
+    torch.cuda.empty_cache()
+    # the whole model's DP gradients at the launcher's starting point on
+    # the card, card and CPU against the exact values
+    _xlstm_dp_card_vs_exact(cfg, make_state(0, cfg, run_tcfg,
+                                            device="cuda")["params"])
+    torch.cuda.empty_cache()
+    log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -3063,6 +3683,10 @@ def main() -> int:
     rg_launches, rg_long_launches, rg_model = phase_serve_hybrid()
     phase_serve_hybrid_trace(rg_model)
     del rg_model
+    torch.cuda.empty_cache()
+    phase_dense_attention(smi, att_rows)
+    dense_launches = phase_serve_dense()
+    phase_serve_xlstm()
     paper = phase_paper_comparison()
     phase_fleets()
     beam_launches, beam_row = phase_beam(smi)
@@ -3072,6 +3696,7 @@ def main() -> int:
     service_launches = phase_service(smi)
     shard_launches = phase_checkpoint_shard(smi)
     bwd_row, per_train_step, bwd_launches = phase_train(smi)
+    phase_train_new()
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -3087,6 +3712,9 @@ def main() -> int:
     kernels += [dict(name=k, route="cuda", source=ATT_SOURCE,
                      replaces=ATT_REPLACES[k], launches=att_launches[k],
                      launches_recurrentgemma=rg_launches[k],
+                     launches_dense_serve={
+                         n: {r: c[k] for r, c in runs.items()}
+                         for n, runs in dense_launches.items()},
                      **att_rows[k]) for k in ATT_REPLACES]
     kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
                         replaces=RG_REPLACES,

@@ -132,7 +132,7 @@ def main(argv) -> int:
         v = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
         want = ref.decode_attention_ref(q, k, v, n)
         res = da.resident_blocks(dh, G)
-        per_split = B * KH * da.HEAD_GROUPS[dh]
+        per_split = B * KH * da.HEAD_GROUPS[dh, G]
         split = da.split_size(n, per_split, res, da.STEPS[dh])
         ceil = _ceil_split(n, per_split, res, da.STEPS[dh])
         # variant -> (call, split, blocks per split)

@@ -28,10 +28,15 @@ All are device-agnostic elementwise tensor code, so the CPU and the CUDA
 runs of the port round identically too.  Long axes (K blocks) keep
 ``torch.sum`` where their results are continuous and held to a tolerance;
 :func:`tree_sum` is for a long-axis sum that feeds a discrete decision.
+
+:class:`float64` runs float32 code in float64: the exact value that a
+float32 result of an ill-conditioned function (xLSTM's gradient) is
+measured against.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -127,3 +132,16 @@ def pow_runs(x: torch.Tensor, p: float, run_dims: int) -> torch.Tensor:
 
 # torch's elementwise grain: a range this long or shorter runs on one thread
 _POW_GRAIN = 32768
+
+
+class float64(TorchDispatchMode):
+    """``with float64():`` -- every operation asked for float32 inside
+    (``.float()``, a float32 factory such as a state's ``torch.zeros``)
+    makes float64 instead, so a model converted by ``.double()`` runs its
+    float32 code in float64, forward and backward."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if kwargs.get("dtype") is torch.float32:
+            kwargs = {**kwargs, "dtype": torch.float64}
+        return func(*args, **kwargs)

@@ -119,8 +119,9 @@
 //   * decode: the Pallas grid walks (b, query head) and reads each kv head
 //     G = H/KH times; here a block serves the query heads of one kv head
 //     (all G of them, or at dh 256 half of recurrentgemma-2b's ten: two
-//     blocks of five fit an SM where one of ten did), so the cache is read
-//     once, or twice through L2.  Grid: the valid range is cut into
+//     blocks of five fit an SM where one of ten did; at dh 128 half of
+//     starcoder2's twelve), so the cache is read once, or twice through
+//     L2.  Grid: the valid range is cut into
 //     splits, one block per (split, head group, batch row) (launch 1), and a
 //     second launch combines each head's partial (m, l, acc) in split order.
 //     The launcher sizes the splits (decode_attention.py::split_size) to the
@@ -148,8 +149,10 @@
 // Instantiations: flash at dh 16, 32 (flash_fwd_kernel), 64, 128
 // (flash_fwd_tiled_kernel) and 256 (flash_fwd_narrow_kernel through
 // att_flash, flash_fwd_wide_kernel through att_flash_wide), any H/KH;
-// decode at dh 16-128 with G = H/KH in {1, 2, 3, 4, 6, 8}, and at dh 256
-// with G = 10 (recurrentgemma-2b's 10 query heads over 1 kv head).  Flash
+// decode at dh 16-128 with G = H/KH in {1, 2, 3, 4, 6, 8}, at dh 128 also
+// G = 5 (qwen2.5-32b, one head group) and 12 (starcoder2, two groups of 6
+// heads), and at dh 256 with G = 10 (recurrentgemma-2b's 10 query heads
+// over 1 kv head).  Flash
 // shared memory: 69,632 bytes at dh 64 (three blocks per SM), 118,784 at
 // dh 128 (one), 209,920 (narrow) and 228,608 (wide) at dh 256 (one).  A
 // decode block at dh 256 keeps its five heads' q in shared memory (5 x 8
@@ -1234,11 +1237,16 @@ struct DecodeMap {
 
 // Blocks a kv head's G query heads are shared among: two at dh 256, five
 // heads each (a warp's 8 columns of 10 heads' accumulators would hold one
-// block an SM by registers; 5 heads let two run), else one.  The
-// launcher's HEAD_GROUPS (kernels/decode_attention.py) mirrors it.
-template <int DH>
+// block an SM by registers; 5 heads let two run), and two past 8 heads
+// (starcoder2's 12 at dh 128: 12 heads' q would go to shared memory and
+// their merge arrays past 48 KB; two blocks of 6 keep q in registers and
+// take a G = 6 block's 24,960 bytes, and the second block's read of the
+// kv head's K/V rows is the first's, a few microseconds later, from L2),
+// else one.  The launcher's HEAD_GROUPS (kernels/decode_attention.py)
+// mirrors it.
+template <int DH, int G>
 __host__ __device__ constexpr int decode_head_groups() {
-  return DH > 128 ? 2 : 1;
+  return DH > 128 || G > 8 ? 2 : 1;
 }
 
 // q lives in shared memory when a block's GB = G / head groups heads'
@@ -1246,15 +1254,15 @@ __host__ __device__ constexpr int decode_head_groups() {
 // in registers.
 template <int DH, int G>
 __host__ __device__ constexpr bool decode_q_shared() {
-  return G / decode_head_groups<DH>() * DecodeMap<DH>::VEC > 32;
+  return G / decode_head_groups<DH, G>() * DecodeMap<DH>::VEC > 32;
 }
 
 // Blocks an SM the registers must allow: three (80 registers a thread)
-// where a block's heads are few at dh <= 128 (flaas-100m's G = 3), two at
-// dh 256 (128 registers), otherwise what ptxas needs.
+// where a block's GB heads are few at dh <= 128 (flaas-100m's G = 3), two
+// at dh 256 (128 registers), otherwise what ptxas needs.
 template <int DH, int G>
 __host__ __device__ constexpr int decode_min_blocks() {
-  return DH > 128 ? 2 : G <= 3 ? 3 : 1;
+  return DH > 128 ? 2 : G / decode_head_groups<DH, G>() <= 3 ? 3 : 1;
 }
 
 // Dynamic shared memory of one decode block: q (when shared), then each
@@ -1263,7 +1271,7 @@ __host__ __device__ constexpr int decode_min_blocks() {
 // 48 KB a launch gets without asking.
 template <int DH, int G>
 constexpr int decode_smem_bytes() {
-  constexpr int GB = G / decode_head_groups<DH>();
+  constexpr int GB = G / decode_head_groups<DH, G>();
   return ((decode_q_shared<DH, G>() ? GB * DH : 0) +
           DecodeMap<DH>::NGR * GB * (DH + 2)) * (int)sizeof(float);
 }
@@ -1306,7 +1314,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int L, int KH, int lo, int hi, int split, float scale) {
   using Map = DecodeMap<DH>;
   constexpr int VEC = Map::VEC, LG = Map::LG, NGR = Map::NGR, U = Map::U;
-  constexpr int HG = decode_head_groups<DH>(), GB = G / HG;
+  constexpr int HG = decode_head_groups<DH, G>(), GB = G / HG;
   constexpr bool kQShared = decode_q_shared<DH, G>();
   static_assert(DH % VEC == 0 && LG <= 32 && (32 % LG) == 0, "unsupported dh");
   static_assert(G % HG == 0, "head groups must split G evenly");
@@ -1516,7 +1524,7 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
   static_assert(decode_smem_bytes<DH, G>() <= 48 * 1024,
                 "above 48 KB the launch would have to ask for it");
   const dim3 grid((unsigned)nsplit,
-                  (unsigned)(KH * decode_head_groups<DH>()), (unsigned)B);
+                  (unsigned)(KH * decode_head_groups<DH, G>()), (unsigned)B);
   decode_split_kernel<DH, G><<<grid, kThreads, decode_smem_bytes<DH, G>(),
                                stream>>>(q, k, v, part_m, part_l, part_acc, L,
                                          KH, lo, hi, split, scale);
@@ -1529,33 +1537,43 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+template <int N> struct HeadsPerKv { static constexpr int value = N; };
+
+// Calls f(HeadsPerKv<G>{}) for a decode instantiation at DH -- G = H/KH in
+// {1, 2, 3, 4, 6, 8}, at dh 128 also 5 (qwen2.5-32b) and 12 (starcoder2)
+// -- and returns `bad` for any other G.  The launcher's GROUPS
+// (kernels/decode_attention.py) mirrors the list.
+template <int DH, typename F>
+int with_decode_g(int G, int bad, F f) {
+  switch (G) {
+    case 1: return f(HeadsPerKv<1>{});
+    case 2: return f(HeadsPerKv<2>{});
+    case 3: return f(HeadsPerKv<3>{});
+    case 4: return f(HeadsPerKv<4>{});
+    case 5: if constexpr (DH == 128) return f(HeadsPerKv<5>{}); break;
+    case 6: return f(HeadsPerKv<6>{});
+    case 8: return f(HeadsPerKv<8>{});
+    case 12: if constexpr (DH == 128) return f(HeadsPerKv<12>{}); break;
+  }
+  return bad;
+}
+
 template <int DH>
 int launch_decode_g(int G, const float* q, const float* k, const float* v,
                     float* o, float* pm, float* pl, float* pa, int B, int KH,
                     int L, int lo, int hi, int split, int nsplit, float scale,
                     cudaStream_t st) {
-  switch (G) {
-    case 1: return launch_decode<DH, 1>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    case 2: return launch_decode<DH, 2>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    case 3: return launch_decode<DH, 3>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    case 4: return launch_decode<DH, 4>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    case 6: return launch_decode<DH, 6>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    case 8: return launch_decode<DH, 8>(q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_decode_g<DH>(G, (int)cudaErrorInvalidValue, [&](auto g) {
+    return launch_decode<DH, decltype(g)::value>(
+        q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
+  });
 }
 
 template <int DH>
 int decode_residency_g(int G) {
-  switch (G) {
-    case 1: return decode_residency<DH, 1>();
-    case 2: return decode_residency<DH, 2>();
-    case 3: return decode_residency<DH, 3>();
-    case 4: return decode_residency<DH, 4>();
-    case 6: return decode_residency<DH, 6>();
-    case 8: return decode_residency<DH, 8>();
-    default: return -(int)cudaErrorInvalidValue;
-  }
+  return with_decode_g<DH>(G, -(int)cudaErrorInvalidValue, [](auto g) {
+    return decode_residency<DH, decltype(g)::value>();
+  });
 }
 
 }  // namespace
@@ -1602,7 +1620,7 @@ int att_decode(const float* q, const float* k, const float* v, float* o,
   if (B <= 0) return (int)cudaGetLastError();
   if (KH <= 0 || H % KH != 0 || lo < 0 || hi > L || lo >= hi || split <= 0 ||
       nsplit <= 0 || (long long)split * nsplit < hi - lo || B > 65535 ||
-      KH > 32767)  // grid y holds KH x 2 head groups at dh 256
+      KH > 32767)  // grid y holds KH x 2 head groups at dh 256 and G 12
     return (int)cudaErrorInvalidValue;
   const int G = H / KH;
   switch (dh) {

@@ -26,17 +26,20 @@ from . import ref
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"decode_attention": 0}
 # The kernel's instantiations: head dim -> query heads per kv head.
-GROUPS = {dh: (1, 2, 3, 4, 6, 8) for dh in (16, 32, 64, 128)}
+GROUPS = {dh: (1, 2, 3, 4, 6, 8) for dh in (16, 32, 64)}
+GROUPS[128] = (1, 2, 3, 4, 5, 6, 8, 12)  # qwen2.5-32b 5, starcoder2 12
 GROUPS[256] = (10,)                  # recurrentgemma-2b: 10 heads over 1
 SMS = 132                            # H100 SXM streaming multiprocessors
 NSPLIT_MAX = 64                      # splits per call, at most
 # Positions one block takes per loop iteration, by head dim: DecodeMap's
 # STEP = NGR * U in csrc/attention.cu (a split is a multiple of it).
 STEPS = {16: 256, 32: 128, 64: 64, 128: 32, 256: 16}
-# Blocks a kv head's query heads are shared among, by head dim
-# (decode_head_groups in csrc/attention.cu): five of recurrentgemma-2b's
-# ten heads a block at dh 256.
-HEAD_GROUPS = {16: 1, 32: 1, 64: 1, 128: 1, 256: 2}
+# Blocks a kv head's query heads are shared among, by (head dim, G)
+# (decode_head_groups in csrc/attention.cu): two at dh 256 (five of
+# recurrentgemma-2b's ten heads a block) and past 8 heads (six of
+# starcoder2's twelve), else one.
+HEAD_GROUPS = {(dh, G): 2 if dh > 128 or G > 8 else 1
+               for dh, gs in GROUPS.items() for G in gs}
 # The last call's (split, nsplit, blocks, resident blocks per SM).
 LAST_GRID: dict[str, tuple[int, int, int, int]] = {}
 
@@ -93,7 +96,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Bound: bytes (the K and V rows read).  Design (source header): a block
     per (split of positions, kv head, batch row) serves all H/KH query
     heads of its kv head, so the cache is read once (at dh 256 two blocks
-    of five heads each, :data:`HEAD_GROUPS`); the splits
+    of five heads each, at dh 128 / G 12 two of six: :data:`HEAD_GROUPS`);
+    the splits
     (:func:`split_size`) fill the blocks the card holds at once
     (:func:`resident_blocks`) in one wave, and a second launch merges
     them in order.  Any L."""
@@ -116,7 +120,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: must be 16-byte aligned")
     lo, hi = valid_range(cache_len, L, window)
     res = resident_blocks(dh, H // KH)
-    per_split = B * KH * HEAD_GROUPS[dh]
+    per_split = B * KH * HEAD_GROUPS[dh, H // KH]
     split = split_size(hi - lo, per_split, res, STEPS[dh])
     nsplit = -(-(hi - lo) // split)
     part_m = torch.empty(B * H * nsplit, dtype=torch.float32,

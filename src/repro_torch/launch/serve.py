@@ -4,6 +4,13 @@ KV cache, on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve             # H100
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
+
+``--arch`` takes every architecture the port knows
+(:data:`repro_torch.configs.ARCHS`): ``flaas-100m``, the dense
+``qwen2.5-3b``, ``qwen2.5-32b``, ``starcoder2-3b`` and ``starcoder2-15b``,
+the hybrid ``recurrentgemma-2b`` and ``xlstm-125m``.  In float32,
+``qwen2.5-32b`` (131 GB) does not fit one 80 GB card whole.
 
 The counterpart of ``repro``'s ``launch/serve.py`` with the same flags,
 plus ``--device`` (default ``cuda``; raises without it) and ``--seed``.
@@ -13,7 +20,7 @@ are drawn on the CPU from a generator seeded with ``--seed`` and copied to
 the device, and so are the prompts: runs on the card and on the CPU serve
 the same model the same prompts.  The first new token is the prefill's
 argmax (as in ``repro``), then ``gen - 1`` :func:`serve_step` calls; the
-cache holds ``prompt_len + gen`` positions (a ``rec`` block's state is
+cache holds ``prompt_len + gen`` positions (a recurrent block's state is
 O(1), a ``local`` block's ring ``min(window, prompt_len + gen)``).
 """
 from __future__ import annotations

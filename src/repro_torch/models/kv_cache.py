@@ -6,28 +6,35 @@ Cache layout (``repro``'s, per block):
   attn          {"k", "v"}: [B, Lc, KH, dh]            Lc = cache_len
   swa/local     {"k", "v"}: [B, min(window, Lc), ...]  ring buffer
   rec           {"conv": [B, W-1, D], "h": [B, D]}     float32
+  mlstm         {"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}
+  slstm         {"c", "n", "h", "m"}: [B, H, dh]       float32, dh = D/H
 
 In a ring, absolute position ``p`` lives in slot ``p % Lc``.  RoPE is
 applied at absolute positions before insertion, so ring entries need no
 window mask: everything resident is in the window by construction.  A
 ``rec`` block's entry is its RG-LRU state: the last ``W - 1 = 3`` inputs
-of the causal convolution and the scan's last output.  The cache is a
-list with one entry per block in layer order (the port's blocks are a
-``ModuleList``, not ``repro``'s scanned stack), on the model's device.
+of the causal convolution and the scan's last output; an ``mlstm`` or
+``slstm`` block's its cell's state (``m`` starts at -1e30 for the mLSTM,
+at zero for the sLSTM, as in ``repro``).  The cache is a list with one
+entry per block in layer order (the port's blocks are a ``ModuleList``,
+not ``repro``'s scanned stack), on the model's device.
 
 The prefill's attention is the flash dispatch
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), the decode
 step's :func:`repro_torch.models.layers.decode_attention`, and a ``rec``
 block's scan :func:`repro_torch.kernels.rg_lru.rglru_scan` (S steps from
 zero in the prefill, one step from the cached ``h`` in the decode); each
-runs its Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  All
-run under ``torch.no_grad`` (the kernels have no backward).
+runs its Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  An
+``mlstm`` block runs its chunkwise form in the prefill and its one-token
+step in the decode, an ``slstm`` block its scan (S steps, then one), as
+tensor code (:mod:`repro_torch.models.recurrent`).  All run under
+``torch.no_grad``.
 
 Where ``repro`` returns a new cache from each decode step, the port
-writes the step's key and value, or the new ``conv`` and ``h``, into the
-cache in place (saving a copy of the cache per token) and returns the
-same list.  Block kinds ``mlstm``, ``slstm``, ``xattn`` and ``encdec``,
-and MoE blocks, raise ``NotImplementedError``.
+writes the step's key and value, or the recurrent block's new state,
+into the cache in place (saving a copy of the cache per token) and
+returns the same list.  Block kinds ``xattn`` and ``encdec``, and MoE
+blocks, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,9 @@ from .transformer import Transformer, _check_ported, apply_block, logits_head
 
 Cache = List[Dict[str, torch.Tensor]]
 _RING = ("swa", "local")
+# a recurrent block's cache entry: its state's names, in the state's order
+_STATE = {"rec": ("conv", "h"), "mlstm": ("C", "n", "m"),
+          "slstm": ("c", "n", "h", "m")}
 
 
 def _check(params: Transformer, cfg: ArchConfig) -> None:
@@ -61,15 +71,22 @@ def _cache_len_for(kind: str, cfg: ArchConfig, cache_len: int) -> int:
 def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
                cache_len: int, dtype=torch.float32) -> Cache:
     """Zeroed cache, one entry per block (``{"k", "v"}`` in ``dtype``, or
-    a ``rec`` block's float32 ``{"conv", "h"}``), on the model's
-    device."""
+    a recurrent block's float32 state: ``rec`` ``{"conv", "h"}``,
+    ``mlstm`` ``{"C", "n", "m"}``, ``slstm`` ``{"c", "n", "h", "m"}``), on
+    the model's device."""
     _check(params, cfg)
     dev = params.flat.device
+    H = cfg.n_heads
     out = []
     for kind, _ in cfg.layer_specs():
-        if kind == "rec":
-            conv, h = R.rglru_init_state(batch, cfg.d_model, dev)
-            out.append({"conv": conv, "h": h})
+        if kind in _STATE:
+            if kind == "rec":
+                state = R.rglru_init_state(batch, cfg.d_model, dev)
+            elif kind == "mlstm":
+                state = R.mlstm_init_state(batch, H, cfg.d_model // H, dev)
+            else:
+                state = R.slstm_init_state(batch, H, cfg.d_model // H, dev)
+            out.append(dict(zip(_STATE[kind], state)))
             continue
         shape = (batch, _cache_len_for(kind, cfg, cache_len), cfg.kv_heads,
                  cfg.dh)
@@ -109,9 +126,9 @@ def forward_with_cache(params: Transformer, tokens, cfg: ArchConfig,
     for blk in params.blocks:
         h, state = apply_block(h, blk, blk.kind, cfg, positions=pos,
                                attend=_prefill_attend)
-        if blk.kind == "rec":       # copies: the views pin [B, S, D] buffers
+        if blk.kind in _STATE:      # copies: the views pin [B, S, D] buffers
             cache.append({n: x.clone(memory_format=torch.contiguous_format)
-                          for n, x in zip(("conv", "h"), state)})
+                          for n, x in zip(_STATE[blk.kind], state)})
             continue
         Lc = _cache_len_for(blk.kind, cfg, cache_len)
         ring = blk.kind in _RING
@@ -144,12 +161,13 @@ def decode_step(params: Transformer, token, cache: Cache, pos: int,
     h = L.embed(token, params.embed)
     posv = torch.full((1,), pos, device=h.device)
     for blk, entry in zip(params.blocks, cache):
-        if blk.kind == "rec":
-            h, (conv, hs) = apply_block(
+        if blk.kind in _STATE:
+            names = _STATE[blk.kind]
+            h, state = apply_block(
                 h, blk, blk.kind, cfg, positions=posv, attend=None,
-                state=(entry["conv"], entry["h"]))
-            entry["conv"].copy_(conv)
-            entry["h"].copy_(hs)
+                state=tuple(entry[n] for n in names))
+            for n, x in zip(names, state):
+                entry[n].copy_(x)
             continue
         h, _ = apply_block(h, blk, blk.kind, cfg, positions=posv,
                            attend=_decode_attend(entry, pos,

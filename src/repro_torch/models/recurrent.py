@@ -1,6 +1,5 @@
-"""Recurrent blocks on PyTorch: the RG-LRU of RecurrentGemma / Griffin
-(``repro/models/recurrent.py``, the RG-LRU part; mLSTM and sLSTM are not
-ported yet).
+"""Recurrent blocks on PyTorch (``repro/models/recurrent.py``): the RG-LRU
+of RecurrentGemma / Griffin, and xLSTM's mLSTM and sLSTM blocks.
 
 ``repro`` runs the recurrence h_t = a_t h_{t-1} + b_t as a log-depth
 ``jax.lax.associative_scan`` for the prefill and as one step for the
@@ -14,9 +13,21 @@ absolute terms scaled by its largest value.
 State of a block (``repro``'s decode state, float32 here): ``(conv [B,
 W-1, D], h [B, D])``, the last ``W - 1 = 3`` inputs of the causal
 convolution and the scan's last output.
+
+The xLSTM blocks are ``repro``'s ``jnp`` code written in PyTorch tensor
+operations, in its operation order; ``repro`` has no Pallas kernel for
+either, and neither has the port.  The mLSTM runs chunkwise-parallel
+(quadratic inside a chunk, a ``[dh, dh]`` state carried across chunks,
+stabilised by a running max, all float32) for the prefill and training,
+and one O(dh^2) step per token for the decode; the sLSTM is a host loop
+over the sequence (its hidden-to-gate recurrence is not associative), as
+``repro``'s ``lax.scan``.  States (float32): mLSTM ``(C [B, H, dh, dh],
+n [B, H, dh], m [B, H])``, sLSTM ``(c, n, h, m)``, each ``[B, H, dh]``,
+with ``dh = D / H``.
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional, Tuple
 
 import torch
@@ -88,3 +99,180 @@ def rglru_init_state(batch: int, d_rnn: int, device,
     return (torch.zeros((batch, conv_width - 1, d_rnn), dtype=torch.float32,
                         device=device),
             torch.zeros((batch, d_rnn), dtype=torch.float32, device=device))
+
+
+# -------------------------------------------------------------------- mLSTM
+MState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+SState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def mlstm_shapes(d_model: int, n_heads: int):
+    """The mLSTM's leaves in ``repro``'s order (``init_mlstm_block``)."""
+    hd = n_heads * (d_model // n_heads)
+    return {"wq": (d_model, hd), "wk": (d_model, hd), "wv": (d_model, hd),
+            "w_i": (d_model, n_heads), "b_i": (n_heads,),
+            "w_f": (d_model, n_heads), "b_f": (n_heads,),
+            "w_o": (d_model, hd), "w_out": (hd, d_model)}
+
+
+def mlstm_init_state(batch: int, n_heads: int, dh: int, device) -> MState:
+    """Zeroed decode state on ``device``: ``C``, ``n`` zero and the
+    stabiliser ``m`` at -1e30."""
+    return (torch.zeros((batch, n_heads, dh, dh), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, n_heads, dh), dtype=torch.float32,
+                        device=device),
+            torch.full((batch, n_heads), -1e30, dtype=torch.float32,
+                       device=device))
+
+
+def _mlstm_qkvif(x, params: Params, n_heads: int):
+    B, S, D = x.shape
+    dh = params["wq"].shape[1] // n_heads
+    q = (x @ params["wq"]).reshape(B, S, n_heads, dh)
+    k = (x @ params["wk"]).reshape(B, S, n_heads, dh) / math.sqrt(dh)
+    v = (x @ params["wv"]).reshape(B, S, n_heads, dh)
+    i = (x.float() @ params["w_i"]) + params["b_i"]          # [B, S, H]
+    f = (x.float() @ params["w_f"]) + params["b_f"]
+    o = torch.sigmoid(x @ params["w_o"]).reshape(B, S, n_heads, dh)
+    return q, k, v, i, f, o
+
+
+def _mlstm_chunk(carry: MState, qb, kb, vb, ib, fb, ob):
+    """One chunk of :func:`mlstm_chunkwise`: the chunk's outputs [B, L, H,
+    dh] from the carried state, and the state at the chunk's end."""
+    C, n, m = carry                  # C [B,H,dh,dh], n [B,H,dh], m [B,H]
+    L = qb.shape[1]
+    logf = F.logsigmoid(fb)                                  # [B, L, H]
+    fcum = torch.cumsum(logf, dim=1)                         # F_t
+    ftot = fcum[:, -1]                                       # [B, H]
+    # intra-chunk logits A[t, s] = F_t - F_s + i_s  (s <= t)
+    A = fcum[:, :, None, :] - fcum[:, None, :, :] + ib[:, None, :, :]
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=A.device))
+    A = A.masked_fill(~tril[None, :, :, None], -math.inf)    # [B, t, s, H]
+    rowmax = torch.amax(A, dim=2)                            # [B, L, H]
+    inter_log = fcum + m[:, None, :]                         # [B, L, H]
+    m_t = torch.maximum(rowmax, inter_log)                   # [B, L, H]
+    qf, kf, vf = qb.float(), kb.float(), vb.float()
+    intra_w = torch.exp(A - m_t[:, :, None, :])              # [B, t, s, H]
+    scores = torch.einsum("bthd,bshd->btsh", qf, kf) * intra_w
+    num = torch.einsum("btsh,bshd->bthd", scores, vf)
+    inter = torch.exp(inter_log - m_t)[..., None]
+    num = num + inter * torch.einsum("bthd,bhde->bthe", qf, C)
+    den = torch.einsum("btsh,bshd->bthd", intra_w, kf)
+    den = den + inter * n[:, None, :, :]
+    qn = torch.abs(torch.einsum("bthd,bthd->bth", qf, den))
+    denom = torch.maximum(qn, torch.exp(-m_t))
+    h = ob.float() * (num / denom[..., None])
+    # the state at the chunk's end
+    m_next = torch.maximum(m + ftot, torch.amax(
+        ftot[:, None, :] - fcum + ib, dim=1))
+    w_old = torch.exp(m + ftot - m_next)                     # [B, H]
+    w_in = torch.exp(ftot[:, None, :] - fcum + ib - m_next[:, None, :])
+    C_next = w_old[..., None, None] * C + \
+        torch.einsum("bsh,bshd,bshe->bhde", w_in, kf, vf)
+    n_next = w_old[..., None] * n + torch.einsum("bsh,bshd->bhd", w_in, kf)
+    return (C_next, n_next, m_next), h
+
+
+def mlstm_chunkwise(x, params: Params, n_heads: int, chunk: int = 256,
+                    state: Optional[MState] = None):
+    """Chunkwise-parallel mLSTM.  x [B, S, D] -> (out [B, S, D], final
+    state); ``state`` the state before x (:func:`mlstm_init_state` when
+    None).  S is padded to a multiple of the chunk with steps whose input
+    gate is -1e30 and forget gate 1e3 (log-sigmoid 0), so the state
+    passes them untouched; their outputs are cut off."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    q, k, v, i, f, o = _mlstm_qkvif(x, params, n_heads)
+    if pad:
+        q, k, v, o = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v, o))
+        i = F.pad(i, (0, 0, 0, pad), value=-1e30)
+        f = F.pad(f, (0, 0, 0, pad), value=1e3)
+    dh = q.shape[-1]
+    n_ch = (S + pad) // chunk
+    if state is None:
+        state = mlstm_init_state(B, n_heads, dh, x.device)
+    hs = []
+    for c in range(n_ch):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
+                                i[:, sl], f[:, sl], o[:, sl])
+        hs.append(h)
+    h = torch.cat(hs, dim=1).reshape(B, S + pad, n_heads * dh)[:, :S]
+    return h.to(x.dtype) @ params["w_out"], state
+
+
+def mlstm_decode_step(x, params: Params, n_heads: int, state: MState):
+    """One token, x [B, 1, D], from ``state``: O(dh^2) per head.  Returns
+    (out [B, 1, D], new state)."""
+    B = x.shape[0]
+    q, k, v, i, f, o = _mlstm_qkvif(x, params, n_heads)
+    dh = q.shape[-1]
+    C, n, m = state
+    logf = F.logsigmoid(f[:, 0])                             # [B, H]
+    m_new = torch.maximum(logf + m, i[:, 0])
+    a = torch.exp(logf + m - m_new)
+    b = torch.exp(i[:, 0] - m_new)
+    kf = k[:, 0].float()
+    vf = v[:, 0].float()
+    C = a[..., None, None] * C + \
+        b[..., None, None] * kf[..., :, None] * vf[..., None, :]
+    n = a[..., None] * n + b[..., None] * kf
+    qf = q[:, 0].float()
+    num = torch.einsum("bhd,bhde->bhe", qf, C)
+    qn = torch.abs(torch.einsum("bhd,bhd->bh", qf, n))
+    h = num / torch.maximum(qn, torch.exp(-m_new))[..., None]
+    h = o[:, 0].float() * h
+    out = h.reshape(B, 1, n_heads * dh).to(x.dtype) @ params["w_out"]
+    return out, (C, n, m_new)
+
+
+# -------------------------------------------------------------------- sLSTM
+def slstm_shapes(d_model: int, n_heads: int):
+    """The sLSTM's leaves in ``repro``'s order (``init_slstm_block``): the
+    fused input projection of the gates (i, f, z, o), the block-diagonal
+    recurrent weights per head, the output projection."""
+    dh = d_model // n_heads
+    return {"w_in": (d_model, 4 * d_model), "b_in": (4 * d_model,),
+            "r": (n_heads, dh, 4 * dh), "w_out": (d_model, d_model)}
+
+
+def slstm_init_state(batch: int, n_heads: int, dh: int, device) -> SState:
+    """Zeroed decode state ``(c, n, h, m)`` on ``device``."""
+    return tuple(torch.zeros((batch, n_heads, dh), dtype=torch.float32,
+                             device=device) for _ in range(4))
+
+
+def slstm_scan(x, params: Params, n_heads: int,
+               state: Optional[SState] = None):
+    """The sLSTM over x [B, S, D], one step at a time from ``state``
+    (zeros when None).  Returns (out [B, S, D], final state)."""
+    B, S, D = x.shape
+    dh = D // n_heads
+    pre_all = (x @ params["w_in"]).float() + params["b_in"]  # [B, S, 4D]
+    pre_all = pre_all.reshape(B, S, 4, n_heads, dh)
+    if state is None:
+        state = slstm_init_state(B, n_heads, dh, x.device)
+    c, n, h, m = state
+    r = params["r"]
+    hs = []
+    for t in range(S):
+        pre = pre_all[:, t]                                  # [B, 4, H, dh]
+        rec = torch.einsum("bhd,hde->bhe", h, r).reshape(B, n_heads, 4, dh)
+        it = pre[:, 0] + rec[:, :, 0]
+        ft = pre[:, 1] + rec[:, :, 1]
+        zt = torch.tanh(pre[:, 2] + rec[:, :, 2])
+        ot = torch.sigmoid(pre[:, 3] + rec[:, :, 3])
+        logf = F.logsigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        fp = torch.exp(logf + m - m_new)
+        ip = torch.exp(it - m_new)
+        c = fp * c + ip * zt
+        n = fp * n + ip
+        h = ot * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    return out @ params["w_out"], (c, n, h, m)

@@ -1,6 +1,8 @@
 """Transformer backbone on PyTorch: the ``attn``/``swa``/``local`` blocks
 and the RG-LRU ``rec`` block, each with a dense MLP (the families
-``flaas-100m`` and ``recurrentgemma-2b`` need).
+``flaas-100m``, the dense GQA configs and ``recurrentgemma-2b`` need), and
+xLSTM's ``mlstm`` and ``slstm`` blocks (a norm and the cell, no MLP:
+``xlstm-125m``).  MoE, ``xattn`` and ``encdec`` blocks are not ported.
 
 ``repro`` keeps parameters as a pytree and stacks the repeating body for
 ``lax.scan``; the port keeps them in an ``nn.Module`` -- a ``ModuleList``
@@ -27,7 +29,8 @@ the prefill and the decode step (:mod:`repro_torch.models.kv_cache`); only
 the attention call and the recurrent state it is given differ between
 them.  A ``rec`` block trains on both devices: under autograd the scan
 runs its twin's backward on the CPU and the Hopper backward kernel on the
-card (:mod:`repro_torch.kernels.rg_lru`).
+card (:mod:`repro_torch.kernels.rg_lru`).  The xLSTM blocks are tensor
+code on either device (:mod:`repro_torch.models.recurrent`).
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import recurrent as R
 
-_PORTED_KINDS = ("attn", "swa", "local", "rec")
+_PORTED_KINDS = ("attn", "swa", "local", "rec", "mlstm", "slstm")
+_XLSTM = ("mlstm", "slstm")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -77,17 +81,22 @@ def _rg_shapes(D: int) -> Dict[str, tuple]:
 
 class Block(nn.Module):
     """One block: ``norm1``, the mixer (``attn`` for ``attn``/``swa``/
-    ``local``, ``rg`` for ``rec``), ``norm2``, ``mlp``."""
+    ``local``, ``rg`` for ``rec``), ``norm2``, ``mlp``; or, for
+    ``mlstm``/``slstm``, ``norm1`` and the ``cell`` alone."""
 
     def __init__(self, kind: str, cfg: ArchConfig, device):
         super().__init__()
         self.kind = kind
         D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dh
+        self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
+        if kind in _XLSTM:
+            shapes = R.mlstm_shapes if kind == "mlstm" else R.slstm_shapes
+            self.cell = _pdict(shapes(D, H), device)
+            return
         width = cfg.dense_ff or cfg.d_ff
         mlp = {"w_up": (D, width), "w_down": (width, D)}
         if cfg.act in ("silu", "swiglu"):
             mlp["w_gate"] = (D, width)
-        self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
         if kind == "rec":
             self.rg = _pdict(_rg_shapes(D), device)
         else:
@@ -116,17 +125,30 @@ def _ffn_apply(h, p: Block, cfg: ArchConfig):
 
 
 def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
-                attend: Optional[Attend],
-                state: Optional[R.State] = None):
+                attend: Optional[Attend], state: Optional[tuple] = None):
     """One block: the pre-norm mixer, then the pre-norm MLP, each added to
     the residual.  For ``attn``/``swa``/``local`` the mixer is attention on
     the roped projections, ``attend(q, k, v, window)`` (``window`` the
     config's for ``swa``/``local``, None for ``attn``), and the block's
     new state is ``(k, v)``, the roped keys and values [B, S, KH, dh].
     For ``rec`` it is the RG-LRU from ``state`` (the decode state, None at
-    a sequence's start), and the new state ``(conv, h)``.  Returns ``(h,
-    new state)``."""
+    a sequence's start), and the new state ``(conv, h)``.  An ``mlstm`` or
+    ``slstm`` block is the pre-norm cell alone, added to the residual: the
+    mLSTM chunkwise from ``state`` (from zero when None), or its one-token
+    decode step where ``state`` is given and S is 1, the new state ``(C,
+    n, m)``; the sLSTM's scan from ``state``, the new state ``(c, n, h,
+    m)``.  Returns ``(h, new state)``."""
     x = L.apply_norm(h, p.norm1, cfg.norm)
+    if kind == "mlstm":
+        if state is not None and x.shape[1] == 1:
+            out, new = R.mlstm_decode_step(x, p.cell, cfg.n_heads, state)
+        else:
+            out, new = R.mlstm_chunkwise(x, p.cell, cfg.n_heads,
+                                         chunk=cfg.mlstm_chunk, state=state)
+        return h + out, new
+    if kind == "slstm":
+        out, new = R.slstm_scan(x, p.cell, cfg.n_heads, state)
+        return h + out, new
     if kind == "rec":
         out, new = R.rglru_block(x, p.rg, state)
     else:
@@ -146,7 +168,7 @@ def apply_block_train(h, p: Block, kind: str, cfg: ArchConfig, *,
                       positions, causal: bool = True):
     """The training block: :func:`apply_block` with
     :func:`repro_torch.models.layers.chunked_attention` (autograd), a
-    ``rec`` block from a zero state."""
+    recurrent block from a zero state."""
     return apply_block(
         h, p, kind, cfg, positions=positions,
         attend=lambda q, k, v, window: L.chunked_attention(
@@ -223,17 +245,22 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     ``N(0, 1/fan_in)``, embeddings and the RG-LRU's ``conv_w`` ``N(0,
     0.02^2)``, norm scales one, biases zero, and the RG-LRU's ``lambda``
     griffin's: ``log(u^(1/8) / (1 - u^(1/8)))`` for ``u ~ U(0.9, 0.999)``,
-    so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999).  (``repro`` draws
-    from ``jax.random``; the values differ, the distribution does
-    not.)"""
+    so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999); the mLSTM's forget
+    bias ``b_f`` three (open forget gates), the sLSTM's recurrent ``r``
+    [H, dh, 4 dh] ``0.3 N(0, 1/H)`` (``repro`` takes the leading axis as
+    the fan-in).  (``repro`` draws from ``jax.random``; the values differ,
+    the distribution does not.)"""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.flat.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             p.fill_(1.0)
-        elif leaf in ("bias", "bq", "bk", "bv", "conv_b", "b_a", "b_i"):
+        elif leaf in ("bias", "bq", "bk", "bv", "conv_b", "b_a", "b_i",
+                      "b_in"):
             p.zero_()
+        elif leaf == "b_f":
+            p.fill_(3.0)
         elif leaf == "lambda":
             u = torch.rand(p.shape, generator=gen, device=p.device)
             u = (u * (0.999 - 0.9) + 0.9) ** (1.0 / R._C_RGLRU)
@@ -242,6 +269,8 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
             p.normal_(generator=gen)
             p.mul_(0.02 if leaf in ("table", "conv_w")
                    else 1.0 / math.sqrt(p.shape[0]))
+            if leaf == "r":
+                p.mul_(0.3)
     return model
 
 

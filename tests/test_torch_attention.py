@@ -291,20 +291,48 @@ def test_decode_grids_at_the_serve_shapes(n, blocks, residency, step,
 @pytest.mark.parametrize("dh", sorted(da.GROUPS))
 def test_decode_step_table_mirrors_the_kernel(dh):
     """The launcher's STEPS equal the kernel's DecodeMap STEP = NGR * U,
-    and its HEAD_GROUPS the kernel's decode_head_groups, from the same
-    formulas as the source's; the head groups split every G evenly."""
+    and its HEAD_GROUPS, keyed by (dh, G), the kernel's
+    decode_head_groups<DH, G>, from the same formulas as the source's;
+    the head groups split every G evenly, and a block's GB = G / head
+    groups heads keep q in registers (GB x VEC <= 32) and their merge
+    arrays within 48 KB, except recurrentgemma-2b's dh-256 block, whose q
+    is in shared memory."""
     src = (build.CSRC / "attention.cu").read_text()
     for line in ("constexpr int kThreads = 256;",
                  "VEC = DH > 128 ? 8 : 4;", "LG = DH / VEC;",
                  "NGR = kThreads / LG;", "U = VEC == 8 ? 2 : 4;",
-                 "STEP = NGR * U;", "return DH > 128 ? 2 : 1;"):
+                 "STEP = NGR * U;", "return DH > 128 || G > 8 ? 2 : 1;",
+                 "return G / decode_head_groups<DH, G>() * DecodeMap<DH>::VEC"
+                 " > 32;"):
         assert line in src, line
     vec = 8 if dh > 128 else 4
     ngr = 256 // (dh // vec)
     assert da.STEPS[dh] == ngr * (2 if vec == 8 else 4)
-    assert da.HEAD_GROUPS[dh] == (2 if dh > 128 else 1)
-    assert all(G % da.HEAD_GROUPS[dh] == 0 for G in da.GROUPS[dh])
-    assert set(da.STEPS) == set(da.HEAD_GROUPS) == set(da.GROUPS)
+    for G in da.GROUPS[dh]:
+        hg = da.HEAD_GROUPS[dh, G]
+        assert hg == (2 if dh > 128 or G > 8 else 1)
+        assert G % hg == 0
+        gb = G // hg
+        q_shared = gb * vec > 32
+        assert q_shared == (dh == 256)
+        smem = ((gb * dh if q_shared else 0) + ngr * gb * (dh + 2)) * 4
+        assert smem <= 48 * 1024, (dh, G, smem)
+    assert set(da.STEPS) == {d for d, _ in da.HEAD_GROUPS} == set(da.GROUPS)
+    assert len(da.HEAD_GROUPS) == sum(len(g) for g in da.GROUPS.values())
+
+
+def test_decode_groups_cover_the_dense_family():
+    """Every dense config's H/KH at dh 128 has an instantiation: 8 (qwen2.5-
+    3b), 5 (qwen2.5-32b), 12 (both starcoder2), the last in two head
+    groups."""
+    from repro_torch.configs import get_arch
+    want = {"qwen2.5-3b": 8, "qwen2.5-32b": 5, "starcoder2-3b": 12,
+            "starcoder2-15b": 12}
+    for name, G in want.items():
+        cfg = get_arch(name)
+        assert (cfg.dh, cfg.n_heads // cfg.kv_heads) == (128, G)
+        assert G in da.GROUPS[128]
+    assert da.HEAD_GROUPS[128, 12] == 2 and da.HEAD_GROUPS[128, 5] == 1
 
 
 def test_decode_valid_range():
@@ -347,7 +375,13 @@ CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
     # 2112 slots)
     (4, 10, 1, 48, 256, 16, None), (4, 10, 1, 48, 256, 17, None),
     (4, 10, 1, 2048, 256, 1500, 695), (1, 10, 1, 4096, 256, 4096, None),
-    (8, 12, 4, 2112, 64, 2080, None)]
+    (8, 12, 4, 2112, 64, 2080, None)] + [
+    # the dense family's heads at dh 128: qwen2.5-32b (40 over 8, G 5),
+    # starcoder2-3b (24 over 2) and starcoder2-15b (48 over 4; G 12, two
+    # head groups), at the serve defaults' cache (B=4, 48 slots, 33 and 47
+    # valid) and the long serve's (B=4, 2112 slots, 2080 and 1000 valid)
+    (4, H, KH, L, 128, n, None) for H, KH in ((40, 8), (24, 2), (48, 4))
+    for L, n in ((48, 33), (48, 47), (2112, 2080), (2112, 1000))]
 
 
 @pytest.mark.cuda
@@ -395,7 +429,7 @@ def test_cuda_decode_matches_twin(hopper, B, H, KH, L, dh, n, window):
     assert da.LAUNCHES == {"decode_attention": 2}
     lo, hi = da.valid_range(n, L, window)
     res = da.resident_blocks(dh, H // KH)
-    per_split = B * KH * da.HEAD_GROUPS[dh]
+    per_split = B * KH * da.HEAD_GROUPS[dh, H // KH]
     split = da.split_size(hi - lo, per_split, res, da.STEPS[dh])
     nsplit = -(-(hi - lo) // split)
     assert da.LAST_GRID["decode_attention"] == (split, nsplit,

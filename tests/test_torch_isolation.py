@@ -36,9 +36,11 @@ from repro_torch.training import TrainConfig, make_state
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-# the kernel A/B scripts, run on the card beside chip_smoke.py
+# the kernel A/B scripts and the xLSTM gradient probe, run on the card
+# beside chip_smoke.py
 AB_SCRIPTS = [ROOT / "decode_ab.py", ROOT / "dual_ab.py",
-              ROOT / "sweep_ab.py", ROOT / "scan_ab.py"]
+              ROOT / "sweep_ab.py", ROOT / "scan_ab.py",
+              ROOT / "xlstm_grad_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -193,8 +193,8 @@ def test_full_flaas_100m_parameter_count():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
-        get_arch("qwen2.5-3b")
-    for pattern in ((("mlstm", False),), (("attn", True),)):
+        get_arch("mixtral-8x22b")
+    for pattern in ((("xattn", False),), (("attn", True),)):
         cfg = dataclasses.replace(SMALL, pattern=pattern)
         with pytest.raises(NotImplementedError):
             Transformer(cfg, device="cpu")
