@@ -35,7 +35,8 @@ Phases (each raises on failure; nothing is caught):
      the same episode on the CPU; each round's SP1 exactly one dual_step
      launch with no host sync inside it (torch.cuda sync debug mode
      "error"), its iteration count and lam equal to the per-iteration
-     loop's on the same operands;
+     loop's on the same operands (of the solves that run to the cap, the
+     first);
   5. one round at the largest sched_scale geometry (M=32, N=32, K=16384,
      refine on), with its invariants, a swap sweep of C=256 candidates
      per analyst, SP1 as in phase 4 (one launch, the loop's count and
@@ -52,11 +53,11 @@ Phases (each raises on failure; nothing is caught):
      1e-5 relative, both bitwise from launch to launch; times beside the
      twin's, the bound and a one-call PyTorch yardstick;
   8. one DP-FedAvg round (sigma 0) of flaas-100m at full width, depth cut
-     to 2 layers, on the card and on the CPU from the same parameters and
+     to 2 layers, client batches of FL_SEQ tokens, on the card and on the CPU from the same parameters and
      data: equal cohort and kept set, parameters within RTOL_FL;
   9. the end-to-end FL loop (repro_torch.launch.fl_e2e.run) on the card
      at its defaults -- full flaas-100m, 8 devices, 2 analysts x 3
-     pipelines, seq 256, 12 rounds -- with its invariants, the DP kernels
+     pipelines, seq 256 -- for FL_ROUNDS rounds, with its invariants, the DP kernels
      launched once each per fl_round, and the scheduler's grants equal to
      a scheduler-only run of the same loop on the CPU;
  10. where the FL path's time goes: per round the scheduler, the clients'
@@ -102,7 +103,7 @@ Phases (each raises on failure; nothing is caught):
  15. serving recurrentgemma-2b through repro_torch.launch.serve: card vs
      CPU at full width with depth cut to one group (rec, rec, local),
      logits within RTOL_SERVE and greedy tokens as in phase 12; the full
-     26 layers (3,038,753,280 parameters; make_model's host time printed)
+     26 layers (3,038,753,280 parameters, drawn on the card by init_model)
      at the defaults with exactly 8 flash, 8 x 15 decode and 18 + 18 x 15
      scan launches; then B=4, prompt 2048, gen 64, so the local rings wrap
      during the decode;
@@ -139,12 +140,12 @@ Phases (each raises on failure; nothing is caught):
      repro/service/load.py's defaults (paper_default, poisson, seed 0,
      beta 2.2; M=8 x N=25 slots, a 4096-slot ledger ring, chunks of 8,
      admission batches of 32, a queue of 1024): every scheduler through
-     168 ticks (8.2 ring wraps) with conservation checked every chunk,
+     SERVICE_TICKS (3.1 ring wraps) with conservation checked every chunk,
      every wrapped chunk paged, every slot recycled, and exactly the
      path's budget kernels launched every tick; dpbalance's first 64
      ticks held to repro's n_allocated and cumulative metrics
      (REPRO_SERVICE); paged bitwise the carry body (cold and warm SP1,
-     48 ticks, rows and final state); card against CPU over 48 ticks
+     SERVICE_CPU_TICKS, rows and final state); card against CPU over them
      (dpbalance warm, dpf; selections equal, rows within RTOL_SERVICE);
      replay_gap against run_episode for every scheduler on the card; and
      where the time goes: ticks/s per scheduler, the PhaseProfiler split,
@@ -152,8 +153,8 @@ Phases (each raises on failure; nothing is caught):
      calls of a chunk beside 8 run_episode rounds, and the service tick
      against the engine round on the paper episode;
  21. service checkpoints and the block-sharded service at phase 20's
-     defaults: for every scheduler a 64-tick run against one saved at
-     tick 32 (async save, then wait) and resumed in a fresh service,
+     defaults: for every scheduler a RESUME_TICKS run against one saved at
+     tick RESUME_AT (async save, then wait) and resumed in a fresh service,
      bitwise (per-tick rows, selections, final state, summary
      fingerprint), paged and, for dpbalance, the carry body too;
      a checkpoint written by the port's manager with the reference's npz
@@ -162,8 +163,7 @@ Phases (each raises on failure; nothing is caught):
      the stripe shapes; ShardedFlaasService through torch.multiprocessing
      spawn -- one stripe under NCCL and two under Gloo with CUDA tensors,
      both ranks on cuda:0 -- for every scheduler (dpbalance with warm
-     SP1) over 48 ticks (two ring wraps; dpbalance's two-stripe run and
-     the others' one-stripe runs 24, past the first wrap) against the
+     SP1) over STRIPE_TICKS (past the first ring wrap) against the
      unsharded card run
      with the same config (selections equal, rows within
      RTOL_SERVICE, gap and overdraw <= 1e-4; one stripe's bitwise-ness
@@ -200,9 +200,9 @@ Phases (each raises on failure; nothing is caught):
      same cache with the L2 flushed before each launch (does the second
      head group's read of K/V come from L2?);
  24. serving the dense family through repro_torch.launch.serve:
-     qwen2.5-3b (drawn by serve.make_model on the host, timed) and
-     starcoder2-3b whole, starcoder2-15b at 8 of its 40 layers and
-     qwen2.5-32b at 4 of 64 (drawn on the card); each cut to 2 layers of
+     qwen2.5-3b and starcoder2-3b whole, starcoder2-15b at 8 of its 40
+     layers and qwen2.5-32b at 4 of 64 (all drawn on the card by
+     init_model, timed); each cut to 2 layers of
      full width card vs CPU as in phase 12; each at the launcher's
      defaults and at B=4, prompt 2048, gen 64 with exactly one flash
      launch a layer and one decode launch a layer a step after the first,
@@ -228,13 +228,35 @@ Phases (each raises on failure; nothing is caught):
      GRAD_RTOL_TRAIN; the whole model's DP gradients without noise at
      the launcher's first step (its parameters, drawn on the card, and
      its batch), in microbatch mode (B=8 x 128, two microbatches) and
-     example mode (4 examples): the card's loss, norm
+     example mode (2 examples): the card's loss, norm
      mean and max and clipped mean gradient each no further from the
      exact value (the same code in float64 on the card) than the larger
      of RTOL_TRAIN and SPREAD_FACTOR times the CPU float32's distance;
-     finite losses, ms per step and peak memory throughout.
+     finite losses, ms per step and peak memory throughout;
+ 27. both attention kernels at the cross-attention configs' shapes
+     (CROSS_FLASH_CASES, CROSS_DECODE_CASES), against their twins as in
+     phase 11: flash at Skv != S (non-causal) for llama-3.2-vision-11b's
+     cross attention (32 over 8 heads, dh 128; prompts of 32 and 2048
+     rows against 1601 memory rows) and whisper-medium's (16 over 16,
+     dh 64; 32 and 384 rows against 1500 frames), whisper's encoder
+     (non-causal, 1500 = 1500), each with its block count beside the
+     card's 132 SMs; decode over the whole memory (B=4, 1601 and 1500
+     rows); times, bound and SDPA (kv heads repeated, non-causal);
+ 28. serving llama-3.2-vision-11b whole (40 layers, 9,775,157,264
+     parameters) and whisper-medium whole (24 + 24 layers, 811,333,632),
+     drawn on the card by init_model, with norms, biases and the xattn
+     gates seeded nonzero and a seeded 0.1 N(0, 1) memory / frames: each
+     cut to one pattern group (llama: 4 attn + 1 xattn) or 2 + 2 layers
+     (whisper) card vs CPU as in phase 12; each at the launcher's
+     defaults and at a long serve (llama B=4, prompt 2048, gen 64;
+     whisper B=4, prompt 384, gen 64, repro's 448-token decoder cache)
+     with exactly the launches _cross_launches counts (llama 40 flash a
+     prefill, 40 decode a step; whisper 72 and 48), prefill ms, decode
+     ms/step, tokens/s, peak memory and busy shares as in phase 24.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
+The CPU references of phases 4, 17 and 20 (seeded episodes and services)
+run in one spawned worker process beside the card phases.
 The second-to-last lines are a JSON object listing the kernels and the
 card's name and power limit; the last line is the run's verdict as JSON.
 Exits nonzero without CUDA or outside a checkout of the repository.
@@ -275,6 +297,8 @@ DP_SHAPES = [("e2e", 6, P_FLAAS), ("example", 8, P_FLAAS),
              ("ragged", 3, 4096 * 7 + 13), ("one-row", 1, P_FLAAS)]
 NORM_RTOL = 1e-5               # rownorms vs twin (sum order differs)
 RTOL_FL = 1e-4                 # phase 8: card vs CPU, of the largest delta
+FL_SEQ = 64                    # phase 8: tokens a client's batch row
+FL_ROUNDS = 4                  # phase 9: the launcher's 12 rounds cut to 4
 ATT_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 ATT_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:71",
@@ -315,10 +339,6 @@ P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
 DENSE = (("qwen2.5-3b", None, "q3b"), ("starcoder2-3b", None, "sc3b"),
          ("starcoder2-15b", 8, "sc15b"), ("qwen2.5-32b", 4, "q32b"))
 P_DENSE = {"qwen2.5-3b": 3_397_103_616, "starcoder2-3b": 3_180_813_312}
-# drawn by serve.make_model on the host (the launcher's path, timed); the
-# others by init_model on the card, which takes a fraction of a second
-# where a host draw takes ~8 s a billion parameters
-DENSE_HOST_DRAW = "qwen2.5-3b"
 DENSE_CPU_LAYERS = 2           # card vs CPU: the model cut to 2 layers
 DENSE_FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None)]
 # the serve defaults' cache (48 slots) and the long serve's (2112)
@@ -327,6 +347,32 @@ DENSE_DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-47", 4, 48, 47),
                       ("long-1000", 4, 2112, 1000)]
 SERVE_RUNS = (("defaults", 4, 32, 16), ("long", 4, 2048, 64))
 P_XLSTM = 114_510_408          # xlstm-125m parameters
+# phases 27-28: cross attention.  llama-3.2-vision-11b (attn x 4 + xattn,
+# 8 groups; 32 query over 8 kv heads, dh 128, a 1601-row image memory)
+# and whisper-medium (24 encoder and 24 encdec layers; 16 over 16 heads,
+# dh 64, 1500 frames), each served whole in float32 on one card
+XATTN, WHISPER = "llama-3.2-vision-11b", "whisper-medium"
+P_CROSS = {XATTN: 9_775_157_264, WHISPER: 811_333_632}
+# flash at Skv != S: each model's cross attention at the serve prompt and
+# at its long serve's prompt (2048 / 384 rows against the memory), and
+# whisper's encoder (non-causal self attention over the 1500 frames)
+CROSS_FLASH_CASES = {
+    XATTN: [("ll-x32", 4, 32, False, None, 1601),
+            ("ll-x2048", 4, 2048, False, None, 1601)],
+    WHISPER: [("wh-enc", 4, 1500, False, None),
+              ("wh-x32", 4, 32, False, None, 1500),
+              ("wh-x384", 4, 384, False, None, 1500)]}
+# decode over every row of the memory (cache_len = the memory's length)
+CROSS_DECODE_CASES = {XATTN: [("ll-x1601", 4, 1601, 1601)],
+                      WHISPER: [("wh-x1500", 4, 1500, 1500)]}
+# the serves: the launcher's defaults, and a long one -- llama like the
+# dense family's; whisper's prompt and gen filling repro's 448-token
+# decoder cache (DECODER_PROMPT_LEN)
+CROSS_RUNS = {XATTN: SERVE_RUNS,
+              WHISPER: (("defaults", 4, 32, 16), ("long", 4, 384, 64))}
+# card vs CPU: llama cut to one pattern group (4 attn + 1 xattn, 2.1 B
+# parameters), whisper to 2 decoder and 2 encoder layers
+CROSS_CPU_CUT = {XATTN: (5, None), WHISPER: (2, 2)}
 # kernels phase 2 holds free of spills (mangled-name fragments): the scan's
 # backward ring, and the decode split kernel at dh 128 for G 5 and 12
 NO_SPILL = ("rg_scan_bwd_ring", "decode_split_kernelILi128ELi5E",
@@ -417,7 +463,7 @@ PATH_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t", "dual_step",
 # paper size: its seeds, and the runs (scheduler, SchedulerConfig
 # overrides) it takes under both modes
 FLEET_SEEDS = 2
-LOCKSTEP_SEEDS = 16
+LOCKSTEP_SEEDS = 4
 LOCKSTEP_RUNS = [("dpbalance", {}), ("dpbalance", {"sp1_warm_start": True}),
                  ("dpbalance", {"swap_beam": 8}), ("dpf", {}), ("dpk", {}),
                  ("fcfs", {})]
@@ -445,8 +491,8 @@ REPRO_BEAM = {"beam": (8, 0.17649494, [71, 209, 292, 328, 357, 495, 503, 979]),
 SERVICE_GEOMETRY = dict(analyst_slots=8, pipeline_slots=25,
                         block_slots=4096, chunk_ticks=8, admit_batch=32,
                         max_pending=1024)
-SERVICE_TICKS = 168            # 8.2 ring wraps
-SERVICE_CPU_TICKS = 48         # card vs CPU: two wraps
+SERVICE_TICKS = 64             # 3.1 ring wraps (REPRO_SERVICE's ticks)
+SERVICE_CPU_TICKS = 24         # card vs CPU: past the first wrap
 RTOL_SERVICE = 1e-5            # continuous outputs, relative and absolute
 # repro's own service at those defaults (cold SP1, on a CPU): per-tick
 # n_allocated over the first 64 ticks, then cumulative_efficiency and
@@ -463,9 +509,10 @@ SERVICE_PER_TICK = {"dpbalance": {"rowmax": 1, "matvec": 1, "matvec_t": 2,
                     "dpf": {"rowmax": 1}, "dpk": {"rowmax": 1},
                     "fcfs": {"rowmax": 1}}
 # phase 21: checkpoints and the sharded service at SERVICE_GEOMETRY
-RESUME_TICKS, RESUME_AT = 64, 32      # an uninterrupted run; the save
-SHARD_TICKS = 48                      # two stripes: two ring wraps
-ONE_STRIPE_TICKS = 24                 # one stripe: past the first wrap
+RESUME_TICKS, RESUME_AT = 40, 24      # an uninterrupted run; the save,
+                                      # just past the first wrap
+SHARD_TICKS = 32                      # the unsharded runs and dpf's hand-offs
+ONE_STRIPE_TICKS = 24                 # past the first wrap
 # a sharded axis runs SP1 as a host loop, an all_reduce and a host read
 # an iteration (~1.1 ms under NCCL, ~2.6 ms under Gloo on one card, on an
 # H100); cold SP1 takes ~2300 iterations a tick at these defaults (0.40 /
@@ -473,15 +520,14 @@ ONE_STRIPE_TICKS = 24                 # one stripe: past the first wrap
 # their unsharded yardstick take dpbalance with warm SP1
 SHARD_WARM = ("dpbalance",)
 # ticks of each scheduler's sharded runs at (one, two) stripes: the warm
-# dpbalance run's SP1 host loop runs ~2 ticks/s under NCCL but 0.3-0.6
-# under Gloo (48 ticks at two stripes took ~180 s of the script's time
-# limit on an H100 host), so it crosses the second ring wrap on one
-# stripe and the first on two; the others run SHARD_TICKS at two stripes
-STRIPE_TICKS = {"dpbalance": (SHARD_TICKS, ONE_STRIPE_TICKS),
+# dpbalance run's SP1 host loop runs ~1.3 ticks/s under NCCL and ~0.9
+# under Gloo on an H100 host, so it crosses the first ring wrap and no
+# more at either; the others run SHARD_TICKS at two stripes
+STRIPE_TICKS = {"dpbalance": (ONE_STRIPE_TICKS, ONE_STRIPE_TICKS),
                 "dpf": (ONE_STRIPE_TICKS, SHARD_TICKS),
                 "dpk": (ONE_STRIPE_TICKS, SHARD_TICKS),
                 "fcfs": (ONE_STRIPE_TICKS, SHARD_TICKS)}
-ELASTIC_AT = (16, 32)                 # dpf: 1 -> 2 stripes, then 2 -> 1
+ELASTIC_AT = (8, 16)                  # dpf: 1 -> 2 stripes, then 2 -> 1
 # the sharded path's budget kernels: SP1's two-matvec path and the row-max
 SHARD_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t"),
                  "dpf": ("rowmax",), "dpk": ("rowmax",), "fcfs": ("rowmax",)}
@@ -490,6 +536,12 @@ SHARD_KERNELS = {"dpbalance": ("rowmax", "matvec", "matvec_t"),
 # the 50 MB L2; the dense kernels only (the sweeps' [M, N, K] demand would
 # take 40+ GB)
 PROD = ("prod", 1024, 131072)
+# phases 4, 17 and 20: their CPU references need nothing of the card
+# (seeded episodes and services), so one worker process computes them on
+# CPU_REF_THREADS threads while the card phases run (bitwise the same
+# results as on eight, on a CPU box)
+CPU_REF_THREADS = 3
+_CPU_REFS = {}                 # key -> the worker's pending result
 
 
 T_START = time.perf_counter()
@@ -543,6 +595,69 @@ def check(name, got, want, bitwise: bool) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its twin "
                              f"(max abs err {err:.3e}, bitwise={bitwise})")
     return err
+
+
+def _cpu_ref_keys():
+    """The CPU references phases 4, 17 and 20 compare with, in the order
+    they are needed: ``("episode", SchedulerConfig overrides, scheduler
+    or None)`` on the paper episode, ``("service", scheduler, warm SP1,
+    ticks)`` at SERVICE_GEOMETRY."""
+    names = tuple(PATH_KERNELS)
+    return ([("episode", (("sp1_warm_start", w),), None)
+             for w in (False, True)] +
+            [("episode", (("beta", b),), n) for b in PAPER_BETAS
+             for n in names] +
+            [("service", "dpbalance", True, SERVICE_CPU_TICKS),
+             ("service", "dpf", False, SERVICE_CPU_TICKS)])
+
+
+def _cpu_reference(key):
+    """One CPU reference run (a key of ``_cpu_ref_keys``): ``(result,
+    host seconds)``; an episode's outputs, or a service's ``_run_ticks``
+    to its last tick."""
+    t0 = time.perf_counter()
+    if key[0] == "episode":
+        from repro_torch.core import (SchedulerConfig, SimConfig,
+                                      generate_episode, run_episode)
+        _, over, name = key
+        ep = generate_episode(SimConfig(seed=0), device="cpu")
+        cfg = SchedulerConfig(**dict(over))
+        out = run_episode(ep, cfg) if name is None else \
+            run_episode(ep, cfg, name)
+    else:
+        _, name, warm, ticks = key
+        out = _run_ticks(_service(name, device="cpu", warm=warm), ticks,
+                         marks=(ticks,))
+    return out, time.perf_counter() - t0
+
+
+def _cpu_worker_init():
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def cpu_ref(key):
+    """The worker's result for ``key``, or the run itself where no worker
+    was started (a phase called alone)."""
+    pending = _CPU_REFS.get(key)
+    return pending.get() if pending is not None else _cpu_reference(key)
+
+
+@contextlib.contextmanager
+def cpu_references():
+    """One spawned worker process computing every key of
+    ``_cpu_ref_keys`` in turn while the card phases run; terminated and
+    joined on the way out, whatever happened."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        1, initializer=_cpu_worker_init)
+    try:
+        for key in _cpu_ref_keys():
+            _CPU_REFS[key] = pool.apply_async(_cpu_reference, (key,))
+        yield
+    finally:
+        _CPU_REFS.clear()
+        pool.terminate()
+        pool.join()
 
 
 def phase_device():
@@ -923,8 +1038,10 @@ class AscentRecorder:
     def replay(self, label):
         """Each recorded solve against the per-iteration loop on the same
         operands, episode by episode where the solve had a leading fleet
-        axis: equal counts and lam bitwise.  Returns the counts."""
-        counts = []
+        axis: equal counts and lam bitwise.  Of the solves that ran to
+        ``max_iters`` only the first is replayed (the others count as the
+        launch's own count).  Returns the counts."""
+        counts, capped = [], False
         for r, (args, kw, out) in enumerate(self.calls):
             c, lam, w_pow, beta, xcap, mask, cap, cap_safe = args
             kw = dict(kw)
@@ -936,6 +1053,11 @@ class AscentRecorder:
                 solves = [(tuple(t[e] for t in ops), (out[0][e], out[1][e]))
                           for e in range(c.shape[0])]
             for e, (one, got) in enumerate(solves):
+                if int(got[1]) == kw["max_iters"]:
+                    if capped:
+                        counts.append(int(got[1]))
+                        continue
+                    capped = True
                 counts.append(check_ascent(f"{label} solve {r}.{e}", got,
                                            parent_ascent(one, beta, **kw)))
         return counts
@@ -1014,7 +1136,6 @@ def phase_episode():
     from repro_torch.kernels import budget_alloc as ba
     sim = SimConfig(seed=0)
     ep_gpu = generate_episode(sim, device="cuda")
-    ep_cpu = generate_episode(sim, device="cpu")
     launches = None
     R = sim.n_rounds
     for warm in (False, True):
@@ -1038,7 +1159,7 @@ def phase_episode():
         loop_iters = rec.replay(f"{'warm' if warm else 'cold'} episode")
         assert float(out["overdraw"].max()) <= 1e-4
         assert float(out["conservation_gap"].max()) <= 1e-4
-        ref = run_episode(ep_cpu, cfg)
+        ref, _ = cpu_ref(("episode", (("sp1_warm_start", warm),), None))
         g = {k: v.cpu() for k, v in out.items()}
         assert g["sp1_iters"].tolist() == loop_iters, \
             (g["sp1_iters"].tolist(), loop_iters)
@@ -1052,7 +1173,8 @@ def phase_episode():
         log(f"  {'warm' if warm else 'cold'} SP1: {R / wall:.2f} rounds/s "
             f"({wall:.3f} s for {R} rounds), SP1 iters per round {iters} "
             f"(CPU run: {ref['sp1_iters'].tolist()}; the per-iteration loop "
-            f"on the card: equal, lam bitwise), n_allocated "
+            f"on the card, the first capped solve and every other: equal, "
+            f"lam bitwise), n_allocated "
             f"{g['n_allocated'].tolist()}, launches {counts}, no host sync "
             f"inside SP1")
     return launches
@@ -1431,13 +1553,13 @@ def phase_fl_round():
     loss_fn = make_loss_fn(cfg)
     dp.reset_launches()
     t0 = time.perf_counter()
-    _, m_card = fl_round(card, loss_fn, _fl_data(8, cfg.vocab, 256, "cuda"),
+    _, m_card = fl_round(card, loss_fn, _fl_data(8, cfg.vocab, FL_SEQ, "cuda"),
                          list(range(8)), fcfg, sigma=0.0, round_idx=0)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     assert dp.LAUNCHES == {"rownorms": 1, "clip_accumulate": 1}, dp.LAUNCHES
     t0 = time.perf_counter()
-    _, m_host = fl_round(host, loss_fn, _fl_data(8, cfg.vocab, 256, "cpu"),
+    _, m_host = fl_round(host, loss_fn, _fl_data(8, cfg.vocab, FL_SEQ, "cpu"),
                          list(range(8)), fcfg, sigma=0.0, round_idx=0)
     t_host = time.perf_counter() - t0
     assert m_card == m_host, (m_card, m_host)
@@ -1458,7 +1580,8 @@ def phase_fl_round():
 
 
 def phase_fl_e2e():
-    log("[9] end-to-end FL loop on the card (flaas-100m, defaults)")
+    log(f"[9] end-to-end FL loop on the card (flaas-100m, defaults, "
+        f"{FL_ROUNDS} rounds)")
     from repro_torch.kernels import dp_clip_noise as dp
     from repro_torch.launch import fl_e2e
     from repro_torch.privacy import RdpAccountant
@@ -1473,7 +1596,7 @@ def phase_fl_e2e():
     torch.cuda.synchronize()
     dp.reset_launches()
     t0 = time.perf_counter()
-    out = fl_e2e.run(device="cuda", log=show)
+    out = fl_e2e.run(rounds=FL_ROUNDS, device="cuda", log=show)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(dp.LAUNCHES)
@@ -1497,7 +1620,7 @@ def phase_fl_e2e():
         assert all(math.isfinite(v) for v in p["losses"])
     eps, alpha = out["pipelines"][(0, 0)]["acc"].certify(1e-5)
     assert math.isfinite(eps)
-    dry = fl_e2e.run(device="cpu", train=False)
+    dry = fl_e2e.run(rounds=FL_ROUNDS, device="cpu", train=False)
     for a, b in zip(recs, dry["records"]):
         assert a["selected"] == b["selected"], (a["round"], a, b)
         assert a["allocated"] == b["allocated"]
@@ -1515,7 +1638,7 @@ def phase_fl_e2e():
 def phase_fl_trace():
     """Per-round spans of the FL path (synchronised host-clock spans) and
     the card's busy share over one round traced by torch.profiler."""
-    log("[10] where the FL path's time goes (flaas-100m, 3 rounds)")
+    log("[10] where the FL path's time goes (flaas-100m, 2 rounds)")
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import dp_clip_noise as dp
     from repro_torch.launch import fl_e2e
@@ -1543,7 +1666,7 @@ def phase_fl_trace():
             traced["wall_ms"] = r["wall_s"] * 1e3
 
     with _timed_spans(targets, spans):
-        fl_e2e.run(rounds=3, device="cuda", log=each_round)
+        fl_e2e.run(rounds=2, device="cuda", log=each_round)
     rows = _kernel_rows(prof)
     dev_ms = sum(r[1] for r in rows)
     top = ", ".join(f"{n[:40]} {ms:.2f}" for n, ms in rows[:6])
@@ -1611,19 +1734,22 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
         if label in top:                  # the JSON line's shape
             r.update(nums)
 
-    for label, B, S, causal, window in flash_cases:
+    for label, B, S, causal, window, *cross in flash_cases:
+        Skv = cross[0] if cross else S        # keys: S, or a memory's rows
         q = torch.randn((B, S, H, dh), generator=gen, device="cuda")
-        k = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
-        v = torch.randn((B, S, KH, dh), generator=gen, device="cuda")
+        k = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda")
+        v = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda")
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         again = fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S} causal={causal} "
+        shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S}"
+                 f"{f' Skv={Skv}' if cross else ''} causal={causal} "
                  f"window={window} ({label})")
         err = _att_check("flash_attention " + shape, got, again, want)
         log(f"  flash_attention  {shape}: launched "
-            f"{fa.LAST_ENTRY['flash_attention']}")
+            f"{fa.LAST_ENTRY['flash_attention']}, "
+            f"{H * B * -(-S // fa.BQ)} blocks of {fa.BQ} query rows")
         del want
         qt = q.transpose(1, 2).contiguous()
         kr, vr = _repeat_kv(k, G), _repeat_kv(v, G)
@@ -1635,13 +1761,13 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
                 mask &= pos[None, :] <= pos[:, None]
         lib = (lambda: sdpa(qt, kr, vr, attn_mask=mask)) if mask is not None \
             else (lambda: sdpa(qt, kr, vr, is_causal=causal))
-        pairs = _pairs(S, causal, window)
+        pairs = _pairs(S, causal, window) if Skv == S else S * Skv
         record("flash_attention", label, shape, err,
                lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
                                                window=window),
                lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window),
-               lib, 4 * (2 * B * S * H * dh + 2 * B * S * KH * dh),
+               lib, 4 * (2 * B * S * H * dh + 2 * B * Skv * KH * dh),
                4 * dh * pairs * B * H, 20)
         del q, k, v, qt, kr, vr
         torch.cuda.empty_cache()
@@ -1925,16 +2051,18 @@ def phase_serve_hybrid():
     log("[15] serve recurrentgemma-2b through repro_torch.launch.serve")
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.models import Transformer
+    from repro_torch.models import init_model
     full_cfg = get_arch("recurrentgemma-2b")
     gen = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_model(full_cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
 
     # card vs CPU on one model: full width, depth cut to (rec, rec, local)
-    cut = dataclasses.replace(full_cfg, n_layers=3)
-    host_m = serve.make_model(cut, 0, torch.device("cpu"))
-    card_m = Transformer(cut, device="cuda")
-    with torch.no_grad():
-        card_m.flat.copy_(host_m.flat)
+    card_m = _cut_model(model, 3, "cuda")
+    host_m = _cut_model(card_m, 3, "cpu")
     _reset_launches()
     card = serve.run(model=card_m, gen=gen, keep_logits=True, log=log)
     assert card["launches"] == {"flash_attention": 1,
@@ -1957,15 +2085,9 @@ def phase_serve_hybrid():
     # the full 26 layers at the launcher's defaults
     kinds = [k for k, _ in full_cfg.layer_specs()]
     n_rec, n_local = kinds.count("rec"), kinds.count("local")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = serve.make_model(full_cfg, 0, torch.device("cuda"))
-    torch.cuda.synchronize()
-    make_s = time.perf_counter() - t0
     assert (n_rec, n_local) == (18, 8) and model.flat.numel() == P_RG2B
-    log(f"  make_model(recurrentgemma-2b): {model.flat.numel()} float32 "
-        f"parameters drawn on the host and copied to the card in "
-        f"{make_s:.2f} s (host clock)")
+    log(f"  recurrentgemma-2b: {model.flat.numel()} float32 parameters "
+        f"drawn on the card by init_model in {draw_s:.2f} s (host clock)")
     _reset_launches()
     run = serve.run(model=model, gen=gen, keep_logits=True, log=log)
     launches = _launch_counts()
@@ -2079,7 +2201,6 @@ def phase_paper_comparison():
     sim = SimConfig(seed=0)
     R = sim.n_rounds
     ep_gpu = generate_episode(sim, device="cuda")
-    ep_cpu = generate_episode(sim, device="cpu")
     launches = {}
     for beta in PAPER_BETAS:
         cfg = SchedulerConfig(beta=beta)
@@ -2090,8 +2211,9 @@ def phase_paper_comparison():
             torch.cuda.synchronize()
             counts = dict(ba.LAUNCHES)
             _launched(f"{name} beta {beta}", counts, PATH_KERNELS[name])
-            _episodes_equal(f"{name} beta {beta} card vs CPU", out,
-                            run_episode(ep_cpu, cfg, name), RTOL_PAPER)
+            host, _ = cpu_ref(("episode", (("beta", beta),), name))
+            _episodes_equal(f"{name} beta {beta} card vs CPU", out, host,
+                            RTOL_PAPER)
             if beta == 2.2:
                 launches[name] = {k: v / R for k, v in counts.items()}
             log(f"  beta {beta} {name:9s}: n_allocated "
@@ -2459,7 +2581,7 @@ def _count_syncs(fn) -> int:
 
 def phase_service(smi):
     """The streaming service plane at load.py's full-width defaults on the
-    card: every scheduler through 8 ring wraps, paged bitwise the carry,
+    card: every scheduler through 3 ring wraps, paged bitwise the carry,
     card against CPU, repro's values, replay against run_episode, and
     where a tick's time goes."""
     log(f"[20] the service plane: FlaasService at load.py's defaults "
@@ -2472,7 +2594,7 @@ def phase_service(smi):
     T = SERVICE_GEOMETRY["chunk_ticks"]
     n_cpu = SERVICE_CPU_TICKS
     runs, launches, tps = {}, {}, {}
-    # 1. every scheduler through >= 8 wraps, conservation checked per
+    # 1. every scheduler through >= 3 wraps, conservation checked per
     # chunk (ServiceConfig.validate), every wrapped chunk paged, every
     # slot recycled
     for name in SCHEDULER_NAMES:
@@ -2491,7 +2613,7 @@ def phase_service(smi):
         modes = s["paging"]["mode_ticks"]
         wraps = SERVICE_TICKS * svc.trace.blocks_per_tick / \
             SERVICE_GEOMETRY["block_slots"]
-        assert wraps >= 8 and modes["carry"] == 0 and \
+        assert wraps >= 3 and modes["carry"] == 0 and \
             modes["paged"] == SERVICE_TICKS - modes["wrapfree"] and \
             modes["wrapfree"] * svc.trace.blocks_per_tick <= \
             SERVICE_GEOMETRY["block_slots"], (name, modes)
@@ -2545,22 +2667,20 @@ def phase_service(smi):
         _states_equal(f"paged vs carry {label}", sa, atc[n_cpu][1])
         log(f"  dpbalance {label}: paged bitwise the carry body over "
             f"{n_cpu} ticks (per-tick rows and every ServiceState field)")
-    # 3. card against CPU, dpbalance warm and dpf, two wraps
+    # 3. card against CPU, dpbalance warm and dpf, past the first wrap
     for label, (ya, sa), name, w in (
             ("dpbalance warm", (ys_w, at_w[n_cpu][1]), "dpbalance", True),
             ("dpf", (runs["dpf"][1], runs["dpf"][2][n_cpu][1]), "dpf",
              False)):
-        host = _service(name, device="cpu", warm=w)
-        t0 = time.perf_counter()
-        yh, ath = _run_ticks(host, n_cpu, marks=(n_cpu,))
-        cpu_s = time.perf_counter() - t0
+        (yh, ath), cpu_s = cpu_ref(("service", name, w, n_cpu))
         _service_rows_equal(f"card vs CPU {label}", ya, yh, n_cpu,
                             RTOL_SERVICE)
         _states_equal(f"card vs CPU {label}", sa, ath[n_cpu][1],
                       RTOL_SERVICE)
         log(f"  {label}: card vs CPU over {n_cpu} ticks: selections, "
             f"n_allocated and expiries equal, rows and final state within "
-            f"{RTOL_SERVICE} (CPU run {cpu_s:.1f} s, host clock)")
+            f"{RTOL_SERVICE} (CPU run {cpu_s:.1f} s on the host clock, on "
+            f"{CPU_REF_THREADS} threads beside the card phases)")
     # 5. replay against run_episode on the card
     from repro_torch.service import make_trace
     for name in SCHEDULER_NAMES:
@@ -2574,7 +2694,8 @@ def phase_service(smi):
     svc = runs["dpbalance"][0]
     prof = svc.profiler.summary()
     total = sum(v["seconds"] for v in prof.values())
-    log("  dpbalance PhaseProfiler over the 168 ticks (host wall): " + ", ".join(
+    log(f"  dpbalance PhaseProfiler over the {SERVICE_TICKS} ticks (host "
+        "wall): " + ", ".join(
         f"{k} {v['seconds'] * 1e3:.1f} ms / {v['calls']} calls "
         f"({v['seconds'] / total:.4f})" for k, v in prof.items()))
     loop = svc.tick_loop_fn(T)                   # a wrapped chunk
@@ -3214,11 +3335,16 @@ def phase_dense_attention(card, att_rows):
     da.reset_launches()
 
 
-def _cut_model(model, n_layers, device):
+def _cut_model(model, n_layers, device, enc_layers=None):
     """``model``'s embedding, first ``n_layers`` blocks, final norm and LM
-    head as a model of ``n_layers`` layers on ``device``."""
+    head (and, with ``enc_layers``, its encoder's first ``enc_layers``
+    blocks and final norm) as a model of ``n_layers`` layers on
+    ``device``."""
+    from repro_torch.configs import EncoderSpec
     from repro_torch.models import Transformer
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, encoder=EncoderSpec(enc_layers))
     out = Transformer(cfg, device=device)
     src = dict(model.named_parameters())
     with torch.no_grad():
@@ -3227,12 +3353,13 @@ def _cut_model(model, n_layers, device):
     return out
 
 
-def _busy_shares(model, B, prompt, steps=4):
+def _busy_shares(model, B, prompt, steps=4, cross=None):
     """The card's busy share (torch.profiler) over a traced prefill of B
     seeded prompts of ``prompt`` tokens and over ``steps`` traced decode
     steps after it, each after an untraced warm-up of the same work.
     Short windows: tracing a whole long serve costs tens of seconds of
-    the profiler's own host work."""
+    the profiler's own host work.  ``cross`` holds the prefill's
+    ``memory=`` or ``enc_frames=`` (moved to the card)."""
     from repro_torch.models import forward_with_cache
     from repro_torch.training import serve_step
     cfg = model.cfg
@@ -3240,9 +3367,11 @@ def _busy_shares(model, B, prompt, steps=4):
                             generator=torch.Generator().manual_seed(0),
                             dtype=torch.int32).cuda()
     total = prompt + 2 * steps + 1
+    cross = {n: x.cuda() for n, x in (cross or {}).items()}
 
     def prefill():
-        logits, cache = forward_with_cache(model, prompts, cfg, total)
+        logits, cache = forward_with_cache(model, prompts, cfg, total,
+                                           **cross)
         return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), cache
 
     def decode(tok, cache, start):
@@ -3260,20 +3389,24 @@ def _busy_shares(model, B, prompt, steps=4):
     return pre_busy / pre_wall, dec_busy / dec_wall
 
 
-def _serve_runs(model, expect_fn, label, trace_prompt=None):
-    """The launcher's defaults and the long serve on ``model``, each
-    checked for its launches (``expect_fn(gen)``) and tokens, then the
-    card's busy share over a traced prefill and 4 decode steps at the
+def _serve_runs(model, expect_fn, label, trace_prompt=None, runs=SERVE_RUNS,
+                cross=None):
+    """The launcher's defaults and the long serve (``runs``) on ``model``,
+    each checked for its launches (``expect_fn(gen)``) and tokens, then
+    the card's busy share over a traced prefill and 4 decode steps at the
     same shape (the traced prompt cut to ``trace_prompt`` tokens where
-    given).  Returns ``{run: launches}``."""
+    given).  ``cross`` (``{"memory": x}`` or ``{"enc_frames": x}``, on
+    the CPU) goes to every serve and traced prefill.  Returns ``{run:
+    launches}``."""
     from repro_torch.launch import serve
     cfg = model.cfg
+    cross = cross or {}
     out = {}
-    for run_name, B, prompt, gen in SERVE_RUNS:
+    for run_name, B, prompt, gen in runs:
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
         run = serve.run(model=model, batch=B, prompt_len=prompt, gen=gen,
-                        log=None)
+                        log=None, **cross)
         assert run["launches"] == expect_fn(gen), \
             (label, run_name, run["launches"])
         tok = run["tokens"]
@@ -3281,7 +3414,7 @@ def _serve_runs(model, expect_fn, label, trace_prompt=None):
             int(tok.max()) < cfg.vocab
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         traced = min(prompt, trace_prompt or prompt)
-        pre, dec = _busy_shares(model, B, traced)
+        pre, dec = _busy_shares(model, B, traced, cross=cross)
         steps = run["step_ms"]
         log(f"  {label} {run_name} (B={B}, prompt {prompt}, gen {gen}): "
             f"prefill {run['prefill_ms']:.2f} ms, decode "
@@ -3309,12 +3442,8 @@ def phase_serve_dense():
         cfg = dataclasses.replace(full, n_layers=layers) if layers else full
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if name == DENSE_HOST_DRAW:
-            model = serve.make_model(cfg, 0, torch.device("cuda"))
-            how = "drawn on the host by serve.make_model and copied"
-        else:
-            model = init_model(cfg, 0, device="cuda")
-            how = "drawn on the card by init_model"
+        model = init_model(cfg, 0, device="cuda")
+        how = "drawn on the card by init_model"
         torch.cuda.synchronize()
         draw_s = time.perf_counter() - t0
         if name in P_DENSE:
@@ -3527,7 +3656,7 @@ def _xlstm_block_grads(model, host, tokens):
 def _xlstm_dp_card_vs_exact(cfg, card):
     """Phase 26: DP-SGD's gradients of xlstm-125m at ``card``'s parameters
     (on the card) without noise, in the launcher's microbatch mode (B=8 x
-    128, two microbatches) and in example mode (its first 4 examples): the
+    128, two microbatches) and in example mode (its first 2 examples): the
     card's float32, the CPU's float32 and the exact values (float64 on the
     card, ``repro_torch.fp.float64``; for example mode, microbatches of one
     example).  The card's loss, norm mean and max and clipped mean
@@ -3547,7 +3676,7 @@ def _xlstm_dp_card_vs_exact(cfg, card):
     exact = exact.double()
     full = _batch_on(cfg, 0, NEW_TRAIN["batch"], NEW_TRAIN["seq"], "cpu")
     for mode, B, n_micro in (("microbatch", NEW_TRAIN["batch"], 2),
-                             ("example", 4, 1)):
+                             ("example", 2, 1)):
         out, secs = {}, {}
         for name, mdl, kw in (
                 ("card", card, dict(mode=mode, n_micro=n_micro)),
@@ -3665,9 +3794,127 @@ def phase_train_new():
     log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _cross_launches(cfg, gen):
+    """The serving kernels' launches of one serve of ``cfg`` with ``gen``
+    tokens: a flash launch per layer in the prefill (self attention, or
+    an ``xattn`` block's cross attention), one more per ``encdec`` layer
+    (its cross attention) and one per encoder layer; a decode launch per
+    layer and one more per ``encdec`` layer in each step after the
+    first."""
+    kinds = [k for k, _ in cfg.layer_specs()]
+    n = len(kinds) + kinds.count("encdec")
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return {"flash_attention": n + enc, "decode_attention": n * (gen - 1),
+            "rglru_scan": 0}
+
+
+def _seed_nonzero(model, seed):
+    """What repro's init leaves zero or one, seeded so that a wrong index
+    shows: every norm scale and bias and QKV bias moved by 0.1 N(0, 1),
+    the xattn gates set to 0.5 and -0.7 plus 0.1 N(0, 1) (at zero a
+    cross-attention block adds nothing).  Drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "bias", "bq", "bk", "bv"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(p.device))
+            elif leaf in ("gate_x", "gate_m"):
+                base = 0.5 if leaf == "gate_x" else -0.7
+                p.fill_(base + 0.1 * float(torch.randn((), generator=gen)))
+
+
+def phase_cross_attention(card, att_rows):
+    log("[27] attention kernels at the cross-attention configs' shapes")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    for name in (XATTN, WHISPER):
+        cfg = get_arch(name)
+        G = cfg.n_heads // cfg.kv_heads
+        log(f"  {name}: {cfg.n_heads} query heads over {cfg.kv_heads} kv "
+            f"heads, dh {cfg.dh}, {cfg.cross_memory_len} memory rows; "
+            f"resident decode split blocks per SM "
+            f"{da.resident_blocks(cfg.dh, G)}")
+        _attention_cases(card, (cfg.n_heads, cfg.kv_heads, cfg.dh),
+                         CROSS_FLASH_CASES[name], CROSS_DECODE_CASES[name],
+                         att_rows)
+
+
+def phase_serve_cross():
+    log("[28] serve llama-3.2-vision-11b and whisper-medium through "
+        "repro_torch.launch.serve")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    gen = 16
+    launches = {}
+    for name in (XATTN, WHISPER):
+        t_cfg = time.perf_counter()
+        cfg = get_arch(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init_model(cfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        assert model.flat.numel() == P_CROSS[name], model.flat.numel()
+        _seed_nonzero(model, 1)
+        kind = "enc_frames" if cfg.encoder is not None else "memory"
+        cross = {kind: 0.1 * torch.randn(
+            (4, cfg.cross_memory_len, cfg.d_model),
+            generator=torch.Generator().manual_seed(2))}
+        enc = (f" + {cfg.encoder.n_layers} encoder layers"
+               if cfg.encoder is not None else "")
+        log(f"  {name}: {cfg.n_layers} layers{enc}, "
+            f"{model.flat.numel()} float32 parameters "
+            f"({model.flat.numel() * 4 / 1e9:.1f} GB), drawn on the card by "
+            f"init_model in {draw_s:.2f} s (host clock); norms, biases and "
+            f"gates seeded nonzero, {kind} 0.1 N(0, 1) of "
+            f"{tuple(cross[kind].shape)}")
+
+        # card vs CPU on the model cut to CROSS_CPU_CUT
+        nl, ne = CROSS_CPU_CUT[name]
+        card_m = _cut_model(model, nl, "cuda", ne)
+        host_m = _cut_model(card_m, nl, "cpu", ne)
+        _reset_launches()
+        card = serve.run(model=card_m, gen=gen, keep_logits=True, log=None,
+                         **cross)
+        assert card["launches"] == _cross_launches(card_m.cfg, gen), \
+            card["launches"]
+        t0 = time.perf_counter()
+        host = serve.run(model=host_m, gen=gen, keep_logits=True, log=None,
+                         **cross)
+        host_s = time.perf_counter() - t0
+        forced = serve.run(model=card_m, gen=gen, feed=host["tokens"],
+                           keep_logits=True, log=None, **cross)
+        errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
+        enc = f" + {ne} encoder layers" if ne else ""
+        log(f"  {name} at {nl} layers{enc} ({card_m.flat.numel()} "
+            f"parameters) card vs CPU: prefill "
+            f"logits max err {errs['prefill']:.3e}, teacher-forced decode "
+            f"logits max err {errs['decode']:.3e} (bound {RTOL_SERVE} x "
+            f"max|logit| = {bound:.3e}); tokens equal except at {len(ties)} "
+            f"printed near-ties; launches {card['launches']}; CPU run "
+            f"{host_s:.2f} s")
+        del card_m, host_m, card, host, forced
+        torch.cuda.empty_cache()
+
+        launches[name] = _serve_runs(
+            model, lambda g, c=cfg: _cross_launches(c, g), name,
+            runs=CROSS_RUNS[name], cross=cross)
+        del model
+        torch.cuda.empty_cache()
+        log(f"  {name} took {time.perf_counter() - t_cfg:.1f} s")
+    return launches
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
+    with cpu_references():
+        return _card_phases(name, smi)
+
+
+def _card_phases(name, smi) -> int:
     rows = phase_kernels(smi)
     launches = phase_episode()
     large = phase_large_round()
@@ -3697,6 +3944,8 @@ def main() -> int:
     shard_launches = phase_checkpoint_shard(smi)
     bwd_row, per_train_step, bwd_launches = phase_train(smi)
     phase_train_new()
+    phase_cross_attention(smi, att_rows)
+    cross_launches = phase_serve_cross()
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -3715,6 +3964,9 @@ def main() -> int:
                      launches_dense_serve={
                          n: {r: c[k] for r, c in runs.items()}
                          for n, runs in dense_launches.items()},
+                     launches_cross_serve={
+                         n: {r: c[k] for r, c in runs.items()}
+                         for n, runs in cross_launches.items()},
                      **att_rows[k]) for k in ATT_REPLACES]
     kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
                         replaces=RG_REPLACES,

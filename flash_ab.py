@@ -17,7 +17,8 @@ of the card tests, each variant is checked against the twin (rtol = atol
   pkg-narrow  the package's att_flash (the narrow dh-256 kernel);
   pkg-wide    the package's att_flash_wide (the wide one);
   <stem>      each OTHER.cu through its att_flash, and <stem>-wide
-              through its att_flash_wide where it has one.
+              through its att_flash_wide where it has one (a copy whose
+              entries take no key length, Skv, is called without it).
 
 Then CUDA-event times (chip_smoke.time_ms) are taken in turns, the
 variants' order and then its reverse, beside SDPA (kv heads repeated, the
@@ -46,12 +47,14 @@ CASES = c.RG_FLASH_CASES + [
     ("full-300", 1, 300, False, None)]
 
 
-def _call(fn, q, k, v, causal, window):
-    """One launch of a library's att_flash-shaped entry ``fn``."""
+def _call(fn, q, k, v, causal, window, skv=True):
+    """One launch of a library's att_flash-shaped entry ``fn``; ``skv``
+    False for a copy whose entries predate the key length argument."""
     B, S, H, dh = q.shape
     o = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
-             H, k.shape[2], dh, int(causal), window or 0, 1.0 / math.sqrt(dh),
+             *((k.shape[1],) if skv else ()), H, k.shape[2], dh, int(causal),
+             window or 0, 1.0 / math.sqrt(dh),
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fn.__name__} failed with cudaError_t {err}")
@@ -79,7 +82,8 @@ def main(argv) -> int:
         others = list(pool.map(_nvcc, [Path(a) for a in argv]))
         path, secs, log = own.result()
     pkg = build.library("attention")
-    libs = {}
+    libs, skv = {}, {}
+    path_of = {Path(a).stem: a for a in argv}
     for stem, path, secs, log in [("pkg", path, secs, log)] + others:
         print(f"built {stem} in {secs:.2f} s", flush=True)
         entry = ""                 # ptxas names a kernel, then its numbers
@@ -92,6 +96,13 @@ def main(argv) -> int:
                       f": {line.strip()}")
         if stem != "pkg":
             libs[stem] = _load(path)
+            skv[stem] = "int Skv" in Path(path_of[stem]).read_text()
+            if not skv[stem]:   # the entries' older signature
+                for fn in ("att_flash", "att_flash_wide"):
+                    if hasattr(libs[stem], fn):
+                        getattr(libs[stem], fn).argtypes = \
+                            getattr(pkg, fn).argtypes[:6] + \
+                            getattr(pkg, fn).argtypes[7:]
 
     H, KH, dh = c.RG_HEADS
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -107,11 +118,11 @@ def main(argv) -> int:
                 "pkg-wide": lambda: _call(pkg.att_flash_wide, q, k, v,
                                           causal, window)}
         for stem, lib in libs.items():
-            runs[stem] = lambda f=lib.att_flash: _call(f, q, k, v, causal,
-                                                       window)
+            runs[stem] = lambda f=lib.att_flash, n=skv[stem]: _call(
+                f, q, k, v, causal, window, n)
             if hasattr(lib, "att_flash_wide"):
-                runs[stem + "-wide"] = lambda f=lib.att_flash_wide: _call(
-                    f, q, k, v, causal, window)
+                runs[stem + "-wide"] = lambda f=lib.att_flash_wide, \
+                    n=skv[stem]: _call(f, q, k, v, causal, window, n)
         shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S} causal={causal} "
                  f"window={window} ({label})")
         err = max(c._att_check(f"{t} flash {shape}", f(), f(), want)

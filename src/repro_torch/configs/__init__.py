@@ -4,25 +4,28 @@ The schema (:mod:`.base`) and every config module are copies of
 ``repro``'s.  The port knows ``flaas-100m``, the paper's FL payload
 model; the dense GQA family (``qwen2.5-3b``, ``qwen2.5-32b``,
 ``starcoder2-3b``, ``starcoder2-15b``: ``attn`` blocks with QKV biases);
-``recurrentgemma-2b`` (``rec`` + ``local`` blocks); and ``xlstm-125m``
-(``mlstm`` + ``slstm`` blocks).  ``mixtral-8x22b`` and
-``kimi-k2-1t-a32b`` (MoE), ``llama-3.2-vision-11b`` (``xattn``) and
-``whisper-medium`` (``encdec``) wait for their blocks (ROADMAP.md, Queue
-1) and raise ``NotImplementedError``.
+``recurrentgemma-2b`` (``rec`` + ``local`` blocks); ``xlstm-125m``
+(``mlstm`` + ``slstm`` blocks); ``llama-3.2-vision-11b`` (``attn`` +
+``xattn`` blocks over a stub image memory); and ``whisper-medium`` (an
+``attn`` encoder over stub frames, ``encdec`` decoder blocks).
+``mixtral-8x22b`` and ``kimi-k2-1t-a32b`` (MoE) wait for their blocks
+(ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
 """
 from .base import (ArchConfig, EncoderSpec, LM_SHAPES, MoESpec, ShapeSpec,
                    reduced, shapes_for)
 from .flaas_100m import CONFIG as flaas_100m
+from .llama_3_2_vision_11b import CONFIG as llama_3_2_vision_11b
 from .qwen2_5_32b import CONFIG as qwen2_5_32b
 from .qwen2_5_3b import CONFIG as qwen2_5_3b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from .starcoder2_15b import CONFIG as starcoder2_15b
 from .starcoder2_3b import CONFIG as starcoder2_3b
+from .whisper_medium import CONFIG as whisper_medium
 from .xlstm_125m import CONFIG as xlstm_125m
 
 ARCHS = {c.name: c for c in (
     flaas_100m, recurrentgemma_2b, xlstm_125m, qwen2_5_32b, starcoder2_3b,
-    starcoder2_15b, qwen2_5_3b)}
+    starcoder2_15b, qwen2_5_3b, llama_3_2_vision_11b, whisper_medium)}
 
 
 def get_arch(name: str) -> ArchConfig:

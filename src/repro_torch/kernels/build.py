@@ -50,8 +50,8 @@ SIGNATURES = {
         "dp_rownorms_chunk": ((), _I),
     },
     "attention": {
-        "att_flash": ((_P,) * 4 + (_I,) * 7 + (_F, _P), _I),
-        "att_flash_wide": ((_P,) * 4 + (_I,) * 7 + (_F, _P), _I),
+        "att_flash": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
+        "att_flash_wide": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
         "att_decode": ((_P,) * 7 + (_I,) * 9 + (_F, _P), _I),
         "att_decode_residency": ((_I, _I), _I),
     },

@@ -2,10 +2,14 @@
 //
 // Hand-written replacements of the two Pallas TPU attention kernels:
 //
-//   att_flash   q [B,S,H,dh], k,v [B,S,KH,dh] -> o [B,S,H,dh]
+//   att_flash   q [B,S,H,dh], k,v [B,Skv,KH,dh] -> o [B,S,H,dh]
 //               forward GQA attention with causal / sliding-window masks
 //               (src/repro/kernels/flash_attention.py:71 flash_attention):
 //               the prefill's attention (repro_torch/models/kv_cache.py).
+//               Skv != S is cross attention (the prompt against an image
+//               memory or an encoder's output): non-causal, no window, dh
+//               16-128 only (repro computes it with chunked_attention,
+//               the flash kernel's jnp twin).
 //   att_decode  q [B,H,dh], KV cache k,v [B,L,KH,dh], valid positions
 //               [lo, hi) -> o [B,H,dh]
 //               (src/repro/kernels/decode_attention.py:56 decode_attention):
@@ -41,7 +45,10 @@
 //     over key tiles staged in shared memory.  Key tiles wholly outside
 //     the causal / window band are skipped -- the only skipped work, and it
 //     does not change the result.  Ragged S: loads past S are zero-filled
-//     and masked.  Four kernels:
+//     and masked.  At dh 16-128 keys are counted and masked by Skv,
+//     queries by S; k and v advance Skv positions a batch row, q and o S
+//     (a cross-attention block of 64 query rows walks all Skv keys, the
+//     last tile ragged).  Four kernels:
 //     - dh 16, 32 (flash_fwd_kernel): 256 threads; rows padded by one
 //       float so scalar column reads are conflict-free.  Each thread owns 4
 //       query rows x 4 keys of a 64-key score tile and 4 rows x dh/16
@@ -198,7 +205,8 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KH, int causal, int window, float scale) {
+                 int Skv, int H, int KH, int causal, int window,
+                 float scale) {
   static_assert(DH % 16 == 0, "dh must be a multiple of 16");
   constexpr int LD = DH + 1;     // padded row of the q/k/v tiles
   constexpr int PLD = kBK + 1;   // padded row of the probability tile
@@ -218,8 +226,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_stride = (size_t)H * DH;    // between positions of q / o
   const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
   const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
-  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
-  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
   float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
 
   for (int i = threadIdx.x; i < kBQ * DH; i += kThreads) {
@@ -229,7 +237,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // keys any row of this tile may see: [k_begin, k_end)
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
 
   float m[4], l[4], acc[4][NC];
@@ -245,7 +253,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
       const int r = i / DH, d = i % DH;
-      const bool in = k0 + r < S;
+      const bool in = k0 + r < Skv;
       const size_t off = (size_t)(k0 + r) * kv_stride + d;
       sK[r * LD + d] = in ? kb[off] : 0.0f;
       sV[r * LD + d] = in ? vb[off] : 0.0f;
@@ -278,7 +286,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        bool ok = kp < S;
+        bool ok = kp < Skv;
         if (causal) ok = ok && kp <= qp;
         if (window > 0) ok = ok && kp > qp - window;
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -328,7 +336,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch_flash(const float* q, const float* k, const float* v, float* o,
-                 int B, int S, int H, int KH, int causal, int window,
+                 int B, int S, int Skv, int H, int KH, int causal, int window,
                  float scale, cudaStream_t stream) {
   constexpr int smem = flash_smem_bytes<DH>();
   // above 48 KB, dynamic shared memory must be asked for (per device)
@@ -337,7 +345,7 @@ int launch_flash(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, S, H, KH, causal, window, scale);
+      q, k, v, o, S, Skv, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -415,7 +423,7 @@ __global__ void __launch_bounds__(kTileThreads)
 flash_fwd_tiled_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int KH, int causal, int window,
+                       int S, int Skv, int H, int KH, int causal, int window,
                        float scale) {
   static_assert(DH == 64 || DH == 128, "the 4 x 8 tile takes dh 64 or 128");
   static_assert(kBQ == kBK, "stage_tiles stages kBQ rows of either tile");
@@ -437,8 +445,8 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
   const size_t q_stride = (size_t)H * DH;    // between positions of q / o
   const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
   const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
-  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
-  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
   float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
   float* const kv_dst[2] = {sK, sV};
   const float* const kv_src[2] = {kb, vb};
@@ -451,7 +459,7 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
 
   // keys any row of this tile may see: [k_begin, k_end)
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
 
   // rows ty + 16i; keys tx + 8j; acc columns 4 * (tx + 8c) + e
@@ -466,7 +474,7 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
 
   for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    stage_tiles<DH, 2>(kv_dst, kv_src, kv_stride, k0, S);
+    stage_tiles<DH, 2>(kv_dst, kv_src, kv_stride, k0, Skv);
     __syncthreads();
 
     // s[i][j] = q[row i] . k[key j], one FMA per d in d order
@@ -498,7 +506,7 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kp = k0 + tx + 8 * j;
-        bool ok = kp < S;
+        bool ok = kp < Skv;
         if (causal) ok = ok && kp <= qp;
         if (window > 0) ok = ok && kp > qp - window;
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -557,8 +565,9 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
 
 template <int DH>
 int launch_flash_tiled(const float* q, const float* k, const float* v,
-                       float* o, int B, int S, int H, int KH, int causal,
-                       int window, float scale, cudaStream_t stream) {
+                       float* o, int B, int S, int Skv, int H, int KH,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   constexpr int smem = flash_tiled_smem_bytes<DH>();
   // above 48 KB, dynamic shared memory must be asked for (per device); the
   // largest carveout is asked for so that three dh-64 blocks (3 x 69,632
@@ -575,7 +584,7 @@ int launch_flash_tiled(const float* q, const float* k, const float* v,
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
   flash_fwd_tiled_kernel<DH><<<grid, kTileThreads, smem, stream>>>(
-      q, k, v, o, S, H, KH, causal, window, scale);
+      q, k, v, o, S, Skv, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1576,22 +1585,33 @@ int decode_residency_g(int G) {
   });
 }
 
+// Sizes att_flash and att_flash_wide refuse.  Skv != S is taken only
+// non-causal without a window at dh 16-128 (the dh-256 kernels count keys
+// by S).
+bool flash_sizes_bad(int S, int Skv, int H, int KH, int dh, int causal,
+                     int window, int B) {
+  if (KH <= 0 || H % KH != 0 || B > 65535 || H > 65535 || Skv <= 0)
+    return true;
+  return Skv != S && (causal || window > 0 || dh > 128);
+}
+
 }  // namespace
 
 extern "C" {
 
 // o = attention(q, k, v) in the port's layouts; window <= 0 means none.
+// Skv != S (cross attention) only non-causal without a window at dh 16-128.
 int att_flash(const float* q, const float* k, const float* v, float* o, int B,
-              int S, int H, int KH, int dh, int causal, int window,
+              int S, int Skv, int H, int KH, int dh, int causal, int window,
               float scale, cudaStream_t stream) {
   if (B <= 0 || S <= 0) return (int)cudaGetLastError();
-  if (KH <= 0 || H % KH != 0 || B > 65535 || H > 65535)
+  if (flash_sizes_bad(S, Skv, H, KH, dh, causal, window, B))
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 16: return launch_flash<16>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 32: return launch_flash<32>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 64: return launch_flash_tiled<64>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
-    case 128: return launch_flash_tiled<128>(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
+    case 16: return launch_flash<16>(q, k, v, o, B, S, Skv, H, KH, causal, window, scale, stream);
+    case 32: return launch_flash<32>(q, k, v, o, B, S, Skv, H, KH, causal, window, scale, stream);
+    case 64: return launch_flash_tiled<64>(q, k, v, o, B, S, Skv, H, KH, causal, window, scale, stream);
+    case 128: return launch_flash_tiled<128>(q, k, v, o, B, S, Skv, H, KH, causal, window, scale, stream);
     case 256: return launch_flash_narrow(q, k, v, o, B, S, H, KH, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1601,10 +1621,10 @@ int att_flash(const float* q, const float* k, const float* v, float* o, int B,
 // 256-key tile or more (the launcher's rule:
 // kernels/flash_attention.py::wide_tiles).
 int att_flash_wide(const float* q, const float* k, const float* v, float* o,
-                   int B, int S, int H, int KH, int dh, int causal,
+                   int B, int S, int Skv, int H, int KH, int dh, int causal,
                    int window, float scale, cudaStream_t stream) {
   if (B <= 0 || S <= 0) return (int)cudaGetLastError();
-  if (dh != kDH256 || KH <= 0 || H % KH != 0 || B > 65535 || H > 65535)
+  if (dh != kDH256 || flash_sizes_bad(S, Skv, H, KH, dh, causal, window, B))
     return (int)cudaErrorInvalidValue;
   return launch_flash_wide(q, k, v, o, B, S, H, KH, causal, window, scale,
                            stream);

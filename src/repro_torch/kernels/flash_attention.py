@@ -1,5 +1,8 @@
 """Launcher of the Hopper prefill attention kernel (``csrc/attention.cu``,
-``att_flash``) and the dispatch the model calls.
+``att_flash``) and the dispatch the model calls: the prefill's causal or
+windowed self attention, an encoder's non-causal self attention, and
+cross attention (queries of the prompt against keys and values of
+another length, non-causal).
 
 :func:`flash_attention_cuda` takes CUDA tensors only (float32,
 contiguous, in the port's layouts) and raises on anything else; it adds
@@ -58,15 +61,32 @@ def wide_tiles(S: int, causal: bool, window: Optional[int]) -> bool:
     return span >= WIDE_KEYS
 
 
+def check_lengths(S: int, Skv: int, dh: int, causal: bool,
+                  window: Optional[int]) -> None:
+    """Raise unless S queries may attend to Skv keys: Skv != S only for
+    cross attention -- non-causal, without a window (``repro`` defines no
+    causal alignment of two lengths) -- and not at dh 256, which no
+    config cross-attends at."""
+    if Skv == S:
+        return
+    if Skv < 1 or causal or window is not None:
+        raise ValueError(
+            f"keys of length {Skv} against {S} queries: only non-causal "
+            "attention without a window (cross attention) takes Skv != S")
+    if dh == 256:
+        raise NotImplementedError(
+            "dh 256 takes Skv == S only (no config cross-attends at dh 256)")
+
+
 def _att_flash(entry: str, q, k, v, causal: bool, window: Optional[int]):
     """One launch of the C entry ``entry`` on checked tensors; returns the
     output and counts the launch."""
     B, S, H, dh = q.shape
     out = torch.empty_like(q)
     _raise_on(getattr(library("attention"), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], dh, int(causal), _window(window), 1.0 / math.sqrt(dh),
-        _stream(q)), entry)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+        k.shape[1], H, k.shape[2], dh, int(causal), _window(window),
+        1.0 / math.sqrt(dh), _stream(q)), entry)
     LAUNCHES["flash_attention"] += 1
     LAST_ENTRY["flash_attention"] = entry
     return out
@@ -75,15 +95,17 @@ def _att_flash(entry: str, q, k, v, causal: bool, window: Optional[int]):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Forward GQA attention on the card: q [B,S,H,dh], k,v [B,S,KH,dh] ->
-    [B,S,H,dh], softmax scale 1/sqrt(dh).
+    """Forward GQA attention on the card: q [B,S,H,dh], k,v [B,Skv,KH,dh]
+    -> [B,S,H,dh], softmax scale 1/sqrt(dh).  Skv differs from S only for
+    cross attention: non-causal, without a window, at dh 16-128 (the
+    ``ValueError`` / ``NotImplementedError`` otherwise).
 
     Replaces ``repro/kernels/flash_attention.py:flash_attention``.  Bound:
     operations (4*dh FLOPs per query-key pair the masks keep).  Design
     (source header): a block per (64 query rows, head, batch row), the
     grid (head, batch row, q tile) with the heaviest causal tiles first,
-    key tiles staged in shared memory, online softmax; any S, causal or
-    not, optional sliding window.  By head dim:
+    key tiles staged in shared memory, online softmax; any S and Skv,
+    causal or not, optional sliding window.  By head dim:
 
     * dh 64, 128: 128 threads, a 4 x 8 score tile and 4 x dh/8
       accumulator a thread fed by 16-byte shared loads.
@@ -111,12 +133,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"heads {H} are not a multiple of kv heads {KH}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    Skv = k.shape[1]
     _check(q, "q", torch.float32, (B, S, H, dh))
-    _check(k, "k", torch.float32, (B, S, KH, dh))
-    _check(v, "v", torch.float32, (B, S, KH, dh))
+    _check(k, "k", torch.float32, (B, Skv, KH, dh))
+    _check(v, "v", torch.float32, (B, Skv, KH, dh))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
+    check_lengths(S, Skv, dh, causal, window)
     wide = dh == 256 and wide_tiles(S, causal, window)
     return _att_flash("att_flash_wide" if wide else "att_flash", q, k, v,
                       causal, window)
@@ -127,5 +151,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention of the prefill, by the device of ``q``: the twin on the
     CPU, :func:`flash_attention_cuda` on a CUDA tensor."""
     if q.device.type == "cpu":
+        check_lengths(q.shape[1], k.shape[1], q.shape[-1], causal, window)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)

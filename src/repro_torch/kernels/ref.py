@@ -252,18 +252,21 @@ _MASKED = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, scale=None):
-    """q [B,S,H,dh]; k,v [B,S,KH,dh] -> [B,S,H,dh] in q's dtype.  Query
+    """q [B,S,H,dh]; k,v [B,Skv,KH,dh] -> [B,S,H,dh] in q's dtype.  Query
     head h reads kv head h // (H // KH); ``causal`` keeps keys at or before
-    the query, ``window`` keys within ``window`` positions of it."""
+    the query, ``window`` keys within ``window`` positions of it (query
+    and key positions both count from 0).  Skv may differ from S (cross
+    attention); the launcher takes that only non-causal without a
+    window."""
     B, S, H, dh = q.shape
-    KH = k.shape[2]
+    Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     qf = q.float().reshape(B, S, KH, G, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:

@@ -5,12 +5,21 @@ KV cache, on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 ``--arch`` takes every architecture the port knows
 (:data:`repro_torch.configs.ARCHS`): ``flaas-100m``, the dense
 ``qwen2.5-3b``, ``qwen2.5-32b``, ``starcoder2-3b`` and ``starcoder2-15b``,
-the hybrid ``recurrentgemma-2b`` and ``xlstm-125m``.  In float32,
-``qwen2.5-32b`` (131 GB) does not fit one 80 GB card whole.
+the hybrid ``recurrentgemma-2b`` and ``xlstm-125m``, the cross-attention
+``llama-3.2-vision-11b`` and the encoder-decoder ``whisper-medium``.  In
+float32, ``qwen2.5-32b`` (131 GB) does not fit one 80 GB card whole;
+``llama-3.2-vision-11b`` (39.1 GB) does.
+
+Like ``repro``'s launcher, a model with cross attention is given zeros
+as its memory, ``[batch, cross_memory_len, d_model]`` (the vision tower
+is a stub), and an encoder-decoder zeros as its encoder frames (the audio
+frontend is a stub); :func:`run` takes seeded ones instead (``memory=``,
+``enc_frames=``).
 
 The counterpart of ``repro``'s ``launch/serve.py`` with the same flags,
 plus ``--device`` (default ``cuda``; raises without it) and ``--seed``.
@@ -37,6 +46,7 @@ from ..kernels import decode_attention as da
 from ..kernels import flash_attention as fa
 from ..kernels import rg_lru
 from ..models import Transformer, forward_with_cache, init_model
+from ..models.transformer import reads_memory
 from ..training import serve_step
 
 
@@ -60,12 +70,34 @@ def make_model(cfg, seed: int, dev: torch.device) -> Transformer:
     return model
 
 
+def _cross_inputs(cfg, batch: int, dev: torch.device, memory, enc_frames):
+    """The prefill's ``memory=`` / ``enc_frames=`` for ``cfg``: the given
+    tensor on ``dev``, or zeros [batch, cross_memory_len, d_model]
+    (``repro``'s launcher); nothing for a model without cross
+    attention."""
+    if not reads_memory(cfg):
+        if memory is not None or enc_frames is not None:
+            raise ValueError(f"{cfg.name} has no cross attention")
+        return {}
+    name, given, other = (("enc_frames", enc_frames, memory)
+                          if cfg.encoder is not None
+                          else ("memory", memory, enc_frames))
+    if other is not None:
+        raise ValueError(f"{cfg.name} takes {name} only")
+    if given is None:
+        given = torch.zeros((batch, cfg.cross_memory_len, cfg.d_model),
+                            dtype=torch.float32, device=dev)
+    return {name: given.to(dev, torch.float32)}
+
+
 def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
         device="cuda", seed: int = 0, feed: Optional[torch.Tensor] = None,
         keep_logits: bool = False,
         log: Optional[Callable[[str], None]] = print,
-        model: Optional[Transformer] = None) -> Dict:
+        model: Optional[Transformer] = None,
+        memory: Optional[torch.Tensor] = None,
+        enc_frames: Optional[torch.Tensor] = None) -> Dict:
     """Serve ``batch`` seeded prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each.  ``feed`` [batch, gen] (optional) feeds those
     tokens to the decode steps instead of the generated ones (teacher
@@ -74,7 +106,11 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
     device and configuration, so one drawn model can serve several runs;
     ``seed`` then draws only the prompts, and ``arch``, ``smoke`` and
     ``device`` must keep their defaults (a second choice raises).
-    Returns ``{"cfg", "prompts", "tokens" [batch, gen], "prefill_ms",
+    ``memory`` [batch, cross_memory_len, d_model] (a model with cross
+    attention) or ``enc_frames`` [batch, cross_memory_len, d_model] (an
+    encoder-decoder), on any device, are moved to the model's and given
+    to the prefill; without them it gets zeros, as ``repro``'s launcher
+    gives.  Returns ``{"cfg", "prompts", "tokens" [batch, gen], "prefill_ms",
     "step_ms" (per decode step), "tok_per_s", "launches"}`` -- the
     kernels' launches during the run -- and, with ``keep_logits``,
     ``"logits": {"prefill" [B, S, V], "decode" [B, gen - 1, V]}`` on the
@@ -97,6 +133,7 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
                             generator=cpu_gen, dtype=torch.int32)
     tok_gen = torch.Generator(device=dev).manual_seed(seed)
     prompts_d = prompts.to(dev)
+    cross = _cross_inputs(cfg, batch, dev, memory, enc_frames)
     total = prompt_len + gen
     if log:
         log(f"arch={cfg.name} device={dev} batch={batch} "
@@ -106,7 +143,7 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = forward_with_cache(params, prompts_d, cfg,
-                                       cache_len=total)
+                                       cache_len=total, **cross)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3

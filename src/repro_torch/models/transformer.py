@@ -1,17 +1,24 @@
 """Transformer backbone on PyTorch: the ``attn``/``swa``/``local`` blocks
 and the RG-LRU ``rec`` block, each with a dense MLP (the families
-``flaas-100m``, the dense GQA configs and ``recurrentgemma-2b`` need), and
+``flaas-100m``, the dense GQA configs and ``recurrentgemma-2b`` need);
 xLSTM's ``mlstm`` and ``slstm`` blocks (a norm and the cell, no MLP:
-``xlstm-125m``).  MoE, ``xattn`` and ``encdec`` blocks are not ported.
+``xlstm-125m``); the cross-attention ``xattn`` block, its attention and
+MLP each scaled by the tanh of a scalar gate (``llama-3.2-vision-11b``);
+and the ``encdec`` decoder block (self attention, cross attention, MLP)
+with its encoder, a stack of non-causal ``attn`` blocks over the frames
+(``whisper-medium``).  MoE blocks are not ported.  Cross attention reads
+``memory`` [B, Lm, D] (or the encoder's output): q from the block's
+input, k and v projected from the memory, no RoPE, no mask.
 
 ``repro`` keeps parameters as a pytree and stacks the repeating body for
 ``lax.scan``; the port keeps them in an ``nn.Module`` -- a ``ModuleList``
 of blocks, in layer order (prefix, body group by group, suffix) -- whose
 ``nn.ParameterDict``s carry ``repro``'s names (``embed.table``,
-``blocks.3.attn.wq``, ``final_norm.scale``, ``lm_head.w``).  Every
-parameter is a view into one flat float32 buffer, ``model.flat``, so DP
-code can read, write and difference a whole model as one vector without
-copying it piecewise.
+``blocks.3.attn.wq``, ``blocks.4.gate_x``, ``final_norm.scale``,
+``lm_head.w``, ``encoder.blocks.0.attn.wq``).  Every parameter is a
+view into one flat float32 buffer, ``model.flat``, so DP code can read,
+write and difference a whole model as one vector without copying it
+piecewise.
 
 ``remat`` trades memory for recompute and leaves values unchanged; at the
 sizes this slice runs (``flaas-100m``, batch 2 x 256 tokens) the port
@@ -21,21 +28,24 @@ Entry points:
 
   init_model(cfg, seed, device)     -> Transformer (random, torch.Generator)
   params_from_jax(tree, cfg, device)-> Transformer holding repro's values
-  forward(params, tokens, cfg)      -> logits [B, S, vocab] (float32)
+  forward(params, tokens, cfg, memory=, enc_frames=)
+                                    -> logits [B, S, vocab] (float32)
+  encode(params, frames, cfg)       -> the encoder's output [B, Le, D]
   lm_loss(logits, labels, mask)     -> mean token cross-entropy
 
 A block has one code path, :func:`apply_block`, for the training forward,
 the prefill and the decode step (:mod:`repro_torch.models.kv_cache`); only
-the attention call and the recurrent state it is given differ between
-them.  A ``rec`` block trains on both devices: under autograd the scan
-runs its twin's backward on the CPU and the Hopper backward kernel on the
-card (:mod:`repro_torch.kernels.rg_lru`).  The xLSTM blocks are tensor
-code on either device (:mod:`repro_torch.models.recurrent`).
+the attention calls (self and cross) and the recurrent state it is given
+differ between them.  A ``rec`` block trains on both devices: under
+autograd the scan runs its twin's backward on the CPU and the Hopper
+backward kernel on the card (:mod:`repro_torch.kernels.rg_lru`).  The
+xLSTM blocks are tensor code on either device
+(:mod:`repro_torch.models.recurrent`).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +56,10 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import recurrent as R
 
-_PORTED_KINDS = ("attn", "swa", "local", "rec", "mlstm", "slstm")
+_PORTED_KINDS = ("attn", "swa", "local", "rec", "mlstm", "slstm", "xattn",
+                 "encdec")
 _XLSTM = ("mlstm", "slstm")
+_CROSS = ("xattn", "encdec")     # blocks that read the memory
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -56,8 +68,12 @@ def _check_ported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"block {kind!r}{' with MoE' if use_moe else ''} is not "
                 "ported yet (ROADMAP.md, Queue 1)")
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
+
+
+def reads_memory(cfg: ArchConfig) -> bool:
+    """Whether the model's blocks cross-attend to a memory (or to its
+    encoder's output)."""
+    return any(kind in _CROSS for kind, _ in cfg.layer_specs())
 
 
 def _pdict(shapes: Dict[str, tuple], device) -> nn.ParameterDict:
@@ -79,16 +95,33 @@ def _rg_shapes(D: int) -> Dict[str, tuple]:
             "w_out": (D, D)}
 
 
+def _attn_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dh
+    attn = {"wq": (D, H * dh), "wk": (D, KH * dh), "wv": (D, KH * dh),
+            "wo": (H * dh, D)}
+    if cfg.qkv_bias:
+        attn.update(bq=(H * dh,), bk=(KH * dh,), bv=(KH * dh,))
+    return attn
+
+
 class Block(nn.Module):
-    """One block: ``norm1``, the mixer (``attn`` for ``attn``/``swa``/
-    ``local``, ``rg`` for ``rec``), ``norm2``, ``mlp``; or, for
-    ``mlstm``/``slstm``, ``norm1`` and the ``cell`` alone."""
+    """One block, its leaves named and ordered as in ``repro``'s
+    ``init_block``: ``norm1``, the mixer (``attn`` for ``attn``/``swa``/
+    ``local``, ``rg`` for ``rec``), ``norm2``, ``mlp``; for ``mlstm``/
+    ``slstm``, ``norm1`` and the ``cell`` alone; for ``xattn``,
+    ``normx``, ``xattn``, the scalar gates ``gate_x`` and ``gate_m``,
+    ``norm2``, ``mlp``; for ``encdec``, ``norm1``, ``attn``, ``normx``,
+    ``xattn``, ``norm2``, ``mlp``.  The gates are the block's own
+    parameters, so they come first in its parameter order (and in
+    ``model.flat``): a module lists its own parameters before its
+    children's."""
 
     def __init__(self, kind: str, cfg: ArchConfig, device):
         super().__init__()
         self.kind = kind
-        D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dh
-        self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
+        D, H = cfg.d_model, cfg.n_heads
+        if kind != "xattn":
+            self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
         if kind in _XLSTM:
             shapes = R.mlstm_shapes if kind == "mlstm" else R.slstm_shapes
             self.cell = _pdict(shapes(D, H), device)
@@ -99,23 +132,69 @@ class Block(nn.Module):
             mlp["w_gate"] = (D, width)
         if kind == "rec":
             self.rg = _pdict(_rg_shapes(D), device)
-        else:
-            attn = {"wq": (D, H * dh), "wk": (D, KH * dh),
-                    "wv": (D, KH * dh), "wo": (H * dh, D)}
-            if cfg.qkv_bias:
-                attn.update(bq=(H * dh,), bk=(KH * dh,), bv=(KH * dh,))
-            self.attn = _pdict(attn, device)
+        elif kind != "xattn":
+            self.attn = _pdict(_attn_shapes(cfg), device)
+        if kind in _CROSS:
+            self.normx = _pdict(_norm_shapes(D, cfg.norm), device)
+            self.xattn = _pdict(_attn_shapes(cfg), device)
+        if kind == "xattn":
+            for gate in ("gate_x", "gate_m"):
+                setattr(self, gate, nn.Parameter(torch.empty(
+                    (), dtype=torch.float32, device=device)))
         self.norm2 = _pdict(_norm_shapes(D, cfg.norm), device)
         self.mlp = _pdict(mlp, device)
 
-    def forward(self, h, cfg: ArchConfig, positions, causal: bool = True):
+    def forward(self, h, cfg: ArchConfig, positions, causal: bool = True,
+                memory=None):
         return apply_block_train(h, self, self.kind, cfg,
-                                 positions=positions, causal=causal)
+                                 positions=positions, causal=causal,
+                                 memory=memory)
+
+
+class Encoder(nn.Module):
+    """``whisper-medium``'s encoder: ``blocks`` (``attn`` blocks) and
+    ``final_norm``, ``repro``'s ``params["encoder"]``."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block("attn", cfg, device) for _ in range(cfg.encoder.n_layers))
+        self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), device)
 
 
 # (q, k, v, window) -> attention output [B, S, H, dh]
 Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Optional[int]],
                   torch.Tensor]
+# (q [B, S, H, dh], the block's ``xattn`` leaves) -> (attention output
+# [B, S, H, dh], the memory's keys and values (xk, xv) [B, Lm, KH, dh])
+CrossAttend = Callable[[torch.Tensor, nn.ParameterDict],
+                       Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def xkv(p_attn, memory, cfg: ArchConfig):
+    """The memory's cross-attention keys and values [B, Lm, KH, dh]
+    (``repro``'s ``kv_cache._xkv``, and the k/v of
+    ``transformer._xattn_apply``): projected, biased where the config has
+    QKV biases, no RoPE."""
+    B = memory.shape[0]
+    k, v = memory @ p_attn["wk"], memory @ p_attn["wv"]
+    if "bk" in p_attn:
+        k, v = k + p_attn["bk"], v + p_attn["bv"]
+    return (k.reshape(B, -1, cfg.kv_heads, cfg.dh),
+            v.reshape(B, -1, cfg.kv_heads, cfg.dh))
+
+
+def _cross(h, p: Block, cfg: ArchConfig, xattend: CrossAttend):
+    """Cross attention of the pre-norm ``h`` (``normx``) to the memory
+    that ``xattend`` holds: q with its bias and no RoPE, the output
+    projected by ``wo``.  Returns ``(output [B, S, D], (xk, xv))``."""
+    B, S, _ = h.shape
+    x = L.apply_norm(h, p.normx, cfg.norm)
+    q = x @ p.xattn["wq"]
+    if "bq" in p.xattn:
+        q = q + p.xattn["bq"]
+    out, kv = xattend(q.reshape(B, S, cfg.n_heads, cfg.dh), p.xattn)
+    return out.reshape(B, S, -1) @ p.xattn["wo"], kv
 
 
 def _ffn_apply(h, p: Block, cfg: ArchConfig):
@@ -125,7 +204,8 @@ def _ffn_apply(h, p: Block, cfg: ArchConfig):
 
 
 def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
-                attend: Optional[Attend], state: Optional[tuple] = None):
+                attend: Optional[Attend], state: Optional[tuple] = None,
+                xattend: Optional[CrossAttend] = None):
     """One block: the pre-norm mixer, then the pre-norm MLP, each added to
     the residual.  For ``attn``/``swa``/``local`` the mixer is attention on
     the roped projections, ``attend(q, k, v, window)`` (``window`` the
@@ -137,7 +217,18 @@ def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
     mLSTM chunkwise from ``state`` (from zero when None), or its one-token
     decode step where ``state`` is given and S is 1, the new state ``(C,
     n, m)``; the sLSTM's scan from ``state``, the new state ``(c, n, h,
-    m)``.  Returns ``(h, new state)``."""
+    m)``.  An ``xattn`` block's mixer is cross attention,
+    ``xattend(q, p.xattn)``, its output and the MLP's each scaled by the
+    tanh of a gate (``gate_x``, ``gate_m``) before they are added; the new
+    state is ``(xk, xv)``.  An ``encdec`` block runs self attention as
+    ``attn`` does, then cross attention, then the MLP, each pre-norm and
+    added; the new state is ``(k, v, xk, xv)``.  Returns ``(h, new
+    state)``."""
+    if kind == "xattn":
+        out, new = _cross(h, p, cfg, xattend)
+        h = h + torch.tanh(p.gate_x) * out
+        ff = _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg)
+        return h + torch.tanh(p.gate_m) * ff, new
     x = L.apply_norm(h, p.norm1, cfg.norm)
     if kind == "mlstm":
         if state is not None and x.shape[1] == 1:
@@ -161,18 +252,69 @@ def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
         out = attend(q, k, v, window).reshape(B, S, -1) @ p.attn["wo"]
         new = (k, v)
     h = h + out
+    if kind == "encdec":
+        out, cross_kv = _cross(h, p, cfg, xattend)
+        h = h + out
+        new = (*new, *cross_kv)
     return h + _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg), new
 
 
+def _train_xattend(memory, cfg: ArchConfig) -> CrossAttend:
+    """Cross attention to ``memory`` [B, Lm, D] for the training forward:
+    :func:`repro_torch.models.layers.chunked_attention`, non-causal
+    (autograd)."""
+    def xattend(q, p_attn):
+        k, v = xkv(p_attn, memory, cfg)
+        return L.chunked_attention(q, k, v, causal=False), (k, v)
+    return xattend
+
+
 def apply_block_train(h, p: Block, kind: str, cfg: ArchConfig, *,
-                      positions, causal: bool = True):
+                      positions, causal: bool = True, memory=None):
     """The training block: :func:`apply_block` with
-    :func:`repro_torch.models.layers.chunked_attention` (autograd), a
-    recurrent block from a zero state."""
+    :func:`repro_torch.models.layers.chunked_attention` (autograd) for
+    self and cross attention (to ``memory``), a recurrent block from a
+    zero state."""
     return apply_block(
         h, p, kind, cfg, positions=positions,
         attend=lambda q, k, v, window: L.chunked_attention(
-            q, k, v, causal=causal, window=window))[0]
+            q, k, v, causal=causal, window=window),
+        xattend=None if memory is None else _train_xattend(memory, cfg))[0]
+
+
+def encode(params: "Transformer", frames, cfg: ArchConfig,
+           attend: Optional[Attend] = None):
+    """The encoder over the frame embeddings [B, Le, D] (``repro``'s
+    ``encode``): its ``attn`` blocks, non-causal and roped at positions
+    0..Le-1, then its final norm.  ``attend`` (default: the training
+    forward's non-causal ``chunked_attention``) runs each block's
+    attention."""
+    if attend is None:
+        def attend(q, k, v, window):
+            return L.chunked_attention(q, k, v, causal=False, window=window)
+    enc = params.encoder
+    h = frames
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    for blk in enc.blocks:
+        h = apply_block(h, blk, "attn", cfg, positions=pos, attend=attend)[0]
+    return L.apply_norm(h, enc.final_norm, cfg.norm)
+
+
+def cross_memory(params: "Transformer", cfg: ArchConfig, memory, enc_frames,
+                 attend: Optional[Attend] = None):
+    """What the cross-attention blocks read: the encoder's output over
+    ``enc_frames`` for an encoder-decoder, else ``memory``; None for a
+    model without cross attention.  Raises if the model needs an input
+    that was not given."""
+    if cfg.encoder is not None:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} encodes enc_frames [B, Le, D]; "
+                             "none were given")
+        return encode(params, enc_frames, cfg, attend)
+    if reads_memory(cfg) and memory is None:
+        raise ValueError(f"{cfg.name} cross-attends to memory [B, Lm, D]; "
+                         "none was given")
+    return memory
 
 
 def logits_head(params: "Transformer", h):
@@ -200,6 +342,8 @@ class Transformer(nn.Module):
         self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), dev)
         if not cfg.tie_embeddings:
             self.lm_head = _pdict({"w": (cfg.d_model, cfg.vocab)}, dev)
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg, dev)
         # re-point every parameter at its slice of one flat buffer
         params = list(self.parameters())
         self.flat = torch.empty(sum(p.numel() for p in params),
@@ -209,12 +353,13 @@ class Transformer(nn.Module):
             p.data = self.flat[off:off + p.numel()].view_as(p)
             off += p.numel()
 
-    def forward(self, tokens):
+    def forward(self, tokens, memory=None, enc_frames=None):
         cfg = self.cfg
+        memory = cross_memory(self, cfg, memory, enc_frames)
         h = L.embed(tokens, self.embed)
         pos = torch.arange(tokens.shape[1], device=h.device)
         for blk in self.blocks:
-            h = blk(h, cfg, pos)
+            h = blk(h, cfg, pos, memory=memory)
         return logits_head(self, h)
 
 
@@ -243,12 +388,13 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``, with ``repro``'s scheme: dense weights
     ``N(0, 1/fan_in)``, embeddings and the RG-LRU's ``conv_w`` ``N(0,
-    0.02^2)``, norm scales one, biases zero, and the RG-LRU's ``lambda``
-    griffin's: ``log(u^(1/8) / (1 - u^(1/8)))`` for ``u ~ U(0.9, 0.999)``,
-    so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999); the mLSTM's forget
-    bias ``b_f`` three (open forget gates), the sLSTM's recurrent ``r``
-    [H, dh, 4 dh] ``0.3 N(0, 1/H)`` (``repro`` takes the leading axis as
-    the fan-in).  (``repro`` draws from ``jax.random``; the values differ,
+    0.02^2)``, norm scales one, biases and the ``xattn`` gates zero (a
+    cross-attention block starts as the identity), and the RG-LRU's
+    ``lambda`` griffin's: ``log(u^(1/8) / (1 - u^(1/8)))`` for ``u ~
+    U(0.9, 0.999)``, so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999);
+    the mLSTM's forget bias ``b_f`` three (open forget gates), the sLSTM's
+    recurrent ``r`` [H, dh, 4 dh] ``0.3 N(0, 1/H)`` (``repro`` takes the
+    leading axis as the fan-in).  (``repro`` draws from ``jax.random``; the values differ,
     the distribution does not.)"""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.flat.device).manual_seed(seed)
@@ -257,7 +403,7 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
         if leaf == "scale":
             p.fill_(1.0)
         elif leaf in ("bias", "bq", "bk", "bv", "conv_b", "b_a", "b_i",
-                      "b_in"):
+                      "b_in", "gate_x", "gate_m"):
             p.zero_()
         elif leaf == "b_f":
             p.fill_(3.0)
@@ -280,36 +426,50 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     """A model holding the values of ``repro``'s parameter pytree (numpy
     arrays, e.g. from ``jax.device_get(init_model(...))``): ``prefix``
     blocks, then the stacked ``body`` (``[n_groups, ...]`` per pattern
-    position) group by group, then ``suffix``."""
+    position, the ``xattn`` gates ``[n_groups]``) group by group, then
+    ``suffix``; the stacked ``encoder.body`` block by block.  Every leaf
+    of the model must be in the tree."""
     model = Transformer(cfg, device=device)
+
+    def unstack(stack, g):
+        return {k: unstack(x, g) if isinstance(x, dict) else np.asarray(x)[g]
+                for k, x in stack.items()}
+
     P = len(cfg.pattern)
     blocks = list(tree["prefix"])
     for g in range(cfg.n_groups):
-        for pos in range(P):
-            blocks.append({k: {n: np.asarray(a)[g] for n, a in sub.items()}
-                           for k, sub in tree["body"][pos].items()})
+        blocks += [unstack(tree["body"][pos], g) for pos in range(P)]
     blocks += list(tree["suffix"])
-    src = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    src = {"embed": tree["embed"], "final_norm": tree["final_norm"],
+           "blocks": blocks}
     if not cfg.tie_embeddings:
         src["lm_head"] = tree["lm_head"]
-    for i, blk in enumerate(blocks):
-        for k, sub in blk.items():
-            src[f"blocks.{i}.{k}"] = sub
+    if cfg.encoder is not None:
+        enc = tree["encoder"]
+        src["encoder"] = {
+            "blocks": [unstack(enc["body"], i)
+                       for i in range(cfg.encoder.n_layers)],
+            "final_norm": enc["final_norm"]}
     for name, p in model.named_parameters():
-        mod, leaf = name.rsplit(".", 1)
-        a = np.asarray(src[mod][leaf], dtype=np.float32)
+        a = src
+        for key in name.split("."):
+            a = a[int(key)] if key.isdigit() else a[key]
+        a = np.asarray(a, dtype=np.float32)
         if a.shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(a))
     return model
 
 
-def forward(params: Transformer, tokens, cfg: Optional[ArchConfig] = None):
+def forward(params: Transformer, tokens, cfg: Optional[ArchConfig] = None,
+            *, memory=None, enc_frames=None):
     """Training forward -> logits [B, S, vocab] (float32).  ``cfg``, where
-    given, must be the model's own."""
+    given, must be the model's own.  A model with cross attention reads
+    ``memory`` [B, Lm, D], an encoder-decoder encodes ``enc_frames`` [B,
+    Le, D] first (``repro``'s keyword arguments)."""
     if cfg is not None and cfg != params.cfg:
         raise ValueError("cfg differs from the model's configuration")
-    return params(tokens)
+    return params(tokens, memory=memory, enc_frames=enc_frames)
 
 
 def lm_loss(logits, labels, mask=None):

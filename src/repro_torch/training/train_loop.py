@@ -56,7 +56,14 @@ def make_state(seed: int, cfg: ArchConfig, tcfg: TrainConfig,
     """Parameters from :func:`repro_torch.models.init_model` (seeded
     ``torch.Generator``), the optimizer's state, the step count and the
     seed.  ``device`` defaults to CUDA and raises without it.  Only
-    ``param_dtype="float32"`` is in this slice."""
+    ``param_dtype="float32"`` is in this slice, and only models without
+    cross attention: training an ``xattn`` or encoder-decoder model needs
+    its memory through ``train_step``."""
+    if cfg.cross_memory_len or cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a model with cross attention or an "
+            "encoder (memory through train_step, per-example memory in DP "
+            "example mode) is not ported yet (ROADMAP.md, Queue 1)")
     if tcfg.param_dtype != "float32":
         raise NotImplementedError(
             f"param_dtype {tcfg.param_dtype!r}: the port trains float32 "

@@ -100,6 +100,57 @@ def test_flash_twin_at_ragged_s(jax_side, S, causal, window):
     np.testing.assert_allclose(got, np.asarray(chunked), **TOL)
 
 
+# ------------------------------------------------- flash at Skv != S
+# (B, H, KH, S, Skv, dh): cross attention, non-causal, B >= 2 so a wrong
+# batch-row stride of k / v shows; Skv % 64 of 0, 1 and 28 (a ragged last
+# key tile of 64, 1 or 28 keys) and Skv below one tile, at every head dim
+# the kernels take below 256; llama-3.2-vision-11b's 1601 memory rows
+# (G 4, dh 128) and whisper-medium's 1500 (G 1, dh 64) at the serve prompt
+CROSS = [(2, 8, 2, 32, 128, 16), (2, 8, 2, 32, 65, 32), (3, 4, 4, 9, 92, 64),
+         (2, 4, 1, 70, 37, 128), (2, 6, 3, 5, 1, 64), (2, 8, 2, 70, 192, 128),
+         (2, 8, 2, 32, 1601, 128), (2, 4, 4, 24, 1500, 64)]
+
+
+def _qkv_cross(B, H, KH, S, Skv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, dh)).astype(np.float32),
+            rng.standard_normal((B, Skv, KH, dh)).astype(np.float32),
+            rng.standard_normal((B, Skv, KH, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,KH,S,Skv,dh", CROSS)
+def test_flash_twin_cross_matches_chunked_attention(jax_side, B, H, KH, S,
+                                                    Skv, dh):
+    """The twin (and the CPU dispatch) at Skv != S against repro's
+    ``layers.chunked_attention`` -- the cross attention's own path in
+    repro -- and the port's."""
+    jnp, _, _, JL = jax_side
+    q, k, v = _qkv_cross(B, H, KH, S, Skv, dh, seed=Skv)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=False).numpy()
+    want = JL.chunked_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                causal=False, window=None)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    mine = layers.chunked_attention(*_t(q, k, v), causal=False)
+    np.testing.assert_allclose(got, mine.numpy(), **TOL)
+    assert torch.equal(fa.flash_attention(*_t(q, k, v), causal=False),
+                       torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("causal,window,dh,err", [
+    (True, None, 64, ValueError), (False, 8, 64, ValueError),
+    (True, 8, 16, ValueError), (False, None, 256, NotImplementedError)])
+def test_flash_rejects_what_cross_attention_does_not_take(causal, window, dh,
+                                                          err):
+    """Skv != S only non-causal without a window (repro defines no causal
+    alignment of two lengths), and not at dh 256; Skv == S takes all."""
+    q, k, v = _t(*_qkv_cross(2, 4, 2, 16, 40, dh))
+    with pytest.raises(err):
+        fa.flash_attention(q, k, v, causal=causal, window=window)
+    with pytest.raises(err):
+        fa.check_lengths(16, 40, dh, causal, window)
+    fa.check_lengths(40, 40, dh, causal, window)
+
+
 # the edges of the dh-256 kernel's tiles (64 query rows, 8 a warp; 32-key
 # stages): a single position, recurrentgemma-2b's serve prefill, one row
 # past a tile, a ragged last tile, a window narrower than a thread's keys
@@ -381,7 +432,11 @@ CARD_DECODE = [(4, 12, 4, 48, 64, 33, None), (4, 12, 4, 48, 64, 48, None),
     # head groups), at the serve defaults' cache (B=4, 48 slots, 33 and 47
     # valid) and the long serve's (B=4, 2112 slots, 2080 and 1000 valid)
     (4, H, KH, L, 128, n, None) for H, KH in ((40, 8), (24, 2), (48, 4))
-    for L, n in ((48, 33), (48, 47), (2112, 2080), (2112, 1000))]
+    for L, n in ((48, 33), (48, 47), (2112, 2080), (2112, 1000))] + [
+    # cross attention's decode: every row of the memory, llama-3.2-vision-
+    # 11b's 1601 (32 over 8 heads, dh 128) and whisper-medium's 1500 (16
+    # over 16, dh 64)
+    (4, 32, 8, 1601, 128, 1601, None), (4, 16, 16, 1500, 64, 1500, None)]
 
 
 @pytest.mark.cuda
@@ -398,6 +453,49 @@ def test_cuda_flash_matches_twin(hopper, B, H, KH, S, dh, causal, window):
     wide = dh == 256 and fa.wide_tiles(S, causal, window)
     assert fa.LAST_ENTRY["flash_attention"] == (
         "att_flash_wide" if wide else "att_flash")
+
+
+# (B, H, KH, S, Skv, dh): cross attention on the card, the CPU cases
+# (CROSS) and the serve shapes: llama-3.2-vision-11b (32 over 8 heads,
+# dh 128) at the serve prompt and a 2048-token prompt against 1601 memory
+# rows; whisper-medium's (16 over 16, dh 64) at the serve prompt and a
+# 384-token prompt against 1500 frames
+CARD_CROSS = CROSS + [(4, 32, 8, 32, 1601, 128), (4, 32, 8, 2048, 1601, 128),
+                      (4, 16, 16, 32, 1500, 64), (4, 16, 16, 384, 1500, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,S,Skv,dh", CARD_CROSS)
+def test_cuda_flash_cross_matches_twin(hopper, B, H, KH, S, Skv, dh):
+    q, k, v = (x.to(hopper) for x in
+               _t(*_qkv_cross(B, H, KH, S, Skv, dh, seed=Skv)))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention_cuda(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    assert fa.LAUNCHES == {"flash_attention": 2}
+    assert fa.LAST_ENTRY["flash_attention"] == "att_flash"
+
+
+@pytest.mark.cuda
+def test_cuda_flash_cross_refusals(hopper):
+    """The launcher refuses causal, windowed and dh-256 Skv != S, and so
+    does the C entry when called past the launcher's checks."""
+    q, k, v = (x.to(hopper) for x in _t(*_qkv_cross(2, 4, 2, 16, 40, 64)))
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, v, causal=False, window=8)
+    with pytest.raises(RuntimeError):
+        fa._att_flash("att_flash", q, k, v, True, None)
+    q, k, v = (x.to(hopper) for x in _t(*_qkv_cross(2, 4, 2, 16, 40, 256)))
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_cuda(q, k, v, causal=False)
+    for entry in ("att_flash", "att_flash_wide"):
+        with pytest.raises(RuntimeError):
+            fa._att_flash(entry, q, k, v, False, None)
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 # beside chip_smoke.py
 AB_SCRIPTS = [ROOT / "decode_ab.py", ROOT / "dual_ab.py",
               ROOT / "sweep_ab.py", ROOT / "scan_ab.py",
-              ROOT / "xlstm_grad_probe.py"]
+              ROOT / "flash_ab.py", ROOT / "xlstm_grad_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -88,7 +88,9 @@ def test_port_has_every_slice_module():
                 "obs/profiler.py", "obs/tracing.py",
                 "checkpoint/__init__.py", "checkpoint/manager.py",
                 "shard/__init__.py", "shard/state.py", "shard/service.py",
-                "launch/sharded_service.py"):
+                "launch/sharded_service.py",
+                "configs/llama_3_2_vision_11b.py",
+                "configs/whisper_medium.py"):
         assert mod in have, mod
     for cu in ("budget_alloc.cu", "dp_clip_noise.cu", "attention.cu",
                "rg_lru.cu"):

@@ -194,7 +194,7 @@ def test_full_flaas_100m_parameter_count():
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
         get_arch("mixtral-8x22b")
-    for pattern in ((("xattn", False),), (("attn", True),)):
+    for pattern in ((("attn", True),),):
         cfg = dataclasses.replace(SMALL, pattern=pattern)
         with pytest.raises(NotImplementedError):
             Transformer(cfg, device="cpu")

@@ -256,17 +256,42 @@ def test_serve_draws_the_same_model_and_prompts_on_every_device():
     assert meta.flat.device.type == "meta"
 
 
-@pytest.mark.parametrize("kind", ["moe", "xattn", "encdec"])
+@pytest.mark.parametrize("kind", ["moe"])
 def test_unported_kinds_raise(kind):
-    """Every block kind but attn/swa/local/rec/mlstm/slstm, and MoE
-    blocks, raise."""
-    pattern = (("attn", True),) if kind == "moe" else ((kind, False),)
+    """MoE blocks, the one block kind left unported, raise."""
+    pattern = (("attn", True),)
     cfg = dataclasses.replace(CONFIGS["flaas-smoke"], pattern=pattern)
     for call in (lambda: init_cache(None, cfg, 1, 8),
                  lambda: forward_with_cache(None, torch.zeros(1, 4), cfg, 8),
                  lambda: decode_step(None, torch.zeros(1, 1), [], 4, cfg)):
         with pytest.raises(NotImplementedError):
             call()
+
+
+@pytest.mark.parametrize("kind", ["xattn", "encdec"])
+def test_cross_attention_kinds_build_and_serve(kind):
+    """The reduced flaas-100m with its blocks made ``xattn`` or ``encdec``
+    (and, for ``encdec``, an encoder) builds, caches and serves on the
+    CPU, the cross entries of the memory's length."""
+    from repro_torch.configs import EncoderSpec
+    cfg = dataclasses.replace(
+        CONFIGS["flaas-smoke"], pattern=(("attn", False), (kind, False)),
+        cross_memory_len=7,
+        encoder=EncoderSpec(n_layers=1) if kind == "encdec" else None)
+    model = init_model(cfg, 0, device="cpu")
+    mem = torch.randn((2, 7, cfg.d_model),
+                      generator=torch.Generator().manual_seed(0))
+    arg = {"enc_frames" if kind == "encdec" else "memory": mem}
+    cache = init_cache(model, cfg, 2, 8, **arg)
+    assert cache[1]["xk"].shape == (2, 7, cfg.kv_heads, cfg.dh)
+    logits, cache = forward_with_cache(model, torch.zeros(2, 4), cfg, 8,
+                                       **arg)
+    assert logits.shape == (2, 4, cfg.vocab)
+    logits, _ = decode_step(model, torch.zeros(2, 1), cache, 4, cfg)
+    assert bool(torch.isfinite(logits).all())
+    rec = serve.run(model=model, batch=2, prompt_len=4, gen=3, log=None,
+                    **arg)
+    assert rec["tokens"].shape == (2, 3)
 
 
 def test_serving_counts_match_the_depth(monkeypatch):
