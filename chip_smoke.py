@@ -53,8 +53,10 @@ Phases (each raises on failure; nothing is caught):
      1e-5 relative, both bitwise from launch to launch; times beside the
      twin's, the bound and a one-call PyTorch yardstick;
   8. one DP-FedAvg round (sigma 0) of flaas-100m at full width, depth cut
-     to 2 layers, client batches of FL_SEQ tokens, on the card and on the CPU from the same parameters and
-     data: equal cohort and kept set, parameters within RTOL_FL;
+     to 2 layers, client batches of FL_SEQ tokens, on the card and on the
+     CPU (the worker below) from the same parameters (drawn on the CPU
+     from seed 0) and data: equal cohort and kept set, parameters within
+     RTOL_FL;
   9. the end-to-end FL loop (repro_torch.launch.fl_e2e.run) on the card
      at its defaults -- full flaas-100m, 8 devices, 2 analysts x 3
      pipelines, seq 256 -- for FL_ROUNDS rounds, with its invariants, the DP kernels
@@ -172,6 +174,10 @@ Phases (each raises on failure; nothing is caught):
      unsharded run and 2 -> 2 bitwise; checkpoint ms (sync, async until
      wait returns), restore ms and bytes, ticks/s and collectives per
      tick at one and two stripes, beside the card's name and power limit;
+     the spawned ranks run beside the resume and checkpoint checks and
+     the unsharded runs (one stripe, then the two-stripe runs that
+     restore its hand-off, in one thread; the warm dpbalance two-stripe
+     run in another), so their ticks/s are measured under that sharing;
  22. training: (a) the scan's backward kernel (rglru_scan_bwd, no Pallas
      counterpart) bitwise its twin's backward at B=4 S=2048 D=2560 with
      h0, B=1 S=2048, the ragged B=3 S=1000 D=2597 with h0 (the direct
@@ -179,13 +185,13 @@ Phases (each raises on failure; nothing is caught):
      with h0 (a stage that does not divide S), each with the stage it ran
      and its time beside the twin's and the bound, and the ring kernel
      free of spills in phase 2; (b) repro_torch.launch.train.run at its
-     defaults -- full flaas-100m, 20 steps of B=8 x 128, noise 0.2,
-     checkpoints every 10
-     -- then the step-20 checkpoint deleted and steps 10-19 rerun from
-     step 10: metrics, parameters and optimizer state bitwise; one step
-     traced (wall, card busy share, top kernels); one step without noise
-     card vs CPU (metrics within RTOL_TRAIN, parameters within Adam's 2
-     lr); (c) recurrentgemma-2b at full width, depth cut to one group
+     defaults -- full flaas-100m, B=8 x 128, noise 0.2 -- cut to
+     LAUNCH_STEPS steps with checkpoints every LAUNCH_STEPS / 2, then the
+     last checkpoint deleted and the second half rerun from the first:
+     metrics, parameters and optimizer state bitwise; one step traced
+     (wall, card busy share, top kernels); one step without noise card vs
+     CPU (the worker; metrics within RTOL_TRAIN, parameters within Adam's
+     2 lr); (c) recurrentgemma-2b at full width, depth cut to one group
      (RG_TRAIN): two train steps, losses finite, exactly rec layers x
      microbatches scan and backward launches a step, one microbatch's
      gradients card vs CPU within GRAD_RTOL_TRAIN of the largest |g|;
@@ -202,13 +208,13 @@ Phases (each raises on failure; nothing is caught):
  24. serving the dense family through repro_torch.launch.serve:
      qwen2.5-3b and starcoder2-3b whole, starcoder2-15b at 8 of its 40
      layers and qwen2.5-32b at 4 of 64 (all drawn on the card by
-     init_model, timed); each cut to 2 layers of
+     init_model, timed); each cut to DENSE_CPU_LAYERS layer of
      full width card vs CPU as in phase 12; each at the launcher's
-     defaults and at B=4, prompt 2048, gen 64 with exactly one flash
+     defaults and at B=4, prompt 2048, gen LONG_GEN with exactly one flash
      launch a layer and one decode launch a layer a step after the first,
      prefill ms, decode ms/step (median, range), tokens/s, peak memory and
-     the card's busy share over a traced prefill and 4 decode steps at
-     the same shape;
+     the card's busy share over a traced prefill (of at most LONG_TRACE
+     tokens) and 4 decode steps at the same batch;
  25. serving xlstm-125m whole (12 layers, 114,510,408 parameters; no
      kernel on its path, none launched), card vs CPU: every block fed the
      CPU's input to it (a 32-token prefill and one decode step: outputs
@@ -248,15 +254,47 @@ Phases (each raises on failure; nothing is caught):
      gates seeded nonzero and a seeded 0.1 N(0, 1) memory / frames: each
      cut to one pattern group (llama: 4 attn + 1 xattn) or 2 + 2 layers
      (whisper) card vs CPU as in phase 12; each at the launcher's
-     defaults and at a long serve (llama B=4, prompt 2048, gen 64;
-     whisper B=4, prompt 384, gen 64, repro's 448-token decoder cache)
+     defaults and at a long serve (llama B=4, prompt 2048, gen LONG_GEN;
+     whisper B=4, prompt 384, gen LONG_GEN, within repro's 448-token
+     decoder cache)
      with exactly the launches _cross_launches counts (llama 40 flash a
      prefill, 40 decode a step; whisper 72 and 48), prefill ms, decode
-     ms/step, tokens/s, peak memory and busy shares as in phase 24.
+     ms/step, tokens/s, peak memory and busy shares as in phase 24;
+ 29. both attention kernels at mixtral-8x22b's heads (48 over 8 heads,
+     dh 128, G 6) against their twins as in phase 11: flash with its
+     4096-token window at the serve prompt (B=4, S=32) and the long
+     serve's (B=4, S=2048); decode at the serve defaults' 48-slot ring (33
+     valid) and the long serve's 2112 (2080 valid); times, bound and SDPA;
+ 30. serving the MoE family through repro_torch.launch.serve:
+     mixtral-8x22b at full width cut to 4 of its 56 layers
+     (10,418,903,040 parameters, drawn on the card, norm scales seeded
+     nonzero) at the launcher's defaults and at B=4, prompt 2048, gen
+     LONG_GEN as in phase 24 (one flash launch a layer, one decode launch
+     a layer a step); card vs CPU at 1 layer (gen MIX_CPU_GEN) as in
+     phase 12, and every routing call's chosen experts (the prefill's B*S
+     tokens, each decode step's B) equal on both devices except where the
+     CPU's k-th and (k+1)-th router
+     logits lie within ROUTE_TIE of their largest (counted); kimi-k2-1t-
+     a32b's reduced config (dense prefix, 4 experts top 2, shared expert)
+     card vs CPU the same way; moe_apply at kimi's routing geometry (384
+     experts, top 8) at a narrow width with an overflowing expert, card vs
+     CPU and bitwise from launch to launch;
+ 31. training at launch/train.py's configuration (two microbatches,
+     noise 0.2) at B=8 x 128 (llama B=4): llama-3.2-vision-11b at full
+     width cut to one pattern group and whisper-medium to 2 + 2 layers,
+     gates, norms,
+     biases and a 0.1 N(0, 1) memory / frames seeded nonzero, two steps
+     each, then one microbatch's gradients card vs CPU within
+     GRAD_RTOL_TRAIN of the largest |g|; one DP example-mode step on
+     whisper (each example with its own frames; rownorms and
+     clip_accumulate launched once each); reduced mixtral-8x22b two steps
+     and reduced kimi-k2-1t-a32b through launch/train.run (Adafactor), each
+     with one microbatch's gradients card vs CPU.
 
 float32 matrix products run in full float32 (TF32 off, set and printed).
-The CPU references of phases 4, 17 and 20 (seeded episodes and services)
-run in one spawned worker process beside the card phases.
+The CPU references of phases 4, 8, 17, 20 and 22 (seeded episodes,
+services, an FL round and a training step) run in one spawned worker
+process, started beside the build, while the card phases run.
 The second-to-last lines are a JSON object listing the kernels and the
 card's name and power limit; the last line is the run's verdict as JSON.
 Exits nonzero without CUDA or outside a checkout of the repository.
@@ -267,6 +305,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pickle
 import shutil
 import statistics
@@ -339,13 +378,17 @@ P_RG2B = 3_038_753_280         # recurrentgemma-2b parameters
 DENSE = (("qwen2.5-3b", None, "q3b"), ("starcoder2-3b", None, "sc3b"),
          ("starcoder2-15b", 8, "sc15b"), ("qwen2.5-32b", 4, "q32b"))
 P_DENSE = {"qwen2.5-3b": 3_397_103_616, "starcoder2-3b": 3_180_813_312}
-DENSE_CPU_LAYERS = 2           # card vs CPU: the model cut to 2 layers
+DENSE_CPU_LAYERS = 1           # card vs CPU: the model cut to 1 layer
 DENSE_FLASH_CASES = [("serve", 4, 32, True, None), ("2k", 4, 2048, True, None)]
 # the serve defaults' cache (48 slots) and the long serve's (2112)
 DENSE_DECODE_CASES = [("serve-33", 4, 48, 33), ("serve-47", 4, 48, 47),
                       ("long-2080", 4, 2112, 2080),
                       ("long-1000", 4, 2112, 1000)]
-SERVE_RUNS = (("defaults", 4, 32, 16), ("long", 4, 2048, 64))
+# the launcher's defaults and a long serve (gen cut from 64 to LONG_GEN);
+# a long serve's busy shares come from a traced prefill of LONG_TRACE
+# tokens (tracing costs host time in proportion)
+LONG_GEN, LONG_TRACE = 32, 1024
+SERVE_RUNS = (("defaults", 4, 32, 16), ("long", 4, 2048, LONG_GEN))
 P_XLSTM = 114_510_408          # xlstm-125m parameters
 # phases 27-28: cross attention.  llama-3.2-vision-11b (attn x 4 + xattn,
 # 8 groups; 32 query over 8 kv heads, dh 128, a 1601-row image memory)
@@ -369,10 +412,41 @@ CROSS_DECODE_CASES = {XATTN: [("ll-x1601", 4, 1601, 1601)],
 # dense family's; whisper's prompt and gen filling repro's 448-token
 # decoder cache (DECODER_PROMPT_LEN)
 CROSS_RUNS = {XATTN: SERVE_RUNS,
-              WHISPER: (("defaults", 4, 32, 16), ("long", 4, 384, 64))}
+              WHISPER: (("defaults", 4, 32, 16), ("long", 4, 384, LONG_GEN))}
 # card vs CPU: llama cut to one pattern group (4 attn + 1 xattn, 2.1 B
 # parameters), whisper to 2 decoder and 2 encoder layers
 CROSS_CPU_CUT = {XATTN: (5, None), WHISPER: (2, 2)}
+# phases 29-31: the MoE family and training the cross-attention configs.
+# mixtral-8x22b (swa blocks, window 4096, 48 query over 8 kv heads, dh 128,
+# 8 experts top 2 of d_ff 16,384) at full width cut to 4 of its 56 layers
+# (10,418,903,040 parameters, 41.7 GB in float32: one layer holds 2.42 B
+# in its experts), card vs CPU at 1 layer (2,906,720,256); kimi-k2-1t-
+# a32b on its reduced config (one of its MoE layers is 16.9 B parameters)
+MIXTRAL, KIMI = "mixtral-8x22b", "kimi-k2-1t-a32b"
+MIX_LAYERS, MIX_CPU_LAYERS = 4, 1
+P_MIX = {4: 10_418_903_040, 1: 2_906_720_256}
+MIX_FLASH_CASES = [("mx-serve", 4, 32, True, 4096),
+                   ("mx-2k", 4, 2048, True, 4096)]
+MIX_DECODE_CASES = [("mx-serve-33", 4, 48, 33),
+                    ("mx-long-2080", 4, 2112, 2080)]
+ROUTE_TIE = 1e-5               # k-th vs (k+1)-th router logit, of its max
+# moe_apply at kimi's routing geometry (384 experts, top 8, capacity
+# factor 1.25) at a narrow width: (tokens, d_model, d_ff); the router
+# biased so that every token's first choice is one expert, past its
+# capacity
+KIMI_MOE = (4096, 256, 128)
+# training the cross-attention configs at full width: llama-3.2-vision-11b
+# cut to one pattern group (4 attn + 1 xattn, 2,141,237,250 parameters)
+# and whisper-medium to 2 decoder + 2 encoder layers (164,982,784), at
+# launch/train.py's configuration (two microbatches, noise 0.2) at B=8 x
+# 128, llama's batch cut to 4 (so its CPU gradient check runs 2 x 128
+# tokens), gates, norms, biases and memory / frames seeded nonzero; DP
+# example mode on whisper (llama's [B, P] per-example gradients would
+# take 34 GB beside its training state).  (layers, encoder layers,
+# parameters, batch)
+XTRAIN = {XATTN: (5, None, 2_141_237_250, 4),
+          WHISPER: (2, 2, 164_982_784, 8)}
+MIX_CPU_GEN = 8                # mixtral's card-vs-CPU serve: 8 tokens
 # kernels phase 2 holds free of spills (mangled-name fragments): the scan's
 # backward ring, and the decode split kernel at dh 128 for G 5 and 12
 NO_SPILL = ("rg_scan_bwd_ring", "decode_split_kernelILi128ELi5E",
@@ -416,6 +490,7 @@ RG_BWD_CASES = [("2k", 4, 2048, 2560, True), ("b1-2k", 1, 2048, 2560, False),
                 ("train", 2, 128, 2560, False),
                 ("ragged-s", 2, 1000, 2560, True)]
 RTOL_TRAIN = 1e-5              # phase 22: card vs CPU loss, relative
+LAUNCH_STEPS = 6               # phase 22: the launcher's 20 steps cut to 6
 GRAD_RTOL_TRAIN = 1e-4         # card vs CPU gradients, of the largest |g|
 REPLACES = {
     "rowmax": "src/repro/kernels/budget_alloc.py:41",
@@ -598,17 +673,64 @@ def check(name, got, want, bitwise: bool) -> float:
 
 
 def _cpu_ref_keys():
-    """The CPU references phases 4, 17 and 20 compare with, in the order
-    they are needed: ``("episode", SchedulerConfig overrides, scheduler
-    or None)`` on the paper episode, ``("service", scheduler, warm SP1,
-    ticks)`` at SERVICE_GEOMETRY."""
+    """The CPU references phases 4, 8, 17, 20 and 22 compare with, in the
+    order they are needed: ``("episode", SchedulerConfig overrides,
+    scheduler or None)`` on the paper episode, ``("fl_round",)`` (phase
+    8's round), ``("service", scheduler, warm SP1, ticks)`` at
+    SERVICE_GEOMETRY and ``("train_step",)`` (phase 22's step without
+    noise)."""
     names = tuple(PATH_KERNELS)
     return ([("episode", (("sp1_warm_start", w),), None)
-             for w in (False, True)] +
+             for w in (False, True)] + [("fl_round",)] +
             [("episode", (("beta", b),), n) for b in PAPER_BETAS
              for n in names] +
             [("service", "dpbalance", True, SERVICE_CPU_TICKS),
-             ("service", "dpf", False, SERVICE_CPU_TICKS)])
+             ("service", "dpf", False, SERVICE_CPU_TICKS),
+             ("train_step",)])
+
+
+def _fl_model():
+    """Phase 8's model: flaas-100m cut to 2 layers, drawn on the CPU from
+    seed 0 (so the worker and the card phase start from the same
+    values), and its configuration."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(get_arch("flaas-100m"), n_layers=2)
+    return cfg, init_model(cfg, 0, device="cpu")
+
+
+def _fl_round_on(model, cfg, device):
+    """Phase 8's DP-FedAvg round (sigma 0) of ``model`` on ``device``:
+    ``(metrics, seconds)``; the model is updated in place."""
+    from repro_torch.launch.fl_e2e import FEDAVG
+    from repro_torch.training import FedAvgConfig, fl_round, make_loss_fn
+    t0 = time.perf_counter()
+    _, m = fl_round(model, make_loss_fn(cfg),
+                    _fl_data(8, cfg.vocab, FL_SEQ, device), list(range(8)),
+                    FedAvgConfig(**FEDAVG, seed=0), sigma=0.0, round_idx=0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def _quiet_step_state(device):
+    """Phase 22's card-vs-CPU step: flaas-100m's launcher configuration
+    without noise, its state drawn on the CPU from seed 0 and moved to
+    ``device``; ``(cfg, tcfg, state)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import make_state
+    cfg = get_arch("flaas-100m")
+    quiet = launcher.train_config(cfg, 8, 0.0, 1.0)
+    host = make_state(0, cfg, quiet, device="cpu")
+    if device == "cpu":
+        return cfg, quiet, host
+    dev = make_state(0, cfg, quiet, device=device)
+    with torch.no_grad():
+        dev["params"].flat.copy_(host["params"].flat)
+        for k, t in host["opt"]["master"].items():
+            dev["opt"]["master"][k].copy_(t)
+    return cfg, quiet, dev
 
 
 def _cpu_reference(key):
@@ -616,7 +738,17 @@ def _cpu_reference(key):
     host seconds)``; an episode's outputs, or a service's ``_run_ticks``
     to its last tick."""
     t0 = time.perf_counter()
-    if key[0] == "episode":
+    if key[0] == "fl_round":
+        cfg, host = _fl_model()
+        m, _ = _fl_round_on(host, cfg, "cpu")
+        out = (m, _to_file(host.flat))
+    elif key[0] == "train_step":
+        from repro_torch.training import train_step
+        cfg, quiet, st = _quiet_step_state("cpu")
+        st, m = train_step(st, _batch_on(cfg, 0, 8, 128, "cpu"), cfg, quiet)
+        out = (_to_file(st["params"].flat),
+               {k: float(v) for k, v in m.items()})
+    elif key[0] == "episode":
         from repro_torch.core import (SchedulerConfig, SimConfig,
                                       generate_episode, run_episode)
         _, over, name = key
@@ -629,6 +761,23 @@ def _cpu_reference(key):
         out = _run_ticks(_service(name, device="cpu", warm=warm), ticks,
                          marks=(ticks,))
     return out, time.perf_counter() - t0
+
+
+def _to_file(t):
+    """A large worker result written to a temporary .npy file (its path
+    goes back through the pool instead: the pool's result thread would
+    hold the main process's interpreter lock for seconds unpickling
+    hundreds of MB, stalling whatever phase runs)."""
+    fd, path = tempfile.mkstemp(suffix=".npy", prefix="chip_smoke_ref_")
+    with os.fdopen(fd, "wb") as f:
+        np.save(f, t.numpy())
+    return path
+
+
+def _from_file(path):
+    out = torch.from_numpy(np.load(path))
+    os.unlink(path)
+    return out
 
 
 def _cpu_worker_init():
@@ -684,10 +833,29 @@ def phase_device():
 
 
 def phase_build():
-    log("[2] build")
+    _build_finish(_build_start())
+
+
+def _build_start():
+    """Start every nvcc (one per source, at once) in a thread; returns the
+    thread's future and the start time."""
+    import concurrent.futures
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
-    built = build.build_all()                  # one nvcc per source, at once
+    log("[2] build (started; the phases that launch no kernel of ours run "
+        "beside it)")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(build.build_all)
+    pool.shutdown(wait=False)
+    return fut, time.perf_counter()
+
+
+def _build_finish(started):
+    """Wait for the build, load every library, print ptxas' lines."""
+    from repro_torch.kernels import build
+    fut, t0 = started
+    built = fut.result()
+    log(f"[2] build finished {time.perf_counter() - t0:.2f} s after it "
+        f"started")
     for name, (path, secs, nvcc_log) in built.items():
         build.library(name)
         log(f"built {path.name} in {secs:.2f} s (nvcc)")
@@ -1287,11 +1455,15 @@ def _stage_spans(fn):
 
 
 def _kernel_rows(prof):
-    """``[(kernel, ms), ...]`` largest first, from a finished profiler."""
-    rows = [(e.key, getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
-            for e in prof.key_averages()]
-    return sorted(rows, key=lambda r: -r[1])
+    """``[(kernel, ms), ...]`` largest first, from a finished profiler: the
+    card's activities (kernels, copies, sets) summed by name over its raw
+    events (``key_averages`` would first build every host event, tens of
+    seconds of host work over a long trace)."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            rows[e.name()] = rows.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return sorted(rows.items(), key=lambda r: -r[1])
 
 
 def _device_kernels(fn):
@@ -1538,33 +1710,20 @@ def _fl_data(n_dev, vocab, seq, device, seed=0):
 def phase_fl_round():
     log("[8] one DP-FedAvg round of flaas-100m (full width, 2 layers), "
         "card vs CPU")
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import dp_clip_noise as dp
-    from repro_torch.launch.fl_e2e import FEDAVG
-    from repro_torch.models import Transformer, init_model
-    from repro_torch.training import FedAvgConfig, fl_round, make_loss_fn
-    cfg = dataclasses.replace(get_arch("flaas-100m"), n_layers=2)
-    card = init_model(cfg, 0, device="cuda")
-    host = Transformer(cfg, device="cpu")
+    from repro_torch.models import Transformer
+    cfg, host = _fl_model()
+    start = host.flat
+    card = Transformer(cfg, device="cuda")
     with torch.no_grad():
-        host.flat.copy_(card.flat.cpu())
-    start = host.flat.clone()
-    fcfg = FedAvgConfig(**FEDAVG, seed=0)
-    loss_fn = make_loss_fn(cfg)
+        card.flat.copy_(host.flat)
     dp.reset_launches()
-    t0 = time.perf_counter()
-    _, m_card = fl_round(card, loss_fn, _fl_data(8, cfg.vocab, FL_SEQ, "cuda"),
-                         list(range(8)), fcfg, sigma=0.0, round_idx=0)
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
+    m_card, t_card = _fl_round_on(card, cfg, "cuda")
     assert dp.LAUNCHES == {"rownorms": 1, "clip_accumulate": 1}, dp.LAUNCHES
-    t0 = time.perf_counter()
-    _, m_host = fl_round(host, loss_fn, _fl_data(8, cfg.vocab, FL_SEQ, "cpu"),
-                         list(range(8)), fcfg, sigma=0.0, round_idx=0)
-    t_host = time.perf_counter() - t0
+    (m_host, host_flat), t_host = cpu_ref(("fl_round",))
     assert m_card == m_host, (m_card, m_host)
     got = card.flat.cpu().double()
-    want = host.flat.double()
+    want = _from_file(host_flat).double()
     delta = float((want - start.double()).abs().max())
     diff = (got - want).abs()
     ulp = 2.0 ** -23 * want.abs().clamp(min=2.0 ** -126)
@@ -1575,7 +1734,7 @@ def phase_fl_round():
         f"{float((diff / ulp).max()):.2f} ulp of the parameter; "
         f"{int((diff > 0).sum())} of {diff.numel()} differ), max |delta| "
         f"{delta:.3e}; bound {RTOL_FL} of max |delta| + one ulp; card "
-        f"{t_card:.2f} s, CPU {t_host:.2f} s")
+        f"{t_card:.2f} s, CPU {t_host:.2f} s (the CPU worker)")
     assert ok, "card and CPU rounds disagree"
 
 
@@ -2872,6 +3031,37 @@ def phase_checkpoint_shard(smi):
     from repro_torch.launch.sharded_service import (service_job,
                                                     service_jobs, spawn)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    # 4. (started first, joined below) the sharded service in spawned
+    # ranks beside this process's checks: one stripe under NCCL, then the
+    # two-stripe runs that restore its hand-off, and at the same time the
+    # warm dpbalance run at two stripes (Gloo, CUDA tensors, every rank on
+    # cuda:0), each in a process group of its own
+    import concurrent.futures
+    e1, e2, e3 = (str(root / d) for d in ("e1", "e2", "e3"))
+
+    def timed(n_shards, backend, jobs):
+        t0 = time.perf_counter()
+        out = spawn(service_jobs, n_shards, backend=backend, device="cuda",
+                    args=(jobs,), timeout=900)[0]
+        return out, time.perf_counter() - t0
+
+    def one_then_two():
+        one = timed(1, "nccl", [_shard_job(n, STRIPE_TICKS[n][0])
+                                for n in SCHEDULER_NAMES] +
+                    [_shard_job("dpf", ELASTIC_AT[0], save=e1)])
+        two = timed(2, "gloo", [
+            _shard_job(n, STRIPE_TICKS[n][1]) for n in SCHEDULER_NAMES
+            if n not in SHARD_WARM] + [
+            _shard_job("dpf", ELASTIC_AT[1], restore=e1, save=e2),
+            _shard_job("dpf", SHARD_TICKS // 2, save=e3, async_save=True),
+            _shard_job("dpf", SHARD_TICKS, restore=e3)])
+        return one, two
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    chained = pool.submit(one_then_two)
+    warm = pool.submit(timed, 2, "gloo", [_shard_job(n, STRIPE_TICKS[n][1])
+                                          for n in SHARD_WARM])
+    pool.shutdown(wait=False)
     # 1. bitwise resume, every scheduler paged, dpbalance carry too
     for name in SCHEDULER_NAMES:
         for paged in ((True, False) if name == "dpbalance" else (True,)):
@@ -2913,23 +3103,23 @@ def phase_checkpoint_shard(smi):
     errs = _stripe_kernel_checks()
     log("  stripe shapes, kernel vs twin max abs err: " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items()))
-    # 4. the sharded service: one stripe (NCCL), two (Gloo, CUDA tensors)
+    # 4. the sharded service against the unsharded card run
     cuda = torch.device("cuda")
     plain = {n: service_job(0, 1, cuda, _shard_job(n, SHARD_TICKS),
                             sharded=False) for n in SCHEDULER_NAMES}
-    e1, e2, e3 = (str(root / d) for d in ("e1", "e2", "e3"))
-    t0 = time.perf_counter()
-    one = spawn(service_jobs, 1, backend="nccl", device="cuda", args=(
-        [_shard_job(n, STRIPE_TICKS[n][0]) for n in SCHEDULER_NAMES] +
-        [_shard_job("dpf", ELASTIC_AT[0], save=e1)],), timeout=900)[0]
-    one_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    two = spawn(service_jobs, 2, backend="gloo", device="cuda", args=(
-        [_shard_job(n, STRIPE_TICKS[n][1]) for n in SCHEDULER_NAMES] +
-        [_shard_job("dpf", ELASTIC_AT[1], restore=e1, save=e2),
-         _shard_job("dpf", SHARD_TICKS // 2, save=e3, async_save=True),
-         _shard_job("dpf", SHARD_TICKS, restore=e3)],), timeout=900)[0]
-    two_s = time.perf_counter() - t0
+    (one, one_s), (rest, rest_s) = chained.result()
+    warm_runs, warm_s = warm.result()
+    by_name = dict(zip([n for n in SCHEDULER_NAMES if n not in SHARD_WARM],
+                       rest))
+    by_name.update(zip(SHARD_WARM, warm_runs))
+    two = [by_name[n] for n in SCHEDULER_NAMES] + \
+        rest[len(SCHEDULER_NAMES) - len(SHARD_WARM):]
+    two_s = max(one_s + rest_s, warm_s)
+    log(f"  the spawned ranks ran beside this process's checks (1-3 and "
+        f"the unsharded runs): one stripe {one_s:.1f} s then two stripes "
+        f"{rest_s:.1f} s, and the warm two-stripe run {warm_s:.1f} s of "
+        f"host clock, start-ups included; their ticks/s are measured "
+        f"under that sharing")
     launches = {}
     for S, runs, secs, backend in ((1, one, one_s, "nccl"),
                                    (2, two, two_s, "gloo")):
@@ -2961,8 +3151,8 @@ def phase_checkpoint_shard(smi):
                 f"{got['collectives_per_tick']}; budget-kernel launches "
                 f"per tick {{'rowmax': {per['rowmax']:.2f}, 'matvec': "
                 f"{per['matvec']:.2f}, 'matvec_t': {per['matvec_t']:.2f}}}")
-        log(f"  S={S} spawn ({backend}, every rank on cuda:0) took "
-            f"{secs:.1f} s of host clock, start-up included")
+        log(f"  S={S} ({backend}, every rank on cuda:0): {secs:.1f} s of "
+            f"host clock to the last rank's end, start-ups included")
     # 5. elastic: 1 -> 2 stripes at ELASTIC_AT[0], 2 -> 1 at ELASTIC_AT[1]
     # (the last leg on the unsharded service, a one-stripe ring)
     back = service_job(0, 1, cuda, _shard_job("dpf", SHARD_TICKS,
@@ -3080,30 +3270,34 @@ def _launcher_runs(card):
     from repro_torch.training import train_step
     root = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
     t0 = time.perf_counter()
-    full = launcher.run(ckpt=str(root), log=None)
+    n, every = LAUNCH_STEPS, LAUNCH_STEPS // 2
+    full = launcher.run(steps=n, ckpt_every=every, ckpt=str(root), log=None)
     full_s = time.perf_counter() - t0
     cfg, tcfg = full["cfg"], full["tcfg"]
-    assert cfg.name == "flaas-100m" and full["checkpoints"] == [10, 20]
+    assert cfg.name == "flaas-100m" and full["checkpoints"] == [every, n]
     assert full["state"]["params"].flat.numel() == P_FLAAS
     losses = [r["loss"] for r in full["records"]]
     assert all(math.isfinite(x) for x in losses), losses
-    shutil.rmtree(root / "step_0000000020")
-    rest = launcher.run(steps=10, ckpt=str(root), log=None)
-    assert rest["resumed_from"] == 10
+    shutil.rmtree(root / f"step_{n:010d}")
+    rest = launcher.run(steps=n - every, ckpt_every=every, ckpt=str(root),
+                        log=None)
+    assert rest["resumed_from"] == every
 
     def strip(records):
         return [{k: v for k, v in r.items() if k != "wall_s"}
                 for r in records]
-    assert strip(rest["records"]) == strip(full["records"][10:]), "resume"
+    assert strip(rest["records"]) == strip(full["records"][every:]), \
+        "resume"
     _states_bitwise("resume", rest["state"], full["state"])
     walls = [r["wall_s"] * 1e3 for r in full["records"][1:]]
-    log(f"  launch/train.run defaults (flaas-100m, {P_FLAAS} parameters, "
-        f"20 steps, B=8 x 128, 2 microbatches, noise 0.2, checkpoints "
-        f"every 10): {full_s:.2f} s; loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}; ms per step (host clock, steps 1-19) median "
-        f"{statistics.median(walls):.2f}, range {min(walls):.2f}-"
-        f"{max(walls):.2f}; resumed at step 10 and rerun to 20: metrics, "
-        f"parameters and optimizer state bitwise ({card})")
+    log(f"  launch/train.run at its defaults cut to {n} of 20 steps "
+        f"(flaas-100m, {P_FLAAS} parameters, B=8 x 128, 2 microbatches, "
+        f"noise 0.2, checkpoints every {every}): {full_s:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; ms per step (host clock, "
+        f"steps 1-{n - 1}) median {statistics.median(walls):.2f}, range "
+        f"{min(walls):.2f}-{max(walls):.2f}; resumed at step {every} and "
+        f"rerun to {n}: metrics, parameters and optimizer state bitwise "
+        f"({card})")
     state = rest["state"]
     del full, rest
     shutil.rmtree(root)
@@ -3126,26 +3320,17 @@ def _launcher_runs(card):
     return cfg
 
 
-def _train_card_vs_cpu(cfg):
+def _train_card_vs_cpu():
     """Phase 22 (b): one step without noise on the card and on the CPU
-    from the same state."""
-    from repro_torch.launch import train as launcher
-    from repro_torch.training import make_state, train_step
-    quiet = launcher.train_config(cfg, 8, 0.0, 1.0)
-    host = make_state(0, cfg, quiet, device="cpu")
-    dev = make_state(0, cfg, quiet, device="cuda")
-    with torch.no_grad():
-        dev["params"].flat.copy_(host["params"].flat)
-        for k, t in host["opt"]["master"].items():
-            dev["opt"]["master"][k].copy_(t)
-    out = {}
-    for name, st in (("cuda", dev), ("cpu", host)):
-        t0 = time.perf_counter()
-        st, m = train_step(st, _batch_on(cfg, 0, 8, 128, name), cfg, quiet)
-        out[name] = (st["params"].flat.cpu(),
-                     {k: float(v) for k, v in m.items()},
-                     time.perf_counter() - t0)
-    (pc, mc, _), (ph, mh, host_s) = out["cuda"], out["cpu"]
+    (the CPU worker) from the same state."""
+    from repro_torch.training import train_step
+    cfg, quiet, dev = _quiet_step_state("cuda")
+    t0 = time.perf_counter()
+    st, m = train_step(dev, _batch_on(cfg, 0, 8, 128, "cuda"), cfg, quiet)
+    pc, mc = st["params"].flat.cpu(), {k: float(v) for k, v in m.items()}
+    card_s = time.perf_counter() - t0
+    (ph, mh), host_s = cpu_ref(("train_step",))
+    ph = _from_file(ph)
     for k in mh:
         assert abs(mc[k] - mh[k]) <= RTOL_TRAIN * abs(mh[k]), (k, mc, mh)
     # Adam's first step moves a parameter by lr * g / (|g| + eps): a
@@ -3157,8 +3342,8 @@ def _train_card_vs_cpu(cfg):
     log(f"  one step without noise, card vs CPU: loss {mc['loss']:.6f} / "
         f"{mh['loss']:.6f}, metrics within {RTOL_TRAIN} relative; "
         f"parameters max err {perr:.3e} (bound 2 lr = {2 * quiet.lr:g}), "
-        f"{n_off} of {ph.numel()} beyond 1e-6 of max|p|; CPU step "
-        f"{host_s:.2f} s")
+        f"{n_off} of {ph.numel()} beyond 1e-6 of max|p|; card step "
+        f"{card_s:.2f} s, CPU step {host_s:.2f} s (the CPU worker)")
 
 
 def _train_hybrid():
@@ -3265,7 +3450,7 @@ def phase_train(card):
     row = _scan_bwd_cases(card)
     cfg = _launcher_runs(card)
     torch.cuda.empty_cache()
-    _train_card_vs_cpu(cfg)
+    _train_card_vs_cpu()
     torch.cuda.empty_cache()
     scan = _train_hybrid()
     torch.cuda.empty_cache()
@@ -3389,7 +3574,8 @@ def _busy_shares(model, B, prompt, steps=4, cross=None):
     return pre_busy / pre_wall, dec_busy / dec_wall
 
 
-def _serve_runs(model, expect_fn, label, trace_prompt=None, runs=SERVE_RUNS,
+def _serve_runs(model, expect_fn, label, trace_prompt=LONG_TRACE,
+                runs=SERVE_RUNS,
                 cross=None):
     """The launcher's defaults and the long serve (``runs``) on ``model``,
     each checked for its launches (``expect_fn(gen)``) and tokens, then
@@ -3907,10 +4093,339 @@ def phase_serve_cross():
     return launches
 
 
+def phase_moe_attention(card, att_rows):
+    log("[29] attention kernels at mixtral-8x22b's heads (48 over 8, dh "
+        "128, window 4096)")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    cfg = get_arch(MIXTRAL)
+    G = cfg.n_heads // cfg.kv_heads
+    log(f"  {MIXTRAL}: {cfg.n_heads} query heads over {cfg.kv_heads} kv "
+        f"heads (G {G}), dh {cfg.dh}, window {cfg.window}; decode head "
+        f"groups {da.HEAD_GROUPS[cfg.dh, G]}, resident split blocks per SM "
+        f"{da.resident_blocks(cfg.dh, G)}")
+    _attention_cases(card, (cfg.n_heads, cfg.kv_heads, cfg.dh),
+                     MIX_FLASH_CASES, MIX_DECODE_CASES, att_rows)
+
+
+@contextlib.contextmanager
+def _routes():
+    """Record every ``moe.route`` call's chosen experts and router logits
+    (on the CPU) while the block runs."""
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def record(x, router, top_k, capacity):
+        r = route(x, router, top_k, capacity)
+        calls.append((r.experts.cpu(), r.logits.detach().cpu()))
+        return r
+    moe.route = record
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def _experts_equal(label, got, want, k):
+    """The card's chosen experts equal the CPU's call by call, except
+    tokens whose k-th and (k+1)-th CPU logits lie within ROUTE_TIE of
+    their largest |logit| (near-ties, counted).  Returns (near-ties,
+    tokens)."""
+    assert len(got) == len(want), (label, len(got), len(want))
+    ties = tokens = 0
+    for (eg, _), (ew, lw) in zip(got, want):
+        s = torch.sort(lw.double(), dim=-1, descending=True).values
+        tie = (s[:, k - 1] - s[:, k]) <= ROUTE_TIE * lw.abs().amax(-1)
+        assert torch.equal(eg[~tie], ew[~tie]), label
+        ties += int(tie.sum())
+        tokens += tie.numel()
+    return ties, tokens
+
+
+def _serve_card_vs_cpu_moe(label, card_m, host_m, gen):
+    """Phase 12's card-vs-CPU serve on a MoE model, with every routing
+    call's chosen experts (the prefill's B*S tokens, each decode step's
+    B) held to the CPU's under the near-tie rule."""
+    from repro_torch.launch import serve
+    k = card_m.cfg.moe.top_k
+    _reset_launches()
+    with _routes() as card_r:
+        card = serve.run(model=card_m, gen=gen, keep_logits=True, log=None)
+    n = card_m.cfg.n_layers
+    assert card["launches"] == {"flash_attention": n,
+                                "decode_attention": n * (gen - 1),
+                                "rglru_scan": 0}, card["launches"]
+    t0 = time.perf_counter()
+    with _routes() as host_r:
+        host = serve.run(model=host_m, gen=gen, keep_logits=True, log=None)
+    host_s = time.perf_counter() - t0
+    with _routes() as forced_r:
+        forced = serve.run(model=card_m, gen=gen, feed=host["tokens"],
+                           keep_logits=True, log=None)
+    errs, ties, bound = _card_vs_cpu(card, host, forced, gen)
+    n_moe = sum(m for _, m in card_m.cfg.layer_specs())
+    pre = n_moe                          # the prefill's routing calls
+    rt, rn = _experts_equal(label + " prefill", card_r[:pre], host_r[:pre],
+                            k)
+    dt, dn = _experts_equal(label + " forced decode", forced_r, host_r, k)
+    log(f"  {label} ({card_m.flat.numel()} parameters) card vs CPU: "
+        f"prefill logits max err {errs['prefill']:.3e}, teacher-forced "
+        f"decode logits max err {errs['decode']:.3e} (bound {RTOL_SERVE} x "
+        f"max|logit| = {bound:.3e}); tokens equal except at {len(ties)} "
+        f"printed near-ties; chosen experts equal over {rn} prefill and "
+        f"{dn} prefill + decode token routings but {rt} and {dt} near-ties "
+        f"(k-th/(k+1)-th gap <= {ROUTE_TIE} of max|logit|); launches "
+        f"{card['launches']}; card prefill {card['prefill_ms']:.2f} ms, "
+        f"decode {statistics.median(card['step_ms']):.3f} ms/step (median, "
+        f"B=4, prompt 32, gen {gen}), {card['tok_per_s']:.1f} tok/s; CPU "
+        f"run {host_s:.2f} s")
+
+
+def _kimi_moe_apply(card):
+    """moe_apply at kimi's routing geometry, narrow: card vs CPU and
+    bitwise from launch to launch; ms per call (CUDA events)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    spec = get_arch(KIMI).moe
+    E, k = spec.n_experts, spec.top_k
+    T, D, Fw = KIMI_MOE
+    gen = torch.Generator().manual_seed(5)
+    p = {"router": torch.randn((D, E), generator=gen) / D ** 0.5}
+    for n, shape in (("w_up", (E, D, Fw)), ("w_gate", (E, D, Fw)),
+                     ("w_down", (E, Fw, D))):
+        p[n] = torch.randn(shape, generator=gen) / E ** 0.5
+    p["router"][0, 3] += 6.0                 # every token's first: 3
+    x = 0.5 * torch.randn((T, D), generator=gen)
+    x[:, 0] = 1.0 + 0.05 * torch.randn((T,), generator=gen)
+    cap = M.moe_capacity(T, k, E, spec.capacity_factor)
+    want = M.moe_apply(x, p, top_k=k, capacity=cap, act="silu")
+    with _routes() as host_r:
+        M.moe_apply(x, p, top_k=k, capacity=cap, act="silu")
+    xd, pd = x.cuda(), {n: t.cuda() for n, t in p.items()}
+    got = M.moe_apply(xd, pd, top_k=k, capacity=cap, act="silu")
+    again = M.moe_apply(xd, pd, top_k=k, capacity=cap, act="silu")
+    assert torch.equal(got, again), "moe_apply not bitwise launch to launch"
+    with _routes() as card_r:
+        M.moe_apply(xd, pd, top_k=k, capacity=cap, act="silu")
+    ties, _ = _experts_equal("kimi moe_apply", card_r, host_r, k)
+    # a token's output depends on its own row and its experts alone: held
+    # wherever both devices routed it alike (experts and slots)
+    r, rd = M.route(x, p["router"], k, cap), M.route(xd, pd["router"], k, cap)
+    dropped = int((r.slot < 0).sum())
+    assert dropped > 0
+    alike = (rd.experts.cpu() == r.experts).all(-1) & \
+        (rd.slot.cpu() == r.slot).all(-1)
+    err = float((got.cpu() - want).abs()[alike].max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    ms = time_ms(lambda: M.moe_apply(xd, pd, top_k=k, capacity=cap,
+                                     act="silu"), 5)
+    log(f"  moe_apply at kimi's geometry ({E} experts, top {k}, capacity "
+        f"{cap} of {T} tokens, d_model {D}, d_ff {Fw}; router biased so "
+        f"{dropped} of {T * k} assignments overflow): chosen experts equal "
+        f"but {ties} near-ties of {T} tokens; card vs CPU max err {err:.3e} "
+        f"over the {int(alike.sum())} tokens routed alike (bound 1e-5 x "
+        f"max|out| = {1e-5 * float(want.abs().max()):.3e}); bitwise from "
+        f"launch to launch; {ms:.3f} ms a call (CUDA events, {card})")
+
+
+def phase_serve_moe(card):
+    log("[30] serve mixtral-8x22b (4 of 56 layers, full width) and "
+        "kimi-k2-1t-a32b (reduced) through repro_torch.launch.serve")
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import init_model
+    t_phase = time.perf_counter()
+    full = get_arch(MIXTRAL)
+    cfg = dataclasses.replace(full, n_layers=MIX_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    assert model.flat.numel() == P_MIX[MIX_LAYERS], model.flat.numel()
+    _seed_nonzero(model, 1)
+    log(f"  {MIXTRAL}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"{model.flat.numel()} float32 parameters "
+        f"({model.flat.numel() * 4 / 1e9:.1f} GB), drawn on the card by "
+        f"init_model in {draw_s:.2f} s (host clock), norm scales seeded "
+        f"nonzero; experts N(0, 1/E) as repro draws them")
+    nl = MIX_CPU_LAYERS
+    card_m = _cut_model(model, nl, "cuda")
+    assert card_m.flat.numel() == P_MIX[nl]
+    host_m = _cut_model(card_m, nl, "cpu")
+    _serve_card_vs_cpu_moe(f"{MIXTRAL} at {nl} layer", card_m, host_m,
+                           MIX_CPU_GEN)
+    del card_m, host_m
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    launches = {MIXTRAL: _serve_runs(
+        model, lambda g: {"flash_attention": n,
+                          "decode_attention": n * (g - 1),
+                          "rglru_scan": 0}, MIXTRAL)}
+    del model
+    torch.cuda.empty_cache()
+
+    kcfg = reduced(get_arch(KIMI))
+    kimi = init_model(kcfg, 0, device="cuda")
+    _seed_nonzero(kimi, 2)
+    _serve_card_vs_cpu_moe(f"{KIMI} reduced ({kcfg.n_layers} layers: "
+                           f"dense prefix, {kcfg.moe.n_experts} experts "
+                           f"top {kcfg.moe.top_k} + shared)", kimi,
+                           _cut_model(kimi, kcfg.n_layers, "cpu"), 16)
+    del kimi
+    _kimi_moe_apply(card)
+    torch.cuda.empty_cache()
+    log(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _train_steps(label, make, cfg, tcfg, batches):
+    """``train_step`` over ``batches`` from the state ``make()`` returns
+    (made here, so no caller holds the first step's optimizer state while
+    the next runs), each timed on the host clock; logs and returns the
+    new state."""
+    from repro_torch.training import train_step
+    torch.cuda.reset_peak_memory_stats()
+    state = make()
+    walls, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg, tcfg)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"  {label}: {state['params'].flat.numel()} parameters, "
+        f"{tcfg.optimizer}, DP {tcfg.dp.mode} mode"
+        f"{f' ({tcfg.dp.n_micro})' if tcfg.dp.mode == 'microbatch' else ''}"
+        f", noise {tcfg.dp.noise_multiplier}: losses "
+        f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+        f"{[round(w, 2) for w in walls]}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return state
+
+
+def _train_cross(name):
+    """Phase 31: one cross-attention config at full width, cut; two steps
+    at the launcher's configuration with a seeded memory / frames, then
+    one microbatch's gradients card vs CPU (whisper's DP example mode:
+    phase_train_example_cross, after the build)."""
+    from repro_torch.configs import EncoderSpec, get_arch
+    from repro_torch.launch import train as launcher
+    nl, ne, count, B = XTRAIN[name]
+    S = NEW_TRAIN["seq"]
+    cfg = dataclasses.replace(get_arch(name), n_layers=nl)
+    if ne is not None:
+        cfg = dataclasses.replace(cfg, encoder=EncoderSpec(ne))
+    key = "enc_frames" if cfg.encoder is not None else "memory"
+    cross = 0.1 * torch.randn((B, cfg.cross_memory_len, cfg.d_model),
+                              generator=torch.Generator().manual_seed(3))
+    cross = cross.cuda()
+    tcfg = launcher.train_config(cfg, B, 0.2, 1.0)
+    batches = [dict(_batch_on(cfg, i, B, S, "cuda"), **{key: cross})
+               for i in range(NEW_TRAIN["steps"])]
+    enc = f" + {ne} encoder layers" if ne else ""
+    state = _train_steps(f"{name} at {nl} layers{enc}, full width, B={B} x "
+                         f"{S}, {key} {tuple(cross.shape)} 0.1 N(0, 1)",
+                         lambda: _seeded_state(0, cfg, tcfg, 4, count),
+                         cfg, tcfg, batches)
+    model = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    m = B // tcfg.dp.n_micro
+    _grads_card_vs_cpu(model, {k: v[:m] for k, v in batches[0].items()})
+    del model
+    torch.cuda.empty_cache()
+
+
+def _seeded_state(seed, cfg, tcfg, nonzero, count=None):
+    """``make_state`` on the card with ``_seed_nonzero``'s values (the
+    optimizer's master copy too)."""
+    from repro_torch.training import make_state
+    state = make_state(seed, cfg, tcfg, device="cuda")
+    if count is not None:
+        assert state["params"].flat.numel() == count
+    _seed_nonzero(state["params"], nonzero)
+    with torch.no_grad():
+        for k, t in state["opt"]["master"].items():
+            t.copy_(state["params"].get_parameter(k))
+    return state
+
+
+def phase_train_example_cross():
+    """Phase 31, after the build: one DP example-mode step on whisper-medium
+    (2 + 2 layers), each example with its own frames."""
+    from repro_torch.configs import EncoderSpec, get_arch
+    from repro_torch.kernels import dp_clip_noise as dp
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import DPConfig
+    log("[31] (after the build) training whisper-medium in DP example mode")
+    nl, ne, _, B = XTRAIN[WHISPER]
+    S = NEW_TRAIN["seq"]
+    cfg = dataclasses.replace(get_arch(WHISPER), n_layers=nl,
+                              encoder=EncoderSpec(ne))
+    frames = 0.1 * torch.randn((B, cfg.cross_memory_len, cfg.d_model),
+                               generator=torch.Generator().manual_seed(3))
+    b = dict(_batch_on(cfg, 0, B, S, "cuda"), enc_frames=frames.cuda())
+    ex = dataclasses.replace(launcher.train_config(cfg, B, 0.2, 1.0),
+                             dp=DPConfig(clip=1.0, noise_multiplier=0.2,
+                                         mode="example"))
+    dp.reset_launches()
+    _train_steps(f"{WHISPER} at {nl} + {ne} layers, DP example mode ({B} "
+                 f"examples of {S} tokens, each with its own enc_frames "
+                 f"row)", lambda: _seeded_state(1, cfg, ex, 5), cfg, ex, [b])
+    assert dict(dp.LAUNCHES) == {"rownorms": 1, "clip_accumulate": 1}, \
+        dp.LAUNCHES
+    log(f"  example mode launches {dict(dp.LAUNCHES)}")
+    dp.reset_launches()
+    torch.cuda.empty_cache()
+
+
+def phase_train_cross_moe():
+    log("[31] training llama-3.2-vision-11b and whisper-medium (full width, "
+        "cut), reduced mixtral-8x22b and reduced kimi-k2-1t-a32b (the "
+        "launcher, Adafactor), card vs CPU; beside the build (no kernel of "
+        "ours on these paths; the step times share the host with nvcc)")
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import make_state
+    t_phase = time.perf_counter()
+    log(f"  card memory allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    for name in (XATTN, WHISPER):
+        _train_cross(name)
+    B, S, steps = NEW_TRAIN["batch"], NEW_TRAIN["seq"], NEW_TRAIN["steps"]
+    cfg = reduced(get_arch(MIXTRAL))
+    tcfg = launcher.train_config(cfg, B, 0.2, 1.0)
+    batches = [_batch_on(cfg, i, B, S, "cuda") for i in range(steps)]
+    state = _train_steps(f"{MIXTRAL} reduced, B={B} x {S}",
+                         lambda: make_state(0, cfg, tcfg, device="cuda"),
+                         cfg, tcfg, batches)
+    _grads_card_vs_cpu(state["params"], {k: v[:B // tcfg.dp.n_micro]
+                                         for k, v in batches[0].items()})
+    root = Path(tempfile.mkdtemp(prefix="train_kimi_"))
+    run = launcher.run(arch=KIMI, smoke=True, steps=steps, batch=B, seq=S,
+                       ckpt=str(root), log=None)
+    shutil.rmtree(root)
+    assert run["tcfg"].optimizer == "adafactor"
+    losses = [r["loss"] for r in run["records"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"  launch/train.run(arch={KIMI!r}, smoke=True, steps={steps}): "
+        f"B={B} x {S}, {run['tcfg'].optimizer}, noise 0.2: losses "
+        f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+        f"{[round(r['wall_s'] * 1e3, 2) for r in run['records']]}")
+    _grads_card_vs_cpu(run["state"]["params"],
+                       {k: v[:B // 2] for k, v in
+                        _batch_on(run["cfg"], 0, B, S, "cpu").items()})
+    torch.cuda.empty_cache()
+    log(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
-    phase_build()
-    with cpu_references():
+    with cpu_references():            # the worker starts beside the build
+        started = _build_start()
+        phase_train_cross_moe()       # launches no kernel of ours
+        _build_finish(started)
         return _card_phases(name, smi)
 
 
@@ -3946,6 +4461,9 @@ def _card_phases(name, smi) -> int:
     phase_train_new()
     phase_cross_attention(smi, att_rows)
     cross_launches = phase_serve_cross()
+    phase_moe_attention(smi, att_rows)
+    moe_launches = phase_serve_moe(smi)
+    phase_train_example_cross()
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -3967,6 +4485,9 @@ def _card_phases(name, smi) -> int:
                      launches_cross_serve={
                          n: {r: c[k] for r, c in runs.items()}
                          for n, runs in cross_launches.items()},
+                     launches_moe_serve={
+                         n: {r: c[k] for r, c in runs.items()}
+                         for n, runs in moe_launches.items()},
                      **att_rows[k]) for k in ATT_REPLACES]
     kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
                         replaces=RG_REPLACES,

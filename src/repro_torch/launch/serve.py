@@ -6,14 +6,20 @@ KV cache, on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --device cpu --smoke
 
 ``--arch`` takes every architecture the port knows
 (:data:`repro_torch.configs.ARCHS`): ``flaas-100m``, the dense
 ``qwen2.5-3b``, ``qwen2.5-32b``, ``starcoder2-3b`` and ``starcoder2-15b``,
 the hybrid ``recurrentgemma-2b`` and ``xlstm-125m``, the cross-attention
-``llama-3.2-vision-11b`` and the encoder-decoder ``whisper-medium``.  In
-float32, ``qwen2.5-32b`` (131 GB) does not fit one 80 GB card whole;
-``llama-3.2-vision-11b`` (39.1 GB) does.
+``llama-3.2-vision-11b``, the encoder-decoder ``whisper-medium`` and the
+MoE ``mixtral-8x22b`` and ``kimi-k2-1t-a32b``.  In float32,
+``qwen2.5-32b`` (131 GB), ``mixtral-8x22b`` (563 GB) and
+``kimi-k2-1t-a32b`` (4.1 TB) fit no 80 GB card whole; such a model fails
+where its parameters are allocated, its size in the message (the
+parameters are drawn on the host first, so there); ``--smoke`` serves
+the reduced config.  ``llama-3.2-vision-11b`` (39.1 GB) fits.
 
 Like ``repro``'s launcher, a model with cross attention is given zeros
 as its memory, ``[batch, cross_memory_len, d_model]`` (the vision tower
@@ -46,8 +52,8 @@ from ..kernels import decode_attention as da
 from ..kernels import flash_attention as fa
 from ..kernels import rg_lru
 from ..models import Transformer, forward_with_cache, init_model
-from ..models.transformer import reads_memory
 from ..training import serve_step
+from .inputs import cross_inputs
 
 
 def _sync(dev: torch.device) -> None:
@@ -68,26 +74,6 @@ def make_model(cfg, seed: int, dev: torch.device) -> Transformer:
     with torch.no_grad():
         model.flat.copy_(host.flat)
     return model
-
-
-def _cross_inputs(cfg, batch: int, dev: torch.device, memory, enc_frames):
-    """The prefill's ``memory=`` / ``enc_frames=`` for ``cfg``: the given
-    tensor on ``dev``, or zeros [batch, cross_memory_len, d_model]
-    (``repro``'s launcher); nothing for a model without cross
-    attention."""
-    if not reads_memory(cfg):
-        if memory is not None or enc_frames is not None:
-            raise ValueError(f"{cfg.name} has no cross attention")
-        return {}
-    name, given, other = (("enc_frames", enc_frames, memory)
-                          if cfg.encoder is not None
-                          else ("memory", memory, enc_frames))
-    if other is not None:
-        raise ValueError(f"{cfg.name} takes {name} only")
-    if given is None:
-        given = torch.zeros((batch, cfg.cross_memory_len, cfg.d_model),
-                            dtype=torch.float32, device=dev)
-    return {name: given.to(dev, torch.float32)}
 
 
 def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
@@ -133,7 +119,7 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
                             generator=cpu_gen, dtype=torch.int32)
     tok_gen = torch.Generator(device=dev).manual_seed(seed)
     prompts_d = prompts.to(dev)
-    cross = _cross_inputs(cfg, batch, dev, memory, enc_frames)
+    cross = cross_inputs(cfg, batch, dev, memory, enc_frames)
     total = prompt_len + gen
     if log:
         log(f"arch={cfg.name} device={dev} batch={batch} "

@@ -6,12 +6,19 @@ checkpoint if there is one, and runs the DP-FedAvg train step
 saving every ``--ckpt-every`` steps: the same flags, defaults, training
 configuration and flow as ``repro``'s launcher on one device (float32
 parameters, AdamW -- Adafactor for ``kimi*`` -- and two microbatches
-when the batch is even).  A resumed run runs ``--steps`` more steps from
-the restored one.  ``repro``'s production mesh and its state sharding
+when the batch is even).  A model with cross attention
+(``llama-3.2-vision-11b``, ``whisper-medium``) gets its memory or encoder
+frames beside every batch: zeros, as ``repro``'s serving launcher gives
+(:func:`repro_torch.launch.inputs.cross_inputs`), or the tensor
+:func:`run` is given; ``repro``'s own train launcher feeds such a model
+no memory and cannot train it.  A resumed run runs ``--steps`` more steps
+from the restored one.  ``repro``'s production mesh and its state sharding
 (``--multi-pod``, ``state_pspecs``) are not ported and raise.
 
     PYTHONPATH=src python -m repro_torch.launch.train          # H100, full
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --arch kimi-k2-1t-a32b
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_arch, reduced
 from ..data.pipeline import synth_tokens
 from ..training import DPConfig, TrainConfig, make_state, train_step
+from .inputs import cross_inputs
 
 DEFAULT_CKPT = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
 
@@ -45,9 +53,14 @@ def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,
         seq: int = 128, smoke: bool = False, ckpt: str = DEFAULT_CKPT,
         ckpt_every: int = 10, noise: float = 0.2, clip: float = 1.0,
         device="cuda", multi_pod: bool = False,
-        log: Optional[Callable[[str], None]] = print) -> Dict:
+        log: Optional[Callable[[str], None]] = print,
+        memory: Optional[torch.Tensor] = None,
+        enc_frames: Optional[torch.Tensor] = None) -> Dict:
     """Train ``steps`` steps from the latest checkpoint in ``ckpt`` (or
-    from step 0), saving every ``ckpt_every``.  Returns ``{"cfg", "tcfg",
+    from step 0), saving every ``ckpt_every``.  ``memory`` (a model with
+    cross attention) or ``enc_frames`` (an encoder-decoder), [batch,
+    cross_memory_len, d_model] on any device, go with every batch; without
+    them such a model gets zeros.  Returns ``{"cfg", "tcfg",
     "state", "records", "resumed_from", "checkpoints"}``: one record per
     step (``step``, ``loss``, ``grad_norm_mean``, ``grad_norm_max``,
     ``clip_frac``, ``wall_s``, host clock around a step that ends in a
@@ -63,6 +76,7 @@ def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,
         cfg = reduced(cfg)
     say(f"arch={cfg.name} device={dev} devices=1")
     tcfg = train_config(cfg, batch, noise, clip)
+    cross = cross_inputs(cfg, batch, dev, memory, enc_frames)
     state = make_state(0, cfg, tcfg, device=dev)
     mgr = CheckpointManager(ckpt, keep_n=3, async_save=True)
     restored, at = mgr.restore(state)
@@ -75,6 +89,7 @@ def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,
     for i in range(start, start + steps):
         b = {k: torch.as_tensor(v, device=dev)
              for k, v in synth_tokens(i, batch, seq, cfg.vocab).items()}
+        b.update(cross)
         t0 = time.perf_counter()
         state, m = train_step(state, b, cfg, tcfg)
         rec = {"step": i, **{k: float(v) for k, v in m.items()},

@@ -44,7 +44,10 @@ tensor code (:mod:`repro_torch.models.recurrent`).  All run under
 Where ``repro`` returns a new cache from each decode step, the port
 writes the step's key and value, or the recurrent block's new state,
 into the cache in place (saving a copy of the cache per token) and
-returns the same list.  MoE blocks raise ``NotImplementedError``.
+returns the same list.  A MoE block routes the tokens of the call it is
+in (``transformer._ffn_apply``): the prefill's B*S, a decode step's B
+(capacity ``max(8, ...)``, as in ``repro``), so the two may drop
+different assignments.
 """
 from __future__ import annotations
 

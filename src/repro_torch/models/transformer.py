@@ -6,7 +6,10 @@ xLSTM's ``mlstm`` and ``slstm`` blocks (a norm and the cell, no MLP:
 MLP each scaled by the tanh of a scalar gate (``llama-3.2-vision-11b``);
 and the ``encdec`` decoder block (self attention, cross attention, MLP)
 with its encoder, a stack of non-causal ``attn`` blocks over the frames
-(``whisper-medium``).  MoE blocks are not ported.  Cross attention reads
+(``whisper-medium``).  Where the config marks a block ``use_moe`` (the
+MoE family, ``mixtral-8x22b`` and ``kimi-k2-1t-a32b``), its MLP is a
+mixture of experts (:mod:`repro_torch.models.moe`), plus a shared expert
+where the config has one.  Cross attention reads
 ``memory`` [B, Lm, D] (or the encoder's output): q from the block's
 input, k and v projected from the memory, no RoPE, no mask.
 
@@ -14,11 +17,14 @@ input, k and v projected from the memory, no RoPE, no mask.
 ``lax.scan``; the port keeps them in an ``nn.Module`` -- a ``ModuleList``
 of blocks, in layer order (prefix, body group by group, suffix) -- whose
 ``nn.ParameterDict``s carry ``repro``'s names (``embed.table``,
-``blocks.3.attn.wq``, ``blocks.4.gate_x``, ``final_norm.scale``,
-``lm_head.w``, ``encoder.blocks.0.attn.wq``).  Every parameter is a
-view into one flat float32 buffer, ``model.flat``, so DP code can read,
+``blocks.3.attn.wq``, ``blocks.4.gate_x``, ``blocks.1.moe.w_up``,
+``final_norm.scale``, ``lm_head.w``, ``encoder.blocks.0.attn.wq``).
+Every parameter is a view into one flat float32 buffer, ``model.flat``,
+so DP code can read,
 write and difference a whole model as one vector without copying it
-piecewise.
+piecewise.  The parameters are laid out on the meta device and the
+buffer is the one allocation, so a model that does not fit its device
+fails there, with its size in the message.
 
 ``remat`` trades memory for recompute and leaves values unchanged; at the
 sizes this slice runs (``flaas-100m``, batch 2 x 256 tokens) the port
@@ -54,6 +60,7 @@ from torch import nn
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import moe as M
 from . import recurrent as R
 
 _PORTED_KINDS = ("attn", "swa", "local", "rec", "mlstm", "slstm", "xattn",
@@ -63,11 +70,9 @@ _CROSS = ("xattn", "encdec")     # blocks that read the memory
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    for kind, use_moe in cfg.layer_specs():
-        if kind not in _PORTED_KINDS or use_moe:
-            raise NotImplementedError(
-                f"block {kind!r}{' with MoE' if use_moe else ''} is not "
-                "ported yet (ROADMAP.md, Queue 1)")
+    for kind, _ in cfg.layer_specs():
+        if kind not in _PORTED_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
 
 
 def reads_memory(cfg: ArchConfig) -> bool:
@@ -95,6 +100,24 @@ def _rg_shapes(D: int) -> Dict[str, tuple]:
             "w_out": (D, D)}
 
 
+def _mlp_shapes(cfg: ArchConfig, width: int) -> Dict[str, tuple]:
+    """A dense MLP's leaves in ``repro``'s order (``init_mlp``)."""
+    D = cfg.d_model
+    mlp = {"w_up": (D, width), "w_down": (width, D)}
+    if cfg.act in ("silu", "swiglu"):
+        mlp["w_gate"] = (D, width)
+    return mlp
+
+
+def _moe_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The experts' leaves in ``repro``'s order (``init_moe``)."""
+    D, Fw, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    moe = {"router": (D, E), "w_up": (E, D, Fw), "w_down": (E, Fw, D)}
+    if cfg.act in ("silu", "swiglu"):
+        moe["w_gate"] = (E, D, Fw)
+    return moe
+
+
 def _attn_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     D, H, KH, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.dh
     attn = {"wq": (D, H * dh), "wk": (D, KH * dh), "wv": (D, KH * dh),
@@ -111,14 +134,19 @@ class Block(nn.Module):
     ``slstm``, ``norm1`` and the ``cell`` alone; for ``xattn``,
     ``normx``, ``xattn``, the scalar gates ``gate_x`` and ``gate_m``,
     ``norm2``, ``mlp``; for ``encdec``, ``norm1``, ``attn``, ``normx``,
-    ``xattn``, ``norm2``, ``mlp``.  The gates are the block's own
-    parameters, so they come first in its parameter order (and in
-    ``model.flat``): a module lists its own parameters before its
-    children's."""
+    ``xattn``, ``norm2``, ``mlp``.  A ``use_moe`` block holds ``moe``
+    (``router``, ``w_up``, ``w_down``, ``w_gate``: the experts at the
+    config's ``d_ff``) and, where the config has shared experts,
+    ``shared`` (a dense MLP ``n_shared`` times as wide) in place of
+    ``mlp``; a dense block of a MoE model (kimi's prefix) keeps ``mlp`` at
+    ``dense_ff``.  The gates are the block's own parameters, so they come
+    first in its parameter order (and in ``model.flat``): a module lists
+    its own parameters before its children's."""
 
-    def __init__(self, kind: str, cfg: ArchConfig, device):
+    def __init__(self, kind: str, use_moe: bool, cfg: ArchConfig, device):
         super().__init__()
         self.kind = kind
+        self.use_moe = use_moe
         D, H = cfg.d_model, cfg.n_heads
         if kind != "xattn":
             self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
@@ -126,10 +154,6 @@ class Block(nn.Module):
             shapes = R.mlstm_shapes if kind == "mlstm" else R.slstm_shapes
             self.cell = _pdict(shapes(D, H), device)
             return
-        width = cfg.dense_ff or cfg.d_ff
-        mlp = {"w_up": (D, width), "w_down": (width, D)}
-        if cfg.act in ("silu", "swiglu"):
-            mlp["w_gate"] = (D, width)
         if kind == "rec":
             self.rg = _pdict(_rg_shapes(D), device)
         elif kind != "xattn":
@@ -142,7 +166,14 @@ class Block(nn.Module):
                 setattr(self, gate, nn.Parameter(torch.empty(
                     (), dtype=torch.float32, device=device)))
         self.norm2 = _pdict(_norm_shapes(D, cfg.norm), device)
-        self.mlp = _pdict(mlp, device)
+        if not use_moe:
+            self.mlp = _pdict(_mlp_shapes(cfg, cfg.dense_ff or cfg.d_ff),
+                              device)
+            return
+        self.moe = _pdict(_moe_shapes(cfg), device)
+        if cfg.moe.n_shared:
+            self.shared = _pdict(
+                _mlp_shapes(cfg, cfg.d_ff * cfg.moe.n_shared), device)
 
     def forward(self, h, cfg: ArchConfig, positions, causal: bool = True,
                 memory=None):
@@ -158,7 +189,8 @@ class Encoder(nn.Module):
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         self.blocks = nn.ModuleList(
-            Block("attn", cfg, device) for _ in range(cfg.encoder.n_layers))
+            Block("attn", False, cfg, device)
+            for _ in range(cfg.encoder.n_layers))
         self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), device)
 
 
@@ -198,9 +230,22 @@ def _cross(h, p: Block, cfg: ArchConfig, xattend: CrossAttend):
 
 
 def _ffn_apply(h, p: Block, cfg: ArchConfig):
-    """The block's dense MLP (``repro``'s ``_ffn_apply``; MoE is not
-    ported)."""
-    return L.mlp(h, p.mlp, cfg.act)
+    """The block's MLP (``repro``'s ``_ffn_apply``): the dense MLP, or
+    the experts over this call's B*S tokens in ``moe_dispatch_groups``
+    groups, each with ``moe_capacity`` of its own tokens' slots per
+    expert, plus the shared expert where there is one."""
+    if not p.use_moe:
+        return L.mlp(h, p.mlp, cfg.act)
+    B, S, D = h.shape
+    spec, G = cfg.moe, cfg.moe_dispatch_groups
+    cap = M.moe_capacity(B * S // G, spec.top_k, spec.n_experts,
+                         spec.capacity_factor)
+    out = M.moe_apply(h.reshape(B * S, D), p.moe, top_k=spec.top_k,
+                      capacity=cap, act=cfg.act, n_groups=G
+                      ).reshape(B, S, D)
+    if spec.n_shared:
+        out = out + L.mlp(h, p.shared, cfg.act)
+    return out
 
 
 def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
@@ -336,21 +381,35 @@ class Transformer(nn.Module):
         _check_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = _pdict({"table": (cfg.vocab, cfg.d_model)}, dev)
+        meta = torch.device("meta")     # shapes only: flat is the storage
+        self.embed = _pdict({"table": (cfg.vocab, cfg.d_model)}, meta)
         self.blocks = nn.ModuleList(
-            Block(kind, cfg, dev) for kind, _ in cfg.layer_specs())
-        self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), dev)
+            Block(kind, use_moe, cfg, meta)
+            for kind, use_moe in cfg.layer_specs())
+        self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), meta)
         if not cfg.tie_embeddings:
-            self.lm_head = _pdict({"w": (cfg.d_model, cfg.vocab)}, dev)
+            self.lm_head = _pdict({"w": (cfg.d_model, cfg.vocab)}, meta)
         if cfg.encoder is not None:
-            self.encoder = Encoder(cfg, dev)
-        # re-point every parameter at its slice of one flat buffer
-        params = list(self.parameters())
-        self.flat = torch.empty(sum(p.numel() for p in params),
-                                dtype=torch.float32, device=dev)
+            self.encoder = Encoder(cfg, meta)
+        # every parameter becomes a view of its slice of one flat buffer
+        params = list(self.named_parameters())
+        n = sum(p.numel() for _, p in params)
+        try:
+            self.flat = torch.empty(n, dtype=torch.float32, device=dev)
+        except RuntimeError as e:           # torch.OutOfMemoryError too
+            raise MemoryError(
+                f"{cfg.name} ({cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}): its flat float32 buffer [{n}] "
+                f"({n * 4 / 1e9:.1f} GB) does not fit on {dev}: {e}") from e
         off = 0
-        for p in params:
-            p.data = self.flat[off:off + p.numel()].view_as(p)
+        for name, p in params:
+            owner, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(owner)
+            view = nn.Parameter(self.flat[off:off + p.numel()].view(p.shape))
+            if isinstance(owner, nn.ParameterDict):
+                owner[leaf] = view
+            else:
+                setattr(owner, leaf, view)
             off += p.numel()
 
     def forward(self, tokens, memory=None, enc_frames=None):
@@ -393,9 +452,10 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     ``lambda`` griffin's: ``log(u^(1/8) / (1 - u^(1/8)))`` for ``u ~
     U(0.9, 0.999)``, so that ``sigmoid(lambda)^8`` lies in (0.9, 0.999);
     the mLSTM's forget bias ``b_f`` three (open forget gates), the sLSTM's
-    recurrent ``r`` [H, dh, 4 dh] ``0.3 N(0, 1/H)`` (``repro`` takes the
-    leading axis as the fan-in).  (``repro`` draws from ``jax.random``; the values differ,
-    the distribution does not.)"""
+    recurrent ``r`` [H, dh, 4 dh] ``0.3 N(0, 1/H)`` and the experts'
+    banks [E, D, F] / [E, F, D] ``N(0, 1/E)`` (``repro`` takes the
+    leading axis as the fan-in).  (``repro`` draws from ``jax.random``;
+    the values differ, the distribution does not.)"""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.flat.device).manual_seed(seed)
     for name, p in model.named_parameters():

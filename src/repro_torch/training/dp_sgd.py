@@ -7,7 +7,8 @@
   Hopper kernels on the card, their twins on the CPU.
 * ``microbatch`` mode -- FL client/cohort-level clipping: the batch is
   split into ``n_micro`` slices, each slice's mean gradient is clipped as
-  a unit (DP-FedAvg semantics) and accumulated (memory: 2x grads, not B x).
+  a unit (DP-FedAvg semantics) and accumulated in place (memory: 2x
+  grads, not B x).
 
 Noise is added once after aggregation: std = sigma * clip / n_units, drawn
 from a ``torch.Generator`` on the gradients' device.
@@ -65,7 +66,9 @@ def dp_gradients(
     metrics).
 
     batch leaves have leading dim B; it is split into n_micro slices
-    (microbatch mode) or B per-example units (example mode).
+    (microbatch mode) or B per-example units (example mode), every leaf
+    alike: a model's memory or encoder frames travel with their tokens,
+    an example's as a batch of one (``repro`` vmaps ``x[None]``).
     """
     weights = list(params.parameters())
     B = next(iter(batch.values())).shape[0]
@@ -92,8 +95,13 @@ def dp_gradients(
         for i in range(n_micro):
             loss = loss_fn(params, _slice(batch, i * m, (i + 1) * m))
             grads = torch.autograd.grad(loss, weights)
-            g, n = clip_by_global_norm(dict(zip(gsum, grads)), clip)
-            gsum = {k: gsum[k] + g[k] for k in gsum}
+            # clip_by_global_norm's values, added leaf by leaf in place:
+            # one leaf's clipped copy at a time, not the whole tree's
+            n = global_norm(dict(zip(gsum, grads)))
+            scale = clip_scales(n, clip)
+            for acc, g in zip(gsum.values(), grads):
+                acc.add_(g.float() * scale)
+            del grads
             norms.append(n)
             losses.append(loss.detach())
         norms = torch.stack(norms)
@@ -101,7 +109,9 @@ def dp_gradients(
     else:
         raise ValueError(f"unknown DP mode {mode!r}")
 
-    gmean = {k: g / n_units for k, g in gsum.items()}
+    for g in gsum.values():           # the mean in place: one tree, not two
+        g.div_(n_units)
+    gmean = gsum
     if noise_multiplier > 0.0:
         gmean = add_noise(gmean, generator, noise_multiplier * clip / n_units)
     losses = torch.stack(losses)

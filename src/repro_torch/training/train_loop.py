@@ -56,14 +56,10 @@ def make_state(seed: int, cfg: ArchConfig, tcfg: TrainConfig,
     """Parameters from :func:`repro_torch.models.init_model` (seeded
     ``torch.Generator``), the optimizer's state, the step count and the
     seed.  ``device`` defaults to CUDA and raises without it.  Only
-    ``param_dtype="float32"`` is in this slice, and only models without
-    cross attention: training an ``xattn`` or encoder-decoder model needs
-    its memory through ``train_step``."""
-    if cfg.cross_memory_len or cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training a model with cross attention or an "
-            "encoder (memory through train_step, per-example memory in DP "
-            "example mode) is not ported yet (ROADMAP.md, Queue 1)")
+    ``param_dtype="float32"`` is in this slice.  A model with cross
+    attention trains on batches that carry its ``memory`` (or an
+    encoder-decoder's ``enc_frames``), [B, L, d_model] beside the
+    tokens."""
     if tcfg.param_dtype != "float32":
         raise NotImplementedError(
             f"param_dtype {tcfg.param_dtype!r}: the port trains float32 "
@@ -79,10 +75,14 @@ def make_state(seed: int, cfg: ArchConfig, tcfg: TrainConfig,
 def make_loss_fn(cfg: ArchConfig, remat: bool = True):
     """``loss_fn(params, batch)``: mean token cross-entropy of the model
     on ``batch["tokens"]`` against ``batch["labels"]`` (optional
-    ``batch["mask"]``).  ``remat`` is accepted and ignored (module
-    docstring of :mod:`repro_torch.models.transformer`)."""
+    ``batch["mask"]``), reading ``batch["memory"]`` or
+    ``batch["enc_frames"]`` where the model cross-attends.  ``remat`` is
+    accepted and ignored (module docstring of
+    :mod:`repro_torch.models.transformer`)."""
     def loss_fn(params, batch):
-        logits = forward(params, batch["tokens"], cfg)
+        logits = forward(params, batch["tokens"], cfg,
+                         memory=batch.get("memory"),
+                         enc_frames=batch.get("enc_frames"))
         return lm_loss(logits, batch["labels"], batch.get("mask"))
     return loss_fn
 

@@ -114,11 +114,16 @@ def test_configs_equal_repros(name):
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
-def test_the_other_configs_raise(name):
-    jget_arch(name)                      # repro knows them
-    with pytest.raises(NotImplementedError):
-        get_arch(name)
-    assert name not in ARCHS
+def test_the_other_configs_equal_repros(name):
+    """The last two of repro's configs, and repro's registry whole: the
+    port knows every architecture repro knows, each equal to repro's."""
+    assert dataclasses.asdict(get_arch(name)) == \
+        dataclasses.asdict(jget_arch(name))
+    from repro.configs import ARCHS as JARCHS
+    assert sorted(ARCHS) == sorted(JARCHS)
+    for n in JARCHS:
+        assert dataclasses.asdict(get_arch(n)) == \
+            dataclasses.asdict(jget_arch(n))
 
 
 @pytest.mark.parametrize("name", sorted(PARAMS))

@@ -191,10 +191,20 @@ def test_full_flaas_100m_parameter_count():
     assert len(model.blocks) == 12
 
 
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        get_arch("mixtral-8x22b")
-    for pattern in ((("attn", True),),):
-        cfg = dataclasses.replace(SMALL, pattern=pattern)
-        with pytest.raises(NotImplementedError):
-            Transformer(cfg, device="cpu")
+def test_moe_configs_build():
+    """``get_arch`` knows the MoE configs; a MoE block builds with the
+    experts' leaves, forwards and trains (its gradient reaches them), and
+    an unknown block kind is refused."""
+    assert get_arch("mixtral-8x22b").moe.n_experts == 8
+    from repro_torch.configs import MoESpec
+    cfg = dataclasses.replace(SMALL, pattern=(("attn", True),),
+                              moe=MoESpec(n_experts=4, top_k=2))
+    model = init_model(cfg, 0, device="cpu")
+    tok = torch.zeros((2, 5), dtype=torch.int64)
+    loss = lm_loss(forward(model, tok, cfg), tok)
+    loss.backward()
+    assert model.blocks[0].moe["w_up"].grad.abs().max() > 0
+    assert not hasattr(model.blocks[0], "mlp")
+    with pytest.raises(ValueError, match="kind"):
+        Transformer(dataclasses.replace(SMALL, pattern=(("moe", False),)),
+                    device="meta")

@@ -111,7 +111,7 @@ def test_rec_block_at_full_width_matches_repro():
     cfg = get_arch("recurrentgemma-2b")
     jp = jax.device_get(JT.init_block(jax.random.PRNGKey(0), "rec", False,
                                       jcfg, jnp.float32))
-    blk = Block("rec", cfg, "cpu")
+    blk = Block("rec", False, cfg, "cpu")
     with torch.no_grad():
         for name, t in blk.named_parameters():
             mod, leaf = name.split(".")

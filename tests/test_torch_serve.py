@@ -256,16 +256,28 @@ def test_serve_draws_the_same_model_and_prompts_on_every_device():
     assert meta.flat.device.type == "meta"
 
 
-@pytest.mark.parametrize("kind", ["moe"])
-def test_unported_kinds_raise(kind):
-    """MoE blocks, the one block kind left unported, raise."""
-    pattern = (("attn", True),)
-    cfg = dataclasses.replace(CONFIGS["flaas-smoke"], pattern=pattern)
-    for call in (lambda: init_cache(None, cfg, 1, 8),
-                 lambda: forward_with_cache(None, torch.zeros(1, 4), cfg, 8),
-                 lambda: decode_step(None, torch.zeros(1, 1), [], 4, cfg)):
-        with pytest.raises(NotImplementedError):
-            call()
+@pytest.mark.parametrize("kind", ["attn", "swa"])
+def test_moe_blocks_build_and_serve(monkeypatch, kind):
+    """The reduced flaas-100m with MoE blocks (4 experts, top 2) builds,
+    caches and serves on the CPU through the same attention twins, one
+    flash call per layer and one decode call per layer a step."""
+    from repro_torch.configs import MoESpec
+    cfg = dataclasses.replace(
+        CONFIGS["flaas-smoke"], pattern=((kind, True),), window=8,
+        moe=MoESpec(n_experts=4, top_k=2))
+    model = init_model(cfg, 0, device="cpu")
+    assert all(blk.use_moe and "w_up" in blk.moe for blk in model.blocks)
+    cache = init_cache(model, cfg, 2, 8)
+    assert set(cache[0]) == {"k", "v"}
+    logits, cache = forward_with_cache(model, torch.zeros(2, 4), cfg, 8)
+    logits, _ = decode_step(model, torch.zeros(2, 1), cache, 4, cfg)
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    calls = _count_twins(monkeypatch)
+    rec = serve.run(model=model, batch=2, prompt_len=4, gen=3, log=None)
+    assert rec["tokens"].shape == (2, 3)
+    n = cfg.n_layers
+    assert calls == {"flash_attention": n, "decode_attention": 2 * n}
 
 
 @pytest.mark.parametrize("kind", ["xattn", "encdec"])

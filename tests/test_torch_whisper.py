@@ -2,8 +2,8 @@
 embeddings and ``encdec`` decoder blocks (self attention, cross attention
 to the encoder's output, MLP) -- on the port's serving and
 training-forward paths against ``repro`` on the CPU; its config equal to
-``repro``'s; its full parameter count; training of the cross-attention
-configs refused.
+``repro``'s; its full parameter count.  Training it:
+``test_torch_cross_train``.
 
 Models: ``configs.reduced`` (2 decoder and 2 encoder layers, d=64, 4
 heads over 4 kv heads, dh 16, 16 frames; layernorm, gelu, QKV biases)
@@ -24,12 +24,11 @@ import torch
 
 from repro_torch.configs import ARCHS, get_arch, reduced
 from repro_torch.launch import serve
-from repro_torch.launch import train as train_launch
 from repro_torch.models import (Transformer, decode_step, forward,
-                                forward_with_cache, init_cache, init_model,
-                                lm_loss, params_from_jax)
+                                forward_with_cache, init_cache, lm_loss,
+                                params_from_jax)
 from repro_torch.models.transformer import encode
-from repro_torch.training import TrainConfig, make_state, serve_step
+from repro_torch.training import serve_step
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -262,17 +261,3 @@ def test_serve_run_feeds_the_frames(setup):
     assert float(gap) > 1e-3
     with pytest.raises(ValueError):
         serve.run(model=model, gen=2, memory=frames, log=None)
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", ARCH])
-def test_training_the_cross_attention_configs_is_refused(arch):
-    """``make_state`` and ``launch/train.py`` refuse a config with cross
-    attention or an encoder (ROADMAP.md, Queue 1) before drawing
-    anything."""
-    cfg = reduced(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        make_state(0, cfg, TrainConfig(param_dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        train_launch.run(arch=arch, smoke=True, steps=1, device="cpu",
-                         log=None)
-    init_model(cfg, 0, device="cpu")          # the model itself builds
