@@ -289,12 +289,41 @@ Phases (each raises on failure; nothing is caught):
      whisper (each example with its own frames; rownorms and
      clip_accumulate launched once each); reduced mixtral-8x22b two steps
      and reduced kimi-k2-1t-a32b through launch/train.run (Adafactor), each
-     with one microbatch's gradients card vs CPU.
+     with one microbatch's gradients card vs CPU;
+ 32. both attention kernels on bfloat16 operands (att_flash_bf16,
+     att_flash_wide_bf16, att_decode_bf16) against their twins fed the
+     same bfloat16 inputs at every config's heads (_config_heads: each
+     attention config's serve prompt and 48-slot decode, the cross
+     configs' memory, qwen2.5-32b's and recurrentgemma-2b's long serves):
+     every output within one bfloat16 ulp of the twin's plus ATT_TOL,
+     bitwise from launch to launch; times beside the twin's, the bound
+     (bfloat16 bytes; operations at the bfloat16 tensor-core peak) and
+     SDPA in bfloat16;
+ 33. serving in bfloat16 (BF16_SERVE): qwen2.5-32b whole (64 layers,
+     65.5 GB, drawn on the card) at the launcher's defaults and at B=4 x
+     2048, starcoder2-15b and recurrentgemma-2b whole at the defaults,
+     each with exactly its launches, prefill ms, decode ms/step, tok/s and
+     peak memory, qwen2.5-32b's busy shares; each cut (1 layer, one
+     group) drawn by the CPU worker and served on the card, held to the
+     worker's bfloat16 serve within BF16_FACTOR x d (d: the worker's
+     bfloat16 run from its float32 run on the same values, under
+     BF16_VACUOUS of max|logit|), greedy tokens as in phase 12;
+ 34. training in bfloat16 with a float32 master at launch/train.py's
+     configuration (BF16_TRAIN): qwen2.5-3b at 2 layers and
+     recurrentgemma-2b at 3, two steps each (losses finite, exact scan
+     launches, parameters the masters rounded once, ms per step, peak
+     memory), one microbatch's gradients of the worker's cut card vs CPU
+     within BF16_FACTOR x d plus half a bfloat16 ulp of the largest |g|;
+     launch/train.run(param_dtype="bfloat16") on flaas-100m resumed from
+     its first checkpoint, bitwise the uninterrupted run.
 
-float32 matrix products run in full float32 (TF32 off, set and printed).
-The CPU references of phases 4, 8, 17, 20 and 22 (seeded episodes,
-services, an FL round and a training step) run in one spawned worker
-process, started beside the build, while the card phases run.
+float32 matrix products run in full float32 (TF32 off, set and printed);
+bfloat16 products accumulate in float32 and round once
+(allow_bf16_reduced_precision_reduction off, set and printed).
+The CPU references of phases 4, 8, 17, 20, 22, 33 and 34 (seeded
+episodes, services, an FL round, a training step, the bfloat16 cuts'
+serves and gradients) run in one spawned worker process, started beside
+the build, while the card phases run.
 The second-to-last lines are a JSON object listing the kernels and the
 card's name and power limit; the last line is the run's verdict as JSON.
 Exits nonzero without CUDA or outside a checkout of the repository.
@@ -323,6 +352,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12        # H100 SXM published fp32 (non-tensor) rate
+BF16_FLOP_PER_S = 989e12       # H100 SXM published dense bf16 tensor rate
 SOURCE = "src/repro_torch/kernels/csrc/budget_alloc.cu"
 DP_SOURCE = "src/repro_torch/kernels/csrc/dp_clip_noise.cu"
 DP_REPLACES = {
@@ -617,6 +647,33 @@ PROD = ("prod", 1024, 131072)
 # results as on eight, on a CPU box)
 CPU_REF_THREADS = 3
 _CPU_REFS = {}                 # key -> the worker's pending result
+# phases 32-34: bfloat16 parameters.  Kernel cases at every config's heads
+# (CONFIG_HEADS below: each attention config's serve prompt B=4 S=32 and
+# its decode at the serve defaults' 48-slot cache, 33 valid; the cross
+# configs' memory; qwen2.5-32b's and recurrentgemma-2b's long serves).
+# Served whole in bfloat16 (name, cut for card vs CPU, long serve):
+# qwen2.5-32b (65.5 GB) at the defaults and B=4 x 2048, starcoder2-15b
+# (31.9 GB) and recurrentgemma-2b (6.1 GB) at the defaults; each cut
+# model is drawn on the CPU from BF16_SEED by the worker, which serves it
+# in bfloat16 and, for the bound, in float32 on the same values
+BF16_SERVE = (("qwen2.5-32b", 1, True), ("starcoder2-15b", 1, False),
+              ("recurrentgemma-2b", 3, False))
+P_BF16 = {"qwen2.5-32b": 32_763_876_352, "starcoder2-15b": 15_956_414_464,
+          "recurrentgemma-2b": P_RG2B}
+BF16_SEED = 7
+# the CPU tests' bound (tests/test_torch_bf16.py): the card within FACTOR
+# x d of the CPU's bfloat16 run, d its distance from the CPU's float32 run
+# on the same values, itself under VACUOUS of max|logit|; gradients plus
+# half a bfloat16 ulp of the largest (tests/test_torch_bf16_train.py)
+BF16_FACTOR, BF16_VACUOUS, BF16_HALF_ULP = 2.0, 5e-2, 2.0 ** -9
+# training in bfloat16 at the launcher's configuration (B=8 x 128, two
+# microbatches, noise 0.2), two steps, full width: (name, layers); one
+# microbatch of BF16_MB (rows, tokens) card vs CPU on a cut drawn by the
+# worker; and launch/train.run(param_dtype="bfloat16") on flaas-100m
+# resumed from its first checkpoint, bitwise
+BF16_TRAIN = (("qwen2.5-3b", 2), ("recurrentgemma-2b", 3))
+BF16_MB = (2, 64)
+BF16_LAUNCH_STEPS = 4
 
 
 T_START = time.perf_counter()
@@ -651,8 +708,8 @@ def time_ms(fn, reps: int, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -677,8 +734,9 @@ def _cpu_ref_keys():
     order they are needed: ``("episode", SchedulerConfig overrides,
     scheduler or None)`` on the paper episode, ``("fl_round",)`` (phase
     8's round), ``("service", scheduler, warm SP1, ticks)`` at
-    SERVICE_GEOMETRY and ``("train_step",)`` (phase 22's step without
-    noise)."""
+    SERVICE_GEOMETRY, ``("train_step",)`` (phase 22's step without
+    noise), and phases 33-34's bfloat16 cuts, ``("bf16_serve", name,
+    layers)`` and ``("bf16_grads", name, layers)``."""
     names = tuple(PATH_KERNELS)
     return ([("episode", (("sp1_warm_start", w),), None)
              for w in (False, True)] + [("fl_round",)] +
@@ -686,7 +744,9 @@ def _cpu_ref_keys():
              for n in names] +
             [("service", "dpbalance", True, SERVICE_CPU_TICKS),
              ("service", "dpf", False, SERVICE_CPU_TICKS),
-             ("train_step",)])
+             ("train_step",)] +
+            [("bf16_serve", n, nl) for n, nl, _ in BF16_SERVE] +
+            [("bf16_grads", n, nl) for n, nl in BF16_TRAIN])
 
 
 def _fl_model():
@@ -733,12 +793,75 @@ def _quiet_step_state(device):
     return cfg, quiet, dev
 
 
+def _bf16_cut(name, n_layers):
+    """Phases 33-34's cut: ``name`` at full width, ``n_layers`` layers,
+    bfloat16, drawn on the CPU from BF16_SEED."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(get_arch(name), n_layers=n_layers)
+    return cfg, init_model(cfg, BF16_SEED, device="cpu",
+                           dtype=torch.bfloat16)
+
+
+def _as_float32(model):
+    """A float32 model on the same device holding ``model``'s values."""
+    from repro_torch.models import Transformer
+    out = Transformer(model.cfg, device=model.device)
+    with torch.no_grad():
+        for p, q in zip(out.parameters(), model.parameters()):
+            p.copy_(q)
+    return out
+
+
+def _flats_to_files(model):
+    """Each dtype buffer of ``model`` to a file (bfloat16 as its bits)."""
+    return {str(dt): _to_file(buf.view(torch.int16) if dt == torch.bfloat16
+                              else buf) for dt, buf in model.flats.items()}
+
+
+def _flats_from_files(model, paths):
+    with torch.no_grad():
+        for dt, buf in model.flats.items():
+            t = _from_file(paths[str(dt)])
+            buf.copy_(t.view(torch.bfloat16) if dt == torch.bfloat16 else t)
+
+
+def _flat_grads(model, mb):
+    """The loss's gradients on ``mb`` as one float32 vector (each leaf
+    cast exactly)."""
+    from repro_torch.training import make_loss_fn
+    bb = {k: v.to(model.device) for k, v in mb.items()}
+    g = torch.autograd.grad(make_loss_fn(model.cfg)(model, bb),
+                            list(model.parameters()))
+    return torch.cat([x.reshape(-1).float() for x in g]).cpu()
+
+
+def _logits_files(run):
+    return {part: _to_file(x) for part, x in run["logits"].items()}
+
+
 def _cpu_reference(key):
     """One CPU reference run (a key of ``_cpu_ref_keys``): ``(result,
     host seconds)``; an episode's outputs, or a service's ``_run_ticks``
     to its last tick."""
     t0 = time.perf_counter()
-    if key[0] == "fl_round":
+    if key[0] == "bf16_serve":
+        # the cut served in bfloat16 (greedy), then in float32 on the same
+        # values fed the bfloat16 run's tokens: d, the bound's measure
+        from repro_torch.launch import serve
+        _, host = _bf16_cut(key[1], key[2])
+        b = serve.run(model=host, gen=16, keep_logits=True, log=None)
+        f = serve.run(model=_as_float32(host), gen=16, feed=b["tokens"],
+                      keep_logits=True, log=None)
+        out = (_flats_to_files(host),
+               {"prompts": b["prompts"], "tokens": b["tokens"],
+                "logits": _logits_files(b)}, _logits_files(f))
+    elif key[0] == "bf16_grads":
+        cfg, host = _bf16_cut(key[1], key[2])
+        mb = _batch_on(cfg, 0, *BF16_MB, "cpu")
+        out = (_flats_to_files(host), _to_file(_flat_grads(host, mb)),
+               _to_file(_flat_grads(_as_float32(host), mb)))
+    elif key[0] == "fl_round":
         cfg, host = _fl_model()
         m, _ = _fl_round_on(host, cfg, "cpu")
         out = (m, _to_file(host.flat))
@@ -825,10 +948,15 @@ def phase_device():
     assert cap == (9, 0), f"needs a Hopper card (sm_90), got {cap}"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products accumulate in float32 and round once, as XLA's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32 = "
-        f"{torch.backends.cudnn.allow_tf32}")
+        f"{torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction"
+        f" = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return name, smi
 
 
@@ -1850,6 +1978,30 @@ def _att_check(name, got, again, want) -> float:
     return err
 
 
+def _bf16_ulp(x):
+    """One bfloat16 ulp at each element of ``x`` (8 significant bits)."""
+    a = x.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _att_check_bf16(name, got, again, want) -> float:
+    """Raise unless the bfloat16 kernel is bitwise stable and every output
+    within one bfloat16 ulp of its twin's (fed the same bfloat16 inputs),
+    plus ATT_TOL (1 + |want|): the float32 sums before the one rounding
+    differ in order.  Returns the max absolute error."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: not bitwise stable from launch to "
+                             "launch")
+    assert got.dtype == want.dtype == torch.bfloat16, (got.dtype, want.dtype)
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    bound = _bf16_ulp(want) + ATT_TOL * (1 + want.double().abs())
+    if not bool(torch.all(diff <= bound)):
+        raise AssertionError(f"{name}: kernel disagrees with its twin (max "
+                             f"abs err {err:.3e})")
+    return err
+
+
 def _pairs(S, causal, window) -> int:
     """(query, key) pairs the masks keep."""
     q = np.arange(S, dtype=np.int64)
@@ -1863,11 +2015,18 @@ def _repeat_kv(x, G):
     return x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
 
 
-def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
+def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=(),
+                     dtype=torch.float32):
     """Both attention kernels against their twins at ``heads`` (query
     heads, kv heads, dh) on the given cases, with times; each case's
     numbers go to ``rows[kernel]["by_shape"][label]``, and those of the
-    labels in ``top`` to ``rows[kernel]`` as well."""
+    labels in ``top`` to ``rows[kernel]`` as well.  In ``dtype`` bfloat16
+    the inputs are float32 draws rounded, the check one bfloat16 ulp
+    (``_att_check_bf16``), the bound's bytes two a value and its
+    operations at the bfloat16 tensor-core peak, SDPA fed bfloat16 too."""
+    bf16 = dtype == torch.bfloat16
+    att_check = _att_check_bf16 if bf16 else _att_check
+    esize, peak = (2, BF16_FLOP_PER_S) if bf16 else (4, FP32_FLOP_PER_S)
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1881,7 +2040,7 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
         ms = time_ms(run, reps)
         plain = time_ms(twin, max(1, reps // 10), 3)
         lib_ms = time_ms(lib, reps)
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(nbytes, flops, peak)
         log(f"  {kname:16s} {shape}: max_abs_err {err:.3e}  kernel "
             f"{ms:.4f} ms  twin {plain:.4f} ms  sdpa (kv repeated) "
             f"{lib_ms:.4f} ms  bound {b:.6f} ms ({by}, {card})")
@@ -1895,17 +2054,19 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
 
     for label, B, S, causal, window, *cross in flash_cases:
         Skv = cross[0] if cross else S        # keys: S, or a memory's rows
-        q = torch.randn((B, S, H, dh), generator=gen, device="cuda")
-        k = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda")
-        v = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda")
+        q = torch.randn((B, S, H, dh), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda").to(
+            dtype)
+        v = torch.randn((B, Skv, KH, dh), generator=gen, device="cuda").to(
+            dtype)
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         again = fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} S={S}"
                  f"{f' Skv={Skv}' if cross else ''} causal={causal} "
-                 f"window={window} ({label})")
-        err = _att_check("flash_attention " + shape, got, again, want)
+                 f"window={window}{' bf16' if bf16 else ''} ({label})")
+        err = att_check("flash_attention " + shape, got, again, want)
         log(f"  flash_attention  {shape}: launched "
             f"{fa.LAST_ENTRY['flash_attention']}, "
             f"{H * B * -(-S // fa.BQ)} blocks of {fa.BQ} query rows")
@@ -1926,20 +2087,23 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
                                                window=window),
                lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window),
-               lib, 4 * (2 * B * S * H * dh + 2 * B * Skv * KH * dh),
+               lib, esize * (2 * B * S * H * dh + 2 * B * Skv * KH * dh),
                4 * dh * pairs * B * H, 20)
         del q, k, v, qt, kr, vr
         torch.cuda.empty_cache()
 
     for label, B, Lc, n in decode_cases:
-        q = torch.randn((B, H, dh), generator=gen, device="cuda")
-        k = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
-        v = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda")
+        q = torch.randn((B, H, dh), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda").to(
+            dtype)
+        v = torch.randn((B, Lc, KH, dh), generator=gen, device="cuda").to(
+            dtype)
         got = da.decode_attention_cuda(q, k, v, n)
         again = da.decode_attention_cuda(q, k, v, n)
         want = ref.decode_attention_ref(q, k, v, n)
-        shape = f"H/KH/dh={H}/{KH}/{dh} B={B} Lc={Lc} cache_len={n} ({label})"
-        err = _att_check("decode_attention " + shape, got, again, want)
+        shape = (f"H/KH/dh={H}/{KH}/{dh} B={B} Lc={Lc} cache_len={n}"
+                 f"{' bf16' if bf16 else ''} ({label})")
+        err = att_check("decode_attention " + shape, got, again, want)
         split, nsplit, blocks, res = da.LAST_GRID["decode_attention"]
         log(f"  decode_attention {shape}: split {split}, nsplit {nsplit}, "
             f"blocks {blocks}, resident blocks per SM {res}")
@@ -1949,7 +2113,7 @@ def _attention_cases(card, heads, flash_cases, decode_cases, rows, top=()):
                lambda: da.decode_attention_cuda(q, k, v, n),
                lambda: ref.decode_attention_ref(q, k, v, n),
                lambda: sdpa(q4, kr, vr),
-               4 * (2 * B * H * dh + 2 * B * n * KH * dh),
+               esize * (2 * B * H * dh + 2 * B * n * KH * dh),
                4 * B * H * dh * n, 20)
         del q, k, v, kr, vr
         torch.cuda.empty_cache()
@@ -1987,18 +2151,19 @@ def _reset_launches():
         mod.reset_launches()
 
 
-def _card_vs_cpu(card, host, forced, gen):
+def _card_vs_cpu(card, host, forced, gen, abs_bound=None):
     """Hold a card serve to the CPU's on the same model and prompts:
     prefill logits (``card``) and teacher-forced decode logits
-    (``forced``) within RTOL_SERVE of the largest |logit|, greedy tokens
-    equal wherever the CPU's top-two gap exceeds that.  Returns ``(errs,
-    near-ties, bound)``."""
+    (``forced``) within RTOL_SERVE of the largest |logit| (or within
+    ``abs_bound``), greedy tokens equal wherever the CPU's top-two gap
+    exceeds that.  Returns ``(errs, near-ties, bound)``."""
     assert torch.equal(card["prompts"], host["prompts"])
     errs = {}
     for part, run in (("prefill", card), ("decode", forced)):
         got, want = run["logits"][part], host["logits"][part]
         assert bool(torch.isfinite(got).all()) and got.shape == want.shape
-        bound = RTOL_SERVE * float(want.abs().max())
+        bound = RTOL_SERVE * float(want.abs().max()) if abs_bound is None \
+            else abs_bound
         errs[part] = float((got.double() - want.double()).abs().max())
         assert errs[part] <= bound, (part, errs[part], bound)
     # the logits that chose token t: the prefill's last position, then the
@@ -2006,7 +2171,8 @@ def _card_vs_cpu(card, host, forced, gen):
     # within the bound
     chooser = torch.cat([host["logits"]["prefill"][:, -1:],
                          host["logits"]["decode"]], dim=1)
-    bound = RTOL_SERVE * float(chooser.abs().max())
+    bound = RTOL_SERVE * float(chooser.abs().max()) if abs_bound is None \
+        else abs_bound
     gap = _top2_gap(chooser)
     ties = []
     for name, run in (("forced", forced), ("free", card)):
@@ -3247,9 +3413,13 @@ def _scan_bwd_cases(card):
 
 
 def _states_bitwise(label, a, b):
-    """Raise unless two training states hold equal parameters, optimizer
-    leaves and step."""
-    assert torch.equal(a["params"].flat, b["params"].flat), label
+    """Raise unless two training states hold equal parameters (bit for
+    bit, each dtype's buffer), optimizer leaves and step."""
+    for dt, buf in a["params"].flats.items():
+        other = b["params"].flats[dt]
+        if dt == torch.bfloat16:
+            buf, other = buf.view(torch.int16), other.view(torch.int16)
+        assert torch.equal(buf, other), (label, dt)
     for part in ("m", "v", "master"):
         for k, t in a["opt"][part].items():
             assert torch.equal(t, b["opt"][part][k]), (label, part, k)
@@ -3530,7 +3700,7 @@ def _cut_model(model, n_layers, device, enc_layers=None):
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
     if enc_layers is not None:
         cfg = dataclasses.replace(cfg, encoder=EncoderSpec(enc_layers))
-    out = Transformer(cfg, device=device)
+    out = Transformer(cfg, device=device, dtype=model.dtype)
     src = dict(model.named_parameters())
     with torch.no_grad():
         for name, p in out.named_parameters():
@@ -4420,6 +4590,248 @@ def phase_train_cross_moe():
     log(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _config_heads():
+    """Every config with attention: (label, (H, KH, dh), flash cases,
+    decode cases) -- phase 32's bfloat16 kernel cases."""
+    from repro_torch.configs import ARCHS, get_arch
+    out = []
+    for name in sorted(ARCHS):
+        cfg = get_arch(name)
+        kinds = {k for k, _ in cfg.layer_specs()}
+        if not kinds & {"attn", "swa", "local", "xattn", "encdec"}:
+            continue                      # xlstm-125m: no attention
+        win = cfg.window if kinds & {"swa", "local"} else None
+        short = "bf16-" + name
+        flash = [(f"{short}-serve", 4, 32, True, win)]
+        decode = [(f"{short}-serve-33", 4, 48, 33)]
+        if cfg.cross_memory_len:
+            M = cfg.cross_memory_len
+            flash.append((f"{short}-x{M}", 4, 32, False, None, M))
+            decode.append((f"{short}-x{M}", 4, M, M))
+        if name in ("qwen2.5-32b", "recurrentgemma-2b"):   # long serves
+            flash.append((f"{short}-2k", 4, 2048, True, win))
+            decode.append((f"{short}-long", 4, 2112, 2080) if win is None
+                          else (f"{short}-long", 4, 2048, 2048))
+        out.append((name, (cfg.n_heads, cfg.kv_heads, cfg.dh), flash,
+                    decode))
+    return out
+
+
+def phase_bf16_attention(card, att_rows):
+    log("[32] attention kernels on bfloat16 operands at every config's "
+        "heads")
+    from repro_torch.kernels import decode_attention as da
+    t0 = time.perf_counter()
+    for name, heads, flash, decode in _config_heads():
+        G = heads[0] // heads[1]
+        log(f"  {name}: {heads[0]} query heads over {heads[1]} kv heads, dh "
+            f"{heads[2]}; bfloat16 resident split blocks per SM "
+            f"{da.resident_blocks(heads[2], G, True)} (float32 "
+            f"{da.resident_blocks(heads[2], G)})")
+        _attention_cases(card, heads, flash, decode, att_rows,
+                         dtype=torch.bfloat16)
+    log(f"  phase 32 took {time.perf_counter() - t0:.1f} s")
+
+
+def _bf16_expect(cfg, gen):
+    kinds = [k for k, _ in cfg.layer_specs()]
+    n_att = len(kinds) - kinds.count("rec")
+    return {"flash_attention": n_att, "decode_attention": n_att * (gen - 1),
+            "rglru_scan": kinds.count("rec") * gen}
+
+
+def _bf16_card_vs_cpu(name, nl, gen=16):
+    """Phase 33: the worker's bfloat16 cut of ``name`` served on the card,
+    held to the CPU's bfloat16 serve within BF16_FACTOR x d."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    (paths, host, f32), host_s = cpu_ref(("bf16_serve", name, nl))
+    host["logits"] = {k: _from_file(v) for k, v in host["logits"].items()}
+    f32 = {k: _from_file(v) for k, v in f32.items()}
+    cfg = dataclasses.replace(get_arch(name), n_layers=nl)
+    card_m = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
+    _flats_from_files(card_m, paths)
+    _reset_launches()
+    card = serve.run(model=card_m, gen=gen, keep_logits=True, log=None)
+    assert card["launches"] == _bf16_expect(cfg, gen), card["launches"]
+    forced = serve.run(model=card_m, gen=gen, feed=host["tokens"],
+                       keep_logits=True, log=None)
+    d = max(float((host["logits"][p].double() - f32[p].double()).abs()
+                  .max()) for p in f32)
+    scale = max(float(f32[p].abs().max()) for p in f32)
+    assert 0 < d < BF16_VACUOUS * scale, (name, d, scale)
+    errs, ties, bound = _card_vs_cpu(card, host, forced, gen,
+                                     abs_bound=BF16_FACTOR * d)
+    log(f"  {name} at {nl} layers ({card_m.n_params} parameters, "
+        f"bfloat16) card vs CPU: prefill logits max err "
+        f"{errs['prefill']:.3e}, teacher-forced decode logits max err "
+        f"{errs['decode']:.3e} (bound {BF16_FACTOR} x d = {bound:.3e}, d = "
+        f"the CPU's bfloat16 run from its float32 run = {d / scale:.3e} of "
+        f"max|logit| {scale:.3f}); tokens equal except at {len(ties)} "
+        f"printed near-ties; CPU runs {host_s:.2f} s (the CPU worker)")
+
+
+def phase_serve_bf16(card):
+    log("[33] serve in bfloat16 through repro_torch.launch.serve: "
+        "qwen2.5-32b whole, starcoder2-15b whole, recurrentgemma-2b whole")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    t_phase = time.perf_counter()
+    launches = {}
+    for name, nl, long in BF16_SERVE:
+        t_cfg = time.perf_counter()
+        _bf16_card_vs_cpu(name, nl)
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init_model(cfg, 0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        assert model.n_params == P_BF16[name], model.n_params
+        nbytes = sum(b.numel() * b.element_size()
+                     for b in model.flats.values())
+        log(f"  {name}: all {cfg.n_layers} layers, {model.n_params} "
+            f"parameters in bfloat16 ({nbytes / 1e9:.1f} GB; "
+            f"{model.flats[torch.float32].numel()} of them float32), drawn "
+            f"on the card by init_model in {draw_s:.2f} s (host clock)")
+        runs = SERVE_RUNS if long else SERVE_RUNS[:1]
+        launches[name] = {}
+        for run_name, B, prompt, gen in runs:
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            run = serve.run(model=model, batch=B, prompt_len=prompt, gen=gen,
+                            log=None)
+            assert run["launches"] == _bf16_expect(cfg, gen), run["launches"]
+            tok = run["tokens"]
+            assert tok.shape == (B, gen) and int(tok.min()) >= 0 and \
+                int(tok.max()) < cfg.vocab
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = run["step_ms"]
+            log(f"  {name} bf16 {run_name} (B={B}, prompt {prompt}, gen "
+                f"{gen}): prefill {run['prefill_ms']:.2f} ms, decode "
+                f"{statistics.median(steps):.3f} ms/step median "
+                f"({min(steps):.3f}-{max(steps):.3f}), "
+                f"{run['tok_per_s']:.1f} tok/s; launches {run['launches']}; "
+                f"peak card memory {peak:.2f} GiB ({card})")
+            launches[name][run_name] = run["launches"]
+            del run
+        if long:     # the host-bound decode: its busy share at the defaults
+            pre, dec = _busy_shares(model, 4, 32)
+            log(f"  {name} bf16: card busy share {pre:.4f} over a traced "
+                f"prefill of 4 x 32 tokens, {dec:.4f} over 4 traced decode "
+                f"steps; the weights' read {nbytes / HBM_BYTES_PER_S * 1e3:.2f}"
+                f" ms a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        del model
+        torch.cuda.empty_cache()
+        _reset_launches()
+        log(f"  {name} took {time.perf_counter() - t_cfg:.1f} s")
+    log(f"  phase 33 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _bf16_grads_card_vs_cpu(name, nl):
+    """Phase 34: one microbatch's gradients of the worker's bfloat16 cut,
+    card against the CPU's bfloat16 run within BF16_FACTOR x d plus half a
+    bfloat16 ulp of the largest |g|."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Transformer
+    (paths, gb, g32), host_s = cpu_ref(("bf16_grads", name, nl))
+    gb, g32 = _from_file(gb), _from_file(g32)
+    cfg = dataclasses.replace(get_arch(name), n_layers=nl)
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
+    _flats_from_files(model, paths)
+    got = _flat_grads(model, _batch_on(cfg, 0, *BF16_MB, "cpu"))
+    del model
+    gmax = float(g32.abs().max())
+    d = float((gb - g32).abs().max())
+    assert 0 < d < BF16_VACUOUS * gmax, (name, d, gmax)
+    bound = BF16_FACTOR * d + BF16_HALF_ULP * gmax
+    err = float((got - gb).abs().max())
+    assert err <= bound, (name, err, bound)
+    log(f"  {name} at {nl} layers, one microbatch {BF16_MB} of bfloat16 "
+        f"gradients card vs CPU: max err {err:.3e} (bound {bound:.3e}: "
+        f"{BF16_FACTOR} x d {d:.3e} + half an ulp of max|g| {gmax:.3e}); "
+        f"CPU runs {host_s:.2f} s (the CPU worker)")
+
+
+def phase_train_bf16(card):
+    log("[34] training in bfloat16 with a float32 master: qwen2.5-3b at 2 "
+        "layers, recurrentgemma-2b at 3; launch/train.run resumed")
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rg_lru
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import make_state, train_step
+    t_phase = time.perf_counter()
+    for name, nl in BF16_TRAIN:
+        cfg = dataclasses.replace(get_arch(name), n_layers=nl)
+        tcfg = launcher.train_config(cfg, 8, 0.2, 1.0, "bfloat16")
+        state = make_state(0, cfg, tcfg, device="cuda")
+        assert state["params"].dtype == torch.bfloat16 and \
+            state["opt"]["master"]["embed.table"].dtype == torch.float32
+        n_rec = [k for k, _ in cfg.layer_specs()].count("rec")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        walls, losses = [], []
+        for i in range(2):
+            b = _batch_on(cfg, i, 8, 128, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, b, cfg, tcfg)
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        scan = {**rg_lru.LAUNCHES, **rg_lru.BWD_LAUNCHES}
+        want = n_rec * tcfg.dp.n_micro * 2
+        assert scan == {"rglru_scan": want, "rglru_scan_bwd": want}, scan
+        assert all(math.isfinite(x) for x in losses), losses
+        master = state["opt"]["master"]
+        for k, p in state["params"].named_parameters():
+            assert torch.equal(p, master[k].to(p.dtype)), k
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {name}, {nl} layers ({state['params'].n_params} parameters,"
+            f" bfloat16, AdamW with a float32 master), B=8 x 128, "
+            f"{tcfg.dp.n_micro} microbatches, noise 0.2: losses "
+            f"{[round(x, 4) for x in losses]}; ms per step (host clock) "
+            f"{[round(w, 2) for w in walls]}; scan launches {scan}; peak "
+            f"card memory {peak:.2f} GiB ({card})")
+        del state
+        torch.cuda.empty_cache()
+        _bf16_grads_card_vs_cpu(name, nl)
+        torch.cuda.empty_cache()
+    _reset_launches()
+
+    # the launcher in bfloat16, resumed from its first checkpoint: bitwise
+    root = Path(tempfile.mkdtemp(prefix="train_ckpt_bf16_"))
+    n, every = BF16_LAUNCH_STEPS, BF16_LAUNCH_STEPS // 2
+    t0 = time.perf_counter()
+    full = launcher.run(steps=n, ckpt_every=every, ckpt=str(root), log=None,
+                        param_dtype="bfloat16")
+    full_s = time.perf_counter() - t0
+    assert full["checkpoints"] == [every, n]
+    assert full["state"]["params"].dtype == torch.bfloat16
+    shutil.rmtree(root / f"step_{n:010d}")
+    rest = launcher.run(steps=n - every, ckpt_every=every, ckpt=str(root),
+                        log=None, param_dtype="bfloat16")
+    assert rest["resumed_from"] == every
+    strip = [{k: v for k, v in r.items() if k != "wall_s"}
+             for r in full["records"][every:]]
+    assert strip == [{k: v for k, v in r.items() if k != "wall_s"}
+                     for r in rest["records"]], "resume"
+    _states_bitwise("bf16 resume", rest["state"], full["state"])
+    walls = [r["wall_s"] * 1e3 for r in full["records"][1:]]
+    log(f"  launch/train.run(param_dtype='bfloat16') on flaas-100m, {n} "
+        f"steps with checkpoints every {every}: {full_s:.2f} s, ms per step "
+        f"(host clock) {[round(w, 2) for w in walls]}; resumed at step "
+        f"{every} and rerun to {n}: metrics, bfloat16 parameters and the "
+        f"optimizer's float32 state bitwise")
+    del full, rest
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    log(f"  phase 34 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     with cpu_references():            # the worker starts beside the build
@@ -4464,6 +4876,10 @@ def _card_phases(name, smi) -> int:
     phase_moe_attention(smi, att_rows)
     moe_launches = phase_serve_moe(smi)
     phase_train_example_cross()
+    torch.cuda.empty_cache()
+    phase_bf16_attention(smi, att_rows)
+    bf16_launches = phase_serve_bf16(smi)
+    phase_train_bf16(smi)
     kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                     launches=launches[k], launches_large_round=large[k],
                     launches_per_round_paper_comparison={
@@ -4488,6 +4904,9 @@ def _card_phases(name, smi) -> int:
                      launches_moe_serve={
                          n: {r: c[k] for r, c in runs.items()}
                          for n, runs in moe_launches.items()},
+                     launches_bf16_serve={
+                         n: {r: c[k] for r, c in runs.items()}
+                         for n, runs in bf16_launches.items()},
                      **att_rows[k]) for k in ATT_REPLACES]
     kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
                         replaces=RG_REPLACES,

@@ -14,8 +14,11 @@ named-tuple field, ``d:<key>`` for a dict key (keys in sorted order),
 ``nn.Module`` such as :class:`~repro_torch.models.Transformer`, whose
 parameters are views of one flat buffer) is a node whose children are
 its parameters, ``d:<name>`` by ``named_parameters()``; it restores into
-a new model built like the template's (``type(m)(m.cfg, device=...)``),
-every parameter written into its view.
+a new model built like the template's (``type(m)(m.cfg, device=...,
+dtype=...)``), every parameter written into its view.  numpy has no
+bfloat16 (without ``ml_dtypes``, which the port does not import), so a
+bfloat16 leaf is stored as its 16-bit pattern (``uint16``) and its path
+listed in the array ``__bfloat16__`` beside it; it restores bitwise.
 
 Beside the arrays a checkpoint can carry a *host payload*: any picklable
 object (queue contents, free lists, RNG states, telemetry counters) saved
@@ -43,6 +46,7 @@ import torch
 from torch import nn
 
 _SEP = "|"
+_BF16 = "__bfloat16__"          # the paths of the leaves stored as bfloat16
 # repro's packages whose pickled classes have a repro_torch counterpart
 _MAPPED = ("repro.service", "repro.obs")
 
@@ -64,24 +68,41 @@ def _children(node):
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A leaf as a numpy array the caller can no longer mutate."""
+    """A leaf as a numpy array the caller can no longer mutate (a
+    bfloat16 tensor as its 16-bit pattern, ``uint16``)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     return np.array(leaf, copy=True)
 
 
 def _flatten(tree, prefix: str = "", out: Optional[dict] = None) -> dict:
-    """``{path: host array}`` for every leaf of ``tree``."""
+    """``{path: host array}`` for every leaf of ``tree``, and, where a
+    leaf is a bfloat16 tensor, ``__bfloat16__``: those leaves' paths."""
     out = {} if out is None else out
     if tree is None:
         return out
     kids = _children(tree)
     if kids is None:
         out[prefix] = _host_copy(tree)
+        if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+            out[_BF16] = np.append(out.get(_BF16, np.array([], str)), prefix)
         return out
     for seg, child in kids:
         _flatten(child, f"{prefix}{_SEP}{seg}" if prefix else seg, out)
     return out
+
+
+def _read_bf16(flat: dict) -> dict:
+    """The stored arrays with each leaf listed in ``__bfloat16__`` as the
+    bfloat16 tensor of its 16-bit pattern."""
+    flat = dict(flat)
+    for path in flat.pop(_BF16, ()):
+        bits = np.ascontiguousarray(flat[str(path)]).view(np.int16)
+        flat[str(path)] = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return flat
 
 
 def _unflatten(template, flat: dict, prefix: str = ""):
@@ -100,6 +121,10 @@ def _unflatten(template, flat: dict, prefix: str = ""):
         if prefix not in flat:
             return template
         arr = flat[prefix]
+        if isinstance(arr, torch.Tensor):           # a bfloat16 leaf
+            if isinstance(template, torch.Tensor):
+                return arr.to(device=template.device, dtype=template.dtype)
+            arr = arr.float().numpy()
         if isinstance(template, torch.Tensor):
             return torch.from_numpy(np.array(arr, order="C")).to(
                 device=template.device, dtype=template.dtype)
@@ -108,7 +133,8 @@ def _unflatten(template, flat: dict, prefix: str = ""):
     vals = [_unflatten(child, flat, f"{prefix}{_SEP}{seg}" if prefix
                        else seg) for seg, child in kids]
     if isinstance(template, nn.Module):
-        model = type(template)(template.cfg, device=template.flat.device)
+        model = type(template)(template.cfg, device=template.device,
+                               dtype=template.dtype)
         with torch.no_grad():
             for p, v in zip(model.parameters(), vals):
                 p.copy_(v)
@@ -247,7 +273,7 @@ class CheckpointManager:
             return (None, None, None) if with_host else (None, None)
         base = os.path.join(self.dir, f"step_{step:010d}")
         with np.load(os.path.join(base, "state.npz")) as z:
-            flat = {k: z[k] for k in z.files}
+            flat = _read_bf16({k: z[k] for k in z.files})
         state = _unflatten(template, flat)
         if not with_host:
             return state, step

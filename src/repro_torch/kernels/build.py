@@ -51,9 +51,13 @@ SIGNATURES = {
     },
     "attention": {
         "att_flash": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
+        "att_flash_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
         "att_flash_wide": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
+        "att_flash_wide_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
         "att_decode": ((_P,) * 7 + (_I,) * 9 + (_F, _P), _I),
+        "att_decode_bf16": ((_P,) * 7 + (_I,) * 9 + (_F, _P), _I),
         "att_decode_residency": ((_I, _I), _I),
+        "att_decode_residency_bf16": ((_I, _I), _I),
     },
     "rg_lru": {
         "rg_scan_at": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),

@@ -168,6 +168,7 @@
 // ptxas (CUDA 12.8): 128 registers at dh 256 / G 10 (__launch_bounds__
 // asks for two blocks an SM) and 80 at dh 64 / G 3 (three), no spills.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -176,6 +177,50 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------ element types
+// Every kernel takes q, k, v and o as T = float or bf16 and computes in
+// float32 alike: a bf16 element is converted exactly on its way from
+// global memory (into registers or into shared memory, which holds
+// float32 either way), and each output is rounded once, to nearest even
+// (__float2bfloat16_rn).  So a bf16 launch computes what a float32 launch
+// computes on the same values, rounded once at the end.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The 4 elements at p (16 bytes of float, 8 of bf16; aligned) as floats.
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(__ldg(p2));
+  const float2 b = __bfloat1622float2(__ldg(p2 + 1));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Store 4 outputs at p (aligned), each rounded once to T.
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(bf16* p, float a, float b, float c,
+                                    float d) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+  p2[0] = __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  p2[1] = __halves2bfloat162(__float2bfloat16_rn(c), __float2bfloat16_rn(d));
+}
 
 // ------------------------------------------------------------- flash
 constexpr int kBQ = 64;   // query rows per block
@@ -201,10 +246,10 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S,
                  int Skv, int H, int KH, int causal, int window,
                  float scale) {
   static_assert(DH % 16 == 0, "dh must be a multiple of 16");
@@ -225,14 +270,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * kBQ;
   const size_t q_stride = (size_t)H * DH;    // between positions of q / o
   const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
-  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
-  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
-  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
-  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  T* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
 
   for (int i = threadIdx.x; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
-    sQ[r * LD + d] = q0 + r < S ? qb[(size_t)(q0 + r) * q_stride + d] : 0.0f;
+    sQ[r * LD + d] =
+        q0 + r < S ? to_f32(qb[(size_t)(q0 + r) * q_stride + d]) : 0.0f;
   }
 
   // keys any row of this tile may see: [k_begin, k_end)
@@ -255,8 +301,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / DH, d = i % DH;
       const bool in = k0 + r < Skv;
       const size_t off = (size_t)(k0 + r) * kv_stride + d;
-      sK[r * LD + d] = in ? kb[off] : 0.0f;
-      sV[r * LD + d] = in ? vb[off] : 0.0f;
+      sK[r * LD + d] = in ? to_f32(kb[off]) : 0.0f;
+      sV[r * LD + d] = in ? to_f32(vb[off]) : 0.0f;
     }
     __syncthreads();
 
@@ -330,21 +376,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      ob[(size_t)qp * q_stride + tx + 16 * c] = acc[i][c] / denom;
+      ob[(size_t)qp * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
   }
 }
 
-template <int DH>
-int launch_flash(const float* q, const float* k, const float* v, float* o,
-                 int B, int S, int Skv, int H, int KH, int causal, int window,
-                 float scale, cudaStream_t stream) {
+template <int DH, typename T>
+int launch_flash(const T* q, const T* k, const T* v, T* o, int B, int S,
+                 int Skv, int H, int KH, int causal, int window, float scale,
+                 cudaStream_t stream) {
   constexpr int smem = flash_smem_bytes<DH>();
   // above 48 KB, dynamic shared memory must be asked for (per device)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DH, T><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, S, Skv, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -388,9 +435,9 @@ __device__ __forceinline__ void lds4(float* dst, const float* src) {
 // rows of DH + 4 floats, zero past S.  Thread t moves the float4 at column
 // 4 * (t % (DH / 4)) of rows t / (DH / 4) + n * STEP; each pass puts
 // 8 loads a tile in flight before its stores.
-template <int DH, int NT>
+template <int DH, int NT, typename T>
 __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
-                                            const float* const (&src)[NT],
+                                            const T* const (&src)[NT],
                                             size_t stride, int p0, int S) {
   constexpr int D4 = DH / 4, STEP = kTileThreads / D4, N = kBQ / STEP;
   constexpr int CH = 8;
@@ -405,8 +452,7 @@ __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
 #pragma unroll
       for (int a = 0; a < NT; ++a)
         t[a][n] = p0 + r < S
-                      ? __ldg(reinterpret_cast<const float4*>(
-                            src[a] + (size_t)(p0 + r) * stride + c))
+                      ? ldg4(src[a] + (size_t)(p0 + r) * stride + c)
                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
 #pragma unroll
@@ -418,12 +464,11 @@ __device__ __forceinline__ void stage_tiles(float* const (&dst)[NT],
   }
 }
 
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(kTileThreads)
-flash_fwd_tiled_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int S, int Skv, int H, int KH, int causal, int window,
+flash_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int S,
+                       int Skv, int H, int KH, int causal, int window,
                        float scale) {
   static_assert(DH == 64 || DH == 128, "the 4 x 8 tile takes dh 64 or 128");
   static_assert(kBQ == kBK, "stage_tiles stages kBQ rows of either tile");
@@ -444,16 +489,16 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
   const int q0 = qt * kBQ;
   const size_t q_stride = (size_t)H * DH;    // between positions of q / o
   const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
-  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
-  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
-  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
-  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * DH;
+  T* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
   float* const kv_dst[2] = {sK, sV};
-  const float* const kv_src[2] = {kb, vb};
+  const T* const kv_src[2] = {kb, vb};
 
   {
     float* const dst[1] = {sQ};
-    const float* const src[1] = {qb};
+    const T* const src[1] = {qb};
     stage_tiles<DH, 1>(dst, src, q_stride, q0, S);
   }
 
@@ -556,34 +601,32 @@ flash_fwd_tiled_kernel(const float* __restrict__ q,
     const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int c = 0; c < NV; ++c)
-      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride +
-                                 4 * (tx + 8 * c)) =
-          make_float4(acc[i][4 * c] / denom, acc[i][4 * c + 1] / denom,
-                      acc[i][4 * c + 2] / denom, acc[i][4 * c + 3] / denom);
+      st4(ob + (size_t)qp * q_stride + 4 * (tx + 8 * c), acc[i][4 * c] / denom,
+          acc[i][4 * c + 1] / denom, acc[i][4 * c + 2] / denom,
+          acc[i][4 * c + 3] / denom);
   }
 }
 
-template <int DH>
-int launch_flash_tiled(const float* q, const float* k, const float* v,
-                       float* o, int B, int S, int Skv, int H, int KH,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
+template <int DH, typename T>
+int launch_flash_tiled(const T* q, const T* k, const T* v, T* o, int B,
+                       int S, int Skv, int H, int KH, int causal, int window,
+                       float scale, cudaStream_t stream) {
   constexpr int smem = flash_tiled_smem_bytes<DH>();
   // above 48 KB, dynamic shared memory must be asked for (per device); the
   // largest carveout is asked for so that three dh-64 blocks (3 x 69,632
   // bytes) fit an SM whatever carveout CUDA would pick by default
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tiled_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tiled_kernel<DH, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_fwd_tiled_kernel<DH>,
+  err = cudaFuncSetAttribute(flash_fwd_tiled_kernel<DH, T>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (S + kBQ - 1) / kBQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
-  flash_fwd_tiled_kernel<DH><<<grid, kTileThreads, smem, stream>>>(
+  flash_fwd_tiled_kernel<DH, T><<<grid, kTileThreads, smem, stream>>>(
       q, k, v, o, S, Skv, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -598,6 +641,19 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 elements global -> 4 floats of shared memory (16-byte aligned), zero
+// where `in` is false: a cp.async for float; for bf16, which cp.async
+// cannot convert, a plain load, converted, then a shared store, done
+// before the function returns (the commit / wait calls around it then
+// have nothing to wait for).
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
+  cp_async16(dst, src, in);
+}
+__device__ __forceinline__ void copy4(float* dst, const bf16* src, bool in) {
+  *reinterpret_cast<float4*>(dst) =
+      in ? ldg4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -634,8 +690,8 @@ constexpr int flash_narrow_smem_bytes() {
 // NR positions p0.. of one head (rows `stride` floats apart in HBM) into
 // shared rows of 260 floats, zero past S: thread t copies the float4s
 // t + n * kNarrowThreads, 64 consecutive threads to a row.
-template <int NR>
-__device__ __forceinline__ void narrow_stage(float* dst, const float* src,
+template <int NR, typename T>
+__device__ __forceinline__ void narrow_stage(float* dst, const T* src,
                                              size_t stride, int p0, int S) {
   constexpr int D4 = kDH256 / 4;
   static_assert((NR * D4) % kNarrowThreads == 0, "whole passes");
@@ -644,17 +700,16 @@ __device__ __forceinline__ void narrow_stage(float* dst, const float* src,
     const int i = (int)threadIdx.x + n * kNarrowThreads;
     const int r = i / D4, c = (i % D4) * 4;
     const bool in = p0 + r < S;
-    cp_async16(dst + r * (kDH256 + 4) + c,
-               src + (size_t)(in ? p0 + r : 0) * stride + c, in);
+    copy4(dst + r * (kDH256 + 4) + c,
+          src + (size_t)(in ? p0 + r : 0) * stride + c, in);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kNarrowThreads, 1)
-flash_fwd_narrow_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        int S, int H, int KH, int causal, int window,
-                        float scale) {
+flash_fwd_narrow_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, int S,
+                        int H, int KH, int causal, int window, float scale) {
   constexpr int DH = kDH256, LD = DH + 4;  // padded row of the q/k/v tiles
   constexpr int NV = DH / 32;    // float4 column groups of acc per thread
   constexpr int KV = 2 * kNarrowBK * LD;  // one stage: K then V
@@ -675,10 +730,10 @@ flash_fwd_narrow_kernel(const float* __restrict__ q,
   const int w_last = min(w0 + 7, S - 1);  // and last valid (< w0: none)
   const size_t q_stride = (size_t)H * DH;    // between positions of q / o
   const size_t kv_stride = (size_t)KH * DH;  // between positions of k / v
-  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
-  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
-  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
-  float* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * DH;
+  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * DH;
+  T* ob = o + (size_t)b * S * q_stride + (size_t)h * DH;
 
   // key tiles any row of this block may see: [t_begin, t_end)
   const int q_last = min(q0 + kBQ, S) - 1;
@@ -804,25 +859,25 @@ flash_fwd_narrow_kernel(const float* __restrict__ q,
     const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int c = 0; c < NV; ++c)
-      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride +
-                                 4 * (kx + 8 * c)) =
-          make_float4(acc[i][4 * c] / denom, acc[i][4 * c + 1] / denom,
-                      acc[i][4 * c + 2] / denom, acc[i][4 * c + 3] / denom);
+      st4(ob + (size_t)qp * q_stride + 4 * (kx + 8 * c), acc[i][4 * c] / denom,
+          acc[i][4 * c + 1] / denom, acc[i][4 * c + 2] / denom,
+          acc[i][4 * c + 3] / denom);
   }
 }
 
-int launch_flash_narrow(const float* q, const float* k, const float* v,
-                        float* o, int B, int S, int H, int KH, int causal,
-                        int window, float scale, cudaStream_t stream) {
+template <typename T>
+int launch_flash_narrow(const T* q, const T* k, const T* v, T* o, int B,
+                        int S, int H, int KH, int causal, int window,
+                        float scale, cudaStream_t stream) {
   constexpr int smem = flash_narrow_smem_bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_narrow_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (S + kBQ - 1) / kBQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
-  flash_fwd_narrow_kernel<<<grid, kNarrowThreads, smem, stream>>>(
+  flash_fwd_narrow_kernel<T><<<grid, kNarrowThreads, smem, stream>>>(
       q, k, v, o, S, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -879,7 +934,8 @@ __device__ __forceinline__ WideTile wide_tile(int t, int k_begin,
 // K chunk `idx` of tile t into a slot, 1024 float4 copies over the scorers:
 // columns [16 idx, +16) of keys k0 + 32 lo .. + 255, rows of kWideKLD;
 // keys past the visible chunks or k_end are zero-filled.
-__device__ __forceinline__ void wide_issue_k(float* slot, const float* kb,
+template <typename T>
+__device__ __forceinline__ void wide_issue_k(float* slot, const T* kb,
                                              size_t stride, int t, int idx,
                                              int k_begin, int k_end,
                                              int tid) {
@@ -891,14 +947,15 @@ __device__ __forceinline__ void wide_issue_k(float* slot, const float* kb,
     const int r = f >> 2, c = (f & 3) * 4;
     const int key = w.k0 + 32 * w.lo + r;
     const bool in = key < kin;
-    cp_async16(slot + r * kWideKLD + c,
-               kb + (size_t)(in ? key : 0) * stride + 16 * idx + c, in);
+    copy4(slot + r * kWideKLD + c,
+          kb + (size_t)(in ? key : 0) * stride + 16 * idx + c, in);
   }
 }
 
 // V chunk `idx` of tile t (keys k0 + 32 lo + 16 idx ..  + 15, rows of
 // kWideLD floats) into a slot, 1024 float4 copies over the accumulators.
-__device__ __forceinline__ void wide_issue_v(float* slot, const float* vb,
+template <typename T>
+__device__ __forceinline__ void wide_issue_v(float* slot, const T* vb,
                                              size_t stride, int t, int idx,
                                              int k_begin, int k_end,
                                              int tid) {
@@ -909,17 +966,18 @@ __device__ __forceinline__ void wide_issue_v(float* slot, const float* vb,
     const int r = f >> 6, c = (f & 63) * 4;
     const int key = w.k0 + 32 * w.lo + 16 * idx + r;
     const bool in = key < k_end;
-    cp_async16(slot + r * kWideLD + c,
-               vb + (size_t)(in ? key : 0) * stride + c, in);
+    copy4(slot + r * kWideLD + c, vb + (size_t)(in ? key : 0) * stride + c,
+          in);
   }
 }
 
 // What a block's warp of either group knows of its rows and keys.
+template <typename T>
 struct WideBlock {
   int S, causal, window;
   float scale;
   size_t kv_stride;
-  const float *kb, *vb;  // this batch row's kv head
+  const T *kb, *vb;      // this batch row's kv head
   int k_begin, k_end;    // keys any row of the block sees
   int t_begin, t_end;    // its tiles
   int q0;                // the block's first position
@@ -930,7 +988,8 @@ struct WideBlock {
 // Whether the warp's rows see a key of the tile's visible chunks, keys
 // [kc, kc + 32 n); a warp that sees none skips the tile: exactly what the
 // tile would add (a row with no score yet is wiped by its first one).
-__device__ __forceinline__ bool wide_live(const WideBlock& B,
+template <typename T>
+__device__ __forceinline__ bool wide_live(const WideBlock<T>& B,
                                           const WideTile& w) {
   const int kc = w.k0 + 32 * w.lo;
   const int last = min(B.w0 + kWideRows - 1, B.S - 1);  // its last row
@@ -971,7 +1030,8 @@ __device__ __forceinline__ void wide_qk(float (&s)[kWideRows][8],
 
 // The scorers: for every tile, s = q k^T over the K ring, then the online
 // softmax, p into the shared tile and each row's rescale into sC.
-__device__ __forceinline__ void wide_scores(const WideBlock& B,
+template <typename T>
+__device__ __forceinline__ void wide_scores(const WideBlock<T>& B,
                                             float* smem) {
   constexpr int LD = kWideLD;
   const float* sQ = smem;
@@ -1059,8 +1119,9 @@ __device__ __forceinline__ void wide_scores(const WideBlock& B,
 
 // The accumulators: for every tile, rescale by sC, then acc += p v over the
 // V ring; at the end, the outputs of the warp's rows.
-__device__ __forceinline__ void wide_outputs(const WideBlock& B,
-                                             float* smem, float* ob,
+template <typename T>
+__device__ __forceinline__ void wide_outputs(const WideBlock<T>& B,
+                                             float* smem, T* ob,
                                              size_t q_stride) {
   constexpr int LD = kWideLD;
   const float *sP = smem + kWideP, *sL = smem + kWideL, *sC = smem + kWideC;
@@ -1129,19 +1190,19 @@ __device__ __forceinline__ void wide_outputs(const WideBlock& B,
     const float denom = fmaxf(sL[kWideRows * warp + i], 1e-20f);
 #pragma unroll
     for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<float4*>(ob + (size_t)qp * q_stride + 128 * e +
-                                 4 * lane) =
-          make_float4(acc[i][4 * e] / denom, acc[i][4 * e + 1] / denom,
-                      acc[i][4 * e + 2] / denom, acc[i][4 * e + 3] / denom);
+      st4(ob + (size_t)qp * q_stride + 128 * e + 4 * lane,
+          acc[i][4 * e] / denom, acc[i][4 * e + 1] / denom,
+          acc[i][4 * e + 2] / denom, acc[i][4 * e + 3] / denom);
   }
 }
 
 // The launch's view of one warp of either group (blockIdx, threadIdx).
-__device__ __forceinline__ WideBlock wide_block(const float* k,
-                                                const float* v, int S,
-                                                int H, int KH, int causal,
-                                                int window, float scale) {
-  WideBlock B;
+template <typename T>
+__device__ __forceinline__ WideBlock<T> wide_block(const T* k, const T* v,
+                                                   int S, int H, int KH,
+                                                   int causal, int window,
+                                                   float scale) {
+  WideBlock<T> B;
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.z) * kBQ;  // heaviest first
   const int kvh = (int)blockIdx.x / (H / KH);
@@ -1164,12 +1225,11 @@ __device__ __forceinline__ WideBlock wide_block(const float* k,
   return B;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWideThreads, 1)
-flash_fwd_wide_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      int S, int H, int KH, int causal, int window,
-                      float scale) {
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int S,
+                      int H, int KH, int causal, int window, float scale) {
   constexpr int LD = kWideLD;
   static_assert(kBQ == kWideRows * kWideWarps, "whole warps of rows");
   extern __shared__ float4 smem4[];
@@ -1182,14 +1242,14 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
   // fragments need fewer).  setmaxnreg counts in multiples of 8.
   if (threadIdx.x < kWideGroup) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 136;\n" ::);
-    const WideBlock B = wide_block(k, v, S, H, KH, causal, window, scale);
+    const WideBlock<T> B = wide_block(k, v, S, H, KH, causal, window, scale);
 #pragma unroll
     for (int m = 0; m < kBQ * kDH256 / 4 / kWideGroup; ++m) {
       const int f = B.tid + m * kWideGroup;
       const int r = f >> 6, c = (f & 63) * 4;
       const bool in = B.q0 + r < S;
-      cp_async16(smem + r * LD + c,
-                 q + bh + (size_t)(in ? B.q0 + r : 0) * q_stride + c, in);
+      copy4(smem + r * LD + c,
+            q + bh + (size_t)(in ? B.q0 + r : 0) * q_stride + c, in);
     }
     wide_issue_k(smem + kWideK, B.kb, B.kv_stride, B.t_begin, 0, B.k_begin,
                  B.k_end, B.tid);
@@ -1203,7 +1263,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
     bar_arrive(kBarDone, kWideThreads);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n" ::);
-    const WideBlock B = wide_block(k, v, S, H, KH, causal, window, scale);
+    const WideBlock<T> B = wide_block(k, v, S, H, KH, causal, window, scale);
     wide_issue_v(smem + kWideV, B.vb, B.kv_stride, B.t_begin, 0,
                  B.k_begin, B.k_end, B.tid);
     cp_async_commit();
@@ -1212,18 +1272,19 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
   }
 }
 
-int launch_flash_wide(const float* q, const float* k, const float* v,
-                      float* o, int B, int S, int H, int KH, int causal,
-                      int window, float scale, cudaStream_t stream) {
+template <typename T>
+int launch_flash_wide(const T* q, const T* k, const T* v, T* o, int B, int S,
+                      int H, int KH, int causal, int window, float scale,
+                      cudaStream_t stream) {
   constexpr int smem = flash_wide_smem_bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (S + kBQ - 1) / kBQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;  // grid z's limit
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
-  flash_fwd_wide_kernel<<<grid, kWideThreads, smem, stream>>>(
+  flash_fwd_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(
       q, k, v, o, S, H, KH, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -1285,12 +1346,11 @@ constexpr int decode_smem_bytes() {
           DecodeMap<DH>::NGR * GB * (DH + 2)) * (int)sizeof(float);
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(float (&dst)[VEC],
-                                         const float* src) {
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(float (&dst)[VEC], const T* src) {
 #pragma unroll
   for (int e = 0; e < VEC; e += 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(src + e));
+    const float4 t = ldg4(src + e);
     dst[e] = t.x;
     dst[e + 1] = t.y;
     dst[e + 2] = t.z;
@@ -1315,10 +1375,10 @@ __device__ __forceinline__ void group_sums(float (&v)[G][U]) {
 // Launch 1: block (split, head group of a kv head, batch row) -> each of
 // its GB query heads' (m, l, acc[dh]) over positions
 // [lo + split*sp, ... + split) n [lo, hi).
-template <int DH, int G>
+template <int DH, int G, typename T>
 __global__ void __launch_bounds__(kThreads, decode_min_blocks<DH, G>())
-decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ part_m,
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc,
                     int L, int KH, int lo, int hi, int split, float scale) {
   using Map = DecodeMap<DH>;
@@ -1340,11 +1400,12 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int start = lo + sp * split;
   const int end = min(hi, start + split);
   const size_t bh0 = (size_t)b * H + (size_t)blockIdx.y * GB;  // first head
-  const float* qb = q + bh0 * DH;                               // GB rows
+  const T* qb = q + bh0 * DH;                                   // GB rows
 
   float qreg[kQShared ? 1 : GB][VEC];
   if constexpr (kQShared) {
-    for (int i = threadIdx.x; i < GB * DH; i += kThreads) sm_q[i] = qb[i];
+    for (int i = threadIdx.x; i < GB * DH; i += kThreads)
+      sm_q[i] = to_f32(qb[i]);
     __syncthreads();
   } else {
 #pragma unroll
@@ -1361,8 +1422,8 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const size_t row = (size_t)KH * DH;  // between positions of the cache
-  const float* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
-  const float* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
+  const T* kb = k + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
+  const T* vb = v + (size_t)b * L * row + (size_t)kvh * DH + li * VEC;
   // the trip count is the block's, so every lane reaches the shuffles
   for (int it = start; it < end; it += Map::STEP) {
     const int base = it + gi;
@@ -1471,11 +1532,12 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dh-256 head over 4 blocks (both cut the launch; PERF.md, Findings).
 constexpr int kCombineChunk = 8;
 
+template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
-                                      float* __restrict__ o, int H,
-                                      int nsplit, int dh) {
+                                      T* __restrict__ o, int H, int nsplit,
+                                      int dh) {
   constexpr int CH = kCombineChunk;
   const size_t bh = (size_t)blockIdx.y * H + blockIdx.x;
   const float* pm = part_m + bh * nsplit;
@@ -1511,22 +1573,22 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
         }
       }
     }
-    o[bh * dh + d] = aa / fmaxf(ll, 1e-20f);
+    o[bh * dh + d] = from_f32<T>(aa / fmaxf(ll, 1e-20f));
   }
 }
 
 // Blocks of decode_split_kernel<DH, G> resident on one SM (registers,
 // shared memory and threads), or -cudaError_t.
-template <int DH, int G>
+template <int DH, int G, typename T>
 int decode_residency() {
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, decode_split_kernel<DH, G>, kThreads, decode_smem_bytes<DH, G>());
+      &n, decode_split_kernel<DH, G, T>, kThreads, decode_smem_bytes<DH, G>());
   return err != cudaSuccess ? -(int)err : n;
 }
 
-template <int DH, int G>
-int launch_decode(const float* q, const float* k, const float* v, float* o,
+template <int DH, int G, typename T>
+int launch_decode(const T* q, const T* k, const T* v, T* o,
                   float* part_m, float* part_l, float* part_acc, int B,
                   int KH, int L, int lo, int hi, int split, int nsplit,
                   float scale, cudaStream_t stream) {
@@ -1534,15 +1596,15 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
                 "above 48 KB the launch would have to ask for it");
   const dim3 grid((unsigned)nsplit,
                   (unsigned)(KH * decode_head_groups<DH, G>()), (unsigned)B);
-  decode_split_kernel<DH, G><<<grid, kThreads, decode_smem_bytes<DH, G>(),
-                               stream>>>(q, k, v, part_m, part_l, part_acc, L,
-                                         KH, lo, hi, split, scale);
+  decode_split_kernel<DH, G, T><<<grid, kThreads,
+                                  decode_smem_bytes<DH, G>(), stream>>>(
+      q, k, v, part_m, part_l, part_acc, L, KH, lo, hi, split, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr int CT = DH < 64 ? DH : 64;  // columns a combine block takes
-  decode_combine_kernel<<<dim3((unsigned)(KH * G), (unsigned)B, DH / CT), CT,
-                          0, stream>>>(part_m, part_l, part_acc, o, KH * G,
-                                       nsplit, DH);
+  decode_combine_kernel<T><<<dim3((unsigned)(KH * G), (unsigned)B, DH / CT),
+                             CT, 0, stream>>>(part_m, part_l, part_acc, o,
+                                              KH * G, nsplit, DH);
   return (int)cudaGetLastError();
 }
 
@@ -1567,21 +1629,21 @@ int with_decode_g(int G, int bad, F f) {
   return bad;
 }
 
-template <int DH>
-int launch_decode_g(int G, const float* q, const float* k, const float* v,
-                    float* o, float* pm, float* pl, float* pa, int B, int KH,
-                    int L, int lo, int hi, int split, int nsplit, float scale,
+template <int DH, typename T>
+int launch_decode_g(int G, const T* q, const T* k, const T* v, T* o,
+                    float* pm, float* pl, float* pa, int B, int KH, int L,
+                    int lo, int hi, int split, int nsplit, float scale,
                     cudaStream_t st) {
   return with_decode_g<DH>(G, (int)cudaErrorInvalidValue, [&](auto g) {
-    return launch_decode<DH, decltype(g)::value>(
+    return launch_decode<DH, decltype(g)::value, T>(
         q, k, v, o, pm, pl, pa, B, KH, L, lo, hi, split, nsplit, scale, st);
   });
 }
 
-template <int DH>
+template <int DH, typename T>
 int decode_residency_g(int G) {
   return with_decode_g<DH>(G, -(int)cudaErrorInvalidValue, [](auto g) {
-    return decode_residency<DH, decltype(g)::value>();
+    return decode_residency<DH, decltype(g)::value, T>();
   });
 }
 
@@ -1595,15 +1657,10 @@ bool flash_sizes_bad(int S, int Skv, int H, int KH, int dh, int causal,
   return Skv != S && (causal || window > 0 || dh > 128);
 }
 
-}  // namespace
-
-extern "C" {
-
-// o = attention(q, k, v) in the port's layouts; window <= 0 means none.
-// Skv != S (cross attention) only non-causal without a window at dh 16-128.
-int att_flash(const float* q, const float* k, const float* v, float* o, int B,
-              int S, int Skv, int H, int KH, int dh, int causal, int window,
-              float scale, cudaStream_t stream) {
+template <typename T>
+int flash_at(const T* q, const T* k, const T* v, T* o, int B, int S, int Skv,
+             int H, int KH, int dh, int causal, int window, float scale,
+             cudaStream_t stream) {
   if (B <= 0 || S <= 0) return (int)cudaGetLastError();
   if (flash_sizes_bad(S, Skv, H, KH, dh, causal, window, B))
     return (int)cudaErrorInvalidValue;
@@ -1617,12 +1674,10 @@ int att_flash(const float* q, const float* k, const float* v, float* o, int B,
   }
 }
 
-// att_flash at dh 256 through the wide kernel, for key spans of a whole
-// 256-key tile or more (the launcher's rule:
-// kernels/flash_attention.py::wide_tiles).
-int att_flash_wide(const float* q, const float* k, const float* v, float* o,
-                   int B, int S, int Skv, int H, int KH, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+template <typename T>
+int flash_wide_at(const T* q, const T* k, const T* v, T* o, int B, int S,
+                  int Skv, int H, int KH, int dh, int causal, int window,
+                  float scale, cudaStream_t stream) {
   if (B <= 0 || S <= 0) return (int)cudaGetLastError();
   if (dh != kDH256 || flash_sizes_bad(S, Skv, H, KH, dh, causal, window, B))
     return (int)cudaErrorInvalidValue;
@@ -1630,13 +1685,11 @@ int att_flash_wide(const float* q, const float* k, const float* v, float* o,
                            stream);
 }
 
-// o[b,h] = attention of q[b,h] over cache positions [lo, hi), cut into
-// nsplit splits of `split` positions; part_m / part_l hold B*H*nsplit
-// floats and part_acc B*H*nsplit*dh (the caller's scratch).
-int att_decode(const float* q, const float* k, const float* v, float* o,
-               float* part_m, float* part_l, float* part_acc, int B, int H,
-               int KH, int L, int dh, int lo, int hi, int split, int nsplit,
-               float scale, cudaStream_t stream) {
+template <typename T>
+int decode_at(const T* q, const T* k, const T* v, T* o, float* part_m,
+              float* part_l, float* part_acc, int B, int H, int KH, int L,
+              int dh, int lo, int hi, int split, int nsplit, float scale,
+              cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (KH <= 0 || H % KH != 0 || lo < 0 || hi > L || lo >= hi || split <= 0 ||
       nsplit <= 0 || (long long)split * nsplit < hi - lo || B > 65535 ||
@@ -1655,19 +1708,88 @@ int att_decode(const float* q, const float* k, const float* v, float* o,
   }
 }
 
-// Blocks of att_decode's split kernel for (dh, G = H/KH) that fit on one
-// SM at its dynamic shared memory size; -cudaError_t on failure.
-int att_decode_residency(int dh, int G) {
+template <typename T>
+int decode_residency_at(int dh, int G) {
   switch (dh) {
-    case 16: return decode_residency_g<16>(G);
-    case 32: return decode_residency_g<32>(G);
-    case 64: return decode_residency_g<64>(G);
-    case 128: return decode_residency_g<128>(G);
+    case 16: return decode_residency_g<16, T>(G);
+    case 32: return decode_residency_g<32, T>(G);
+    case 64: return decode_residency_g<64, T>(G);
+    case 128: return decode_residency_g<128, T>(G);
     case 256:
-      return G == 10 ? decode_residency<256, 10>()
+      return G == 10 ? decode_residency<256, 10, T>()
                      : -(int)cudaErrorInvalidValue;
     default: return -(int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// o = attention(q, k, v) in the port's layouts; window <= 0 means none.
+// Skv != S (cross attention) only non-causal without a window at dh 16-128.
+// The _bf16 entries take bf16 q, k, v and o (module header).
+int att_flash(const float* q, const float* k, const float* v, float* o, int B,
+              int S, int Skv, int H, int KH, int dh, int causal, int window,
+              float scale, cudaStream_t stream) {
+  return flash_at(q, k, v, o, B, S, Skv, H, KH, dh, causal, window, scale,
+                  stream);
+}
+
+int att_flash_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                   int B, int S, int Skv, int H, int KH, int dh, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  return flash_at(q, k, v, o, B, S, Skv, H, KH, dh, causal, window, scale,
+                  stream);
+}
+
+// att_flash at dh 256 through the wide kernel, for key spans of a whole
+// 256-key tile or more (the launcher's rule:
+// kernels/flash_attention.py::wide_tiles).
+int att_flash_wide(const float* q, const float* k, const float* v, float* o,
+                   int B, int S, int Skv, int H, int KH, int dh, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  return flash_wide_at(q, k, v, o, B, S, Skv, H, KH, dh, causal, window,
+                       scale, stream);
+}
+
+int att_flash_wide_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                        int B, int S, int Skv, int H, int KH, int dh,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
+  return flash_wide_at(q, k, v, o, B, S, Skv, H, KH, dh, causal, window,
+                       scale, stream);
+}
+
+// o[b,h] = attention of q[b,h] over cache positions [lo, hi), cut into
+// nsplit splits of `split` positions; part_m / part_l hold B*H*nsplit
+// floats and part_acc B*H*nsplit*dh (the caller's scratch, float32 for
+// either element type).
+int att_decode(const float* q, const float* k, const float* v, float* o,
+               float* part_m, float* part_l, float* part_acc, int B, int H,
+               int KH, int L, int dh, int lo, int hi, int split, int nsplit,
+               float scale, cudaStream_t stream) {
+  return decode_at(q, k, v, o, part_m, part_l, part_acc, B, H, KH, L, dh, lo,
+                   hi, split, nsplit, scale, stream);
+}
+
+int att_decode_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                    float* part_m, float* part_l, float* part_acc, int B,
+                    int H, int KH, int L, int dh, int lo, int hi, int split,
+                    int nsplit, float scale, cudaStream_t stream) {
+  return decode_at(q, k, v, o, part_m, part_l, part_acc, B, H, KH, L, dh, lo,
+                   hi, split, nsplit, scale, stream);
+}
+
+// Blocks of att_decode's (att_decode_bf16's) split kernel for (dh, G =
+// H/KH) that fit on one SM at its dynamic shared memory size;
+// -cudaError_t on failure.
+int att_decode_residency(int dh, int G) {
+  return decode_residency_at<float>(dh, G);
+}
+
+int att_decode_residency_bf16(int dh, int G) {
+  return decode_residency_at<bf16>(dh, G);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """Launcher of the Hopper decode attention kernel (``csrc/attention.cu``,
 ``att_decode``) and the dispatch the decode step calls.
 
-:func:`decode_attention_cuda` takes CUDA tensors only (float32,
-contiguous, 16-byte aligned) and raises on anything else; it adds one to
+:func:`decode_attention_cuda` takes CUDA tensors only (q, k and v all
+float32 or all bfloat16, contiguous, 16-byte aligned) and raises on
+anything else -- a bfloat16 call keeps its split partials float32 and
+rounds each output once, in the combine -- and adds one to
 ``LAUNCHES["decode_attention"]`` per call (two launches on the card: the
 splits, then their combination) and leaves the call's grid in
 ``LAST_GRID["decode_attention"]``.  :func:`decode_attention` picks by the
@@ -75,13 +77,15 @@ def split_size(n: int, blocks_per_split: int, residency: int,
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(dh: int, G: int) -> int:
+def resident_blocks(dh: int, G: int, bf16: bool = False) -> int:
     """Blocks of the split kernel for (dh, G) that one SM holds at once
-    (``att_decode_residency``: registers, shared memory and threads),
-    asked of the card once per (dh, G)."""
-    n = library("attention").att_decode_residency(dh, G)
+    (``att_decode_residency``, or ``att_decode_residency_bf16`` for the
+    bfloat16 instantiation: registers, shared memory and threads), asked
+    of the card once per (dh, G, dtype)."""
+    entry = "att_decode_residency" + ("_bf16" if bf16 else "")
+    n = getattr(library("attention"), entry)(dh, G)
     if n <= 0:
-        raise RuntimeError(f"att_decode_residency({dh}, {G}) returned {n}")
+        raise RuntimeError(f"{entry}({dh}, {G}) returned {n}")
     return n
 
 
@@ -112,14 +116,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H % KH or H // KH not in GROUPS[dh]:
         raise ValueError(f"{H} heads over {KH} kv heads: H/KH not in "
                          f"{GROUPS[dh]} at head dim {dh}")
-    _check(q, "q", torch.float32, (B, H, dh))
-    _check(k, "k", torch.float32, (B, L, KH, dh))
-    _check(v, "v", torch.float32, (B, L, KH, dh))
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, "q", q.dtype, (B, H, dh))
+    _check(k, "k", q.dtype, (B, L, KH, dh))
+    _check(v, "v", q.dtype, (B, L, KH, dh))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     lo, hi = valid_range(cache_len, L, window)
-    res = resident_blocks(dh, H // KH)
+    res = resident_blocks(dh, H // KH, bf16)
     per_split = B * KH * HEAD_GROUPS[dh, H // KH]
     split = split_size(hi - lo, per_split, res, STEPS[dh])
     nsplit = -(-(hi - lo) // split)
@@ -129,11 +136,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_acc = torch.empty(B * H * nsplit * dh, dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(q)
-    _raise_on(library("attention").att_decode(
+    entry = "att_decode_bf16" if bf16 else "att_decode"
+    _raise_on(getattr(library("attention"), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), B, H, KH,
         L, dh, lo, hi, split, nsplit, 1.0 / math.sqrt(dh), _stream(q)),
-        "att_decode")
+        entry)
     LAUNCHES["decode_attention"] += 1
     LAST_GRID["decode_attention"] = (split, nsplit, nsplit * per_split, res)
     return out

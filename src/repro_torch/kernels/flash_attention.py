@@ -4,9 +4,13 @@ windowed self attention, an encoder's non-causal self attention, and
 cross attention (queries of the prompt against keys and values of
 another length, non-causal).
 
-:func:`flash_attention_cuda` takes CUDA tensors only (float32,
-contiguous, in the port's layouts) and raises on anything else; it adds
-one to ``LAUNCHES["flash_attention"]`` per launch.  :func:`flash_attention`
+:func:`flash_attention_cuda` takes CUDA tensors only (q, k and v all
+float32 or all bfloat16, contiguous, in the port's layouts) and raises on
+anything else; it adds one to ``LAUNCHES["flash_attention"]`` per launch.
+A bfloat16 call computes in float32 what a float32 call computes on the
+same values and rounds each output once (``repro``'s Pallas kernel
+loads bfloat16, computes in float32 and stores the input's dtype); its
+entry points carry ``_bf16``.  :func:`flash_attention`
 picks by the device of ``q`` alone -- a CPU tensor runs the twin
 :func:`repro_torch.kernels.ref.flash_attention_ref`, a CUDA tensor the
 kernel -- with no flag and no fallback.
@@ -29,9 +33,10 @@ from . import ref
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"flash_attention": 0}
 # The C entry point of the last launch: att_flash, or att_flash_wide (dh 256
-# where wide_tiles holds).
+# where wide_tiles holds), with _bf16 for bfloat16 operands.
 LAST_ENTRY = {"flash_attention": None}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+DTYPES = (torch.float32, torch.bfloat16)  # each at every head dim
 BQ = 64           # query rows of a block (csrc/attention.cu: kBQ)
 WIDE_KEYS = 256   # keys of a tile of the wide dh-256 kernel (kWideBK)
 
@@ -123,7 +128,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       memory.
     * dh 16, 32: 256 threads with a 4 x 4 tile fed by scalar loads.
 
-    q, k and v must be 16-byte aligned."""
+    bfloat16 q, k and v are converted to float32 as they are loaded (the
+    dh-256 kernels, whose cp.async copies cannot convert, load them with
+    plain loads instead) and the output rounded once.  q, k and v must be
+    16-byte aligned."""
     _on_cuda(q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q: expected [B, S, H, dh], got {tuple(q.shape)}")
@@ -134,16 +142,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     Skv = k.shape[1]
-    _check(q, "q", torch.float32, (B, S, H, dh))
-    _check(k, "k", torch.float32, (B, Skv, KH, dh))
-    _check(v, "v", torch.float32, (B, Skv, KH, dh))
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: expected one of {DTYPES}, got {q.dtype}")
+    _check(q, "q", q.dtype, (B, S, H, dh))
+    _check(k, "k", q.dtype, (B, Skv, KH, dh))
+    _check(v, "v", q.dtype, (B, Skv, KH, dh))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     check_lengths(S, Skv, dh, causal, window)
     wide = dh == 256 and wide_tiles(S, causal, window)
-    return _att_flash("att_flash_wide" if wide else "att_flash", q, k, v,
-                      causal, window)
+    entry = "att_flash_wide" if wide else "att_flash"
+    if q.dtype == torch.bfloat16:
+        entry += "_bf16"
+    return _att_flash(entry, q, k, v, causal, window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

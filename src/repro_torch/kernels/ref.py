@@ -29,7 +29,11 @@ Attention (``csrc/attention.cu``): ``flash_attention_ref`` and
 (heads inside a position's row): the whole score matrix, masked with
 -1e30, a float32 softmax, GQA by head grouping.  The kernels' online
 softmax sums in another order and holds to rtol = atol = 2e-5, the bound
-``repro`` holds its Pallas attention kernels to.
+``repro`` holds its Pallas attention kernels to.  Both take any floating
+dtype: bfloat16 operands are read as float32, the arithmetic is float32
+and the output is rounded once to the input's dtype, as ``repro``'s
+Pallas kernels store it; the bfloat16 kernels hold to one bfloat16 ulp of
+their twin's output plus that float32 bound.
 
 RG-LRU (``csrc/rg_lru.cu``): ``rglru_scan_ref`` runs the recurrence in
 time order, each step one correctly rounded FMA

@@ -19,7 +19,12 @@ MoE ``mixtral-8x22b`` and ``kimi-k2-1t-a32b``.  In float32,
 ``kimi-k2-1t-a32b`` (4.1 TB) fit no 80 GB card whole; such a model fails
 where its parameters are allocated, its size in the message (the
 parameters are drawn on the host first, so there); ``--smoke`` serves
-the reduced config.  ``llama-3.2-vision-11b`` (39.1 GB) fits.
+the reduced config.  ``llama-3.2-vision-11b`` (39.1 GB) fits.  In
+bfloat16 (``run(param_dtype="bfloat16")``, ``repro``'s dtype on more
+than one device) ``qwen2.5-32b`` is 65.5 GB and fits one card; a model
+that large is best drawn on the card, ``init_model(cfg, seed,
+device="cuda", dtype=torch.bfloat16)``, and served with ``model=``: the
+host draw takes its whole size in host memory and tens of seconds.
 
 Like ``repro``'s launcher, a model with cross attention is given zeros
 as its memory, ``[batch, cross_memory_len, d_model]`` (the vision tower
@@ -30,7 +35,9 @@ frontend is a stub); :func:`run` takes seeded ones instead (``memory=``,
 The counterpart of ``repro``'s ``launch/serve.py`` with the same flags,
 plus ``--device`` (default ``cuda``; raises without it) and ``--seed``.
 The port runs on one card, so there is no ``--multi-pod`` and no mesh;
-parameters are float32, as ``repro`` chooses on one device.  Parameters
+parameters are float32, as ``repro`` chooses on one device, unless
+:func:`run` is given ``param_dtype="bfloat16"`` (the K/V cache, a
+``rec`` block's convolution state and the memory then bfloat16 too).  Parameters
 are drawn on the CPU from a generator seeded with ``--seed`` and copied to
 the device, and so are the prompts: runs on the card and on the CPU serve
 the same model the same prompts.  The first new token is the prefill's
@@ -53,6 +60,7 @@ from ..kernels import flash_attention as fa
 from ..kernels import rg_lru
 from ..models import Transformer, forward_with_cache, init_model
 from ..training import serve_step
+from ..training.train_loop import param_dtype as param_dtype_of
 from .inputs import cross_inputs
 
 
@@ -65,14 +73,17 @@ def _launches() -> Dict[str, int]:
     return {**fa.LAUNCHES, **da.LAUNCHES, **rg_lru.LAUNCHES}
 
 
-def make_model(cfg, seed: int, dev: torch.device) -> Transformer:
-    """``init_model(cfg, seed)`` drawn on the CPU, copied to ``dev``."""
-    host = init_model(cfg, seed, device="cpu")
+def make_model(cfg, seed: int, dev: torch.device,
+               dtype=torch.float32) -> Transformer:
+    """``init_model(cfg, seed, dtype=dtype)`` drawn on the CPU, copied to
+    ``dev``."""
+    host = init_model(cfg, seed, device="cpu", dtype=dtype)
     if dev.type == "cpu":
         return host
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, dtype=dtype)
     with torch.no_grad():
-        model.flat.copy_(host.flat)
+        for dt, buf in model.flats.items():
+            buf.copy_(host.flats[dt])
     return model
 
 
@@ -83,7 +94,8 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
         log: Optional[Callable[[str], None]] = print,
         model: Optional[Transformer] = None,
         memory: Optional[torch.Tensor] = None,
-        enc_frames: Optional[torch.Tensor] = None) -> Dict:
+        enc_frames: Optional[torch.Tensor] = None,
+        param_dtype: str = "float32") -> Dict:
     """Serve ``batch`` seeded prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each.  ``feed`` [batch, gen] (optional) feeds those
     tokens to the decode steps instead of the generated ones (teacher
@@ -94,9 +106,11 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
     ``device`` must keep their defaults (a second choice raises).
     ``memory`` [batch, cross_memory_len, d_model] (a model with cross
     attention) or ``enc_frames`` [batch, cross_memory_len, d_model] (an
-    encoder-decoder), on any device, are moved to the model's and given
-    to the prefill; without them it gets zeros, as ``repro``'s launcher
-    gives.  Returns ``{"cfg", "prompts", "tokens" [batch, gen], "prefill_ms",
+    encoder-decoder), on any device, are moved to the model's device and
+    dtype and given to the prefill; without them it gets zeros, as
+    ``repro``'s launcher gives.  ``param_dtype`` (``"float32"``, the
+    one-device rule of ``repro``'s launcher, or ``"bfloat16"``) is the
+    drawn model's; a ``model=`` keeps its own.  Returns ``{"cfg", "prompts", "tokens" [batch, gen], "prefill_ms",
     "step_ms" (per decode step), "tok_per_s", "launches"}`` -- the
     kernels' launches during the run -- and, with ``keep_logits``,
     ``"logits": {"prefill" [B, S, V], "decode" [B, gen - 1, V]}`` on the
@@ -108,22 +122,24 @@ def run(arch: str = "flaas-100m", smoke: bool = False, batch: int = 4,
         cfg = get_arch(arch)
         if smoke:
             cfg = reduced(cfg)
-        params = make_model(cfg, seed, dev)
-    elif arch != "flaas-100m" or smoke or str(device) != "cuda":
+        params = make_model(cfg, seed, dev, param_dtype_of(param_dtype))
+    elif (arch != "flaas-100m" or smoke or str(device) != "cuda"
+          or param_dtype != "float32"):
         raise ValueError("model= serves its own configuration on its own "
-                         "device; do not pass arch, smoke or device with it")
+                         "device in its own dtype; do not pass arch, smoke, "
+                         "device or param_dtype with it")
     else:
-        params, cfg, dev = model, model.cfg, model.flat.device
+        params, cfg, dev = model, model.cfg, model.device
     cpu_gen = torch.Generator().manual_seed(seed)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=cpu_gen, dtype=torch.int32)
     tok_gen = torch.Generator(device=dev).manual_seed(seed)
     prompts_d = prompts.to(dev)
-    cross = cross_inputs(cfg, batch, dev, memory, enc_frames)
+    cross = cross_inputs(cfg, batch, dev, memory, enc_frames, params.dtype)
     total = prompt_len + gen
     if log:
-        log(f"arch={cfg.name} device={dev} batch={batch} "
-            f"prompt_len={prompt_len} gen={gen}")
+        log(f"arch={cfg.name} device={dev} dtype={params.dtype} "
+            f"batch={batch} prompt_len={prompt_len} gen={gen}")
 
     before = _launches()
     _sync(dev)

@@ -6,7 +6,9 @@ checkpoint if there is one, and runs the DP-FedAvg train step
 saving every ``--ckpt-every`` steps: the same flags, defaults, training
 configuration and flow as ``repro``'s launcher on one device (float32
 parameters, AdamW -- Adafactor for ``kimi*`` -- and two microbatches
-when the batch is even).  A model with cross attention
+when the batch is even); :func:`run` also takes ``param_dtype="bfloat16"``,
+``repro``'s choice on more than one device (a float32 master in the
+optimizer; checkpoints store the bfloat16 leaves bitwise).  A model with cross attention
 (``llama-3.2-vision-11b``, ``whisper-medium``) gets its memory or encoder
 frames beside every batch: zeros, as ``repro``'s serving launcher gives
 (:func:`repro_torch.launch.inputs.cross_inputs`), or the tensor
@@ -35,16 +37,19 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_arch, reduced
 from ..data.pipeline import synth_tokens
 from ..training import DPConfig, TrainConfig, make_state, train_step
+from ..training.train_loop import param_dtype as param_dtype_of
 from .inputs import cross_inputs
 
 DEFAULT_CKPT = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
 
 
-def train_config(cfg, batch: int, noise: float, clip: float) -> TrainConfig:
-    """``repro``'s launcher's configuration on one device."""
+def train_config(cfg, batch: int, noise: float, clip: float,
+                 param_dtype: str = "float32") -> TrainConfig:
+    """``repro``'s launcher's configuration on one device (in
+    ``param_dtype``: float32 there)."""
     return TrainConfig(
         optimizer="adafactor" if cfg.name.startswith("kimi") else "adamw",
-        param_dtype="float32",
+        param_dtype=param_dtype,
         dp=DPConfig(clip=clip, noise_multiplier=noise,
                     n_micro=2 if batch % 2 == 0 else 1))
 
@@ -55,9 +60,12 @@ def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,
         device="cuda", multi_pod: bool = False,
         log: Optional[Callable[[str], None]] = print,
         memory: Optional[torch.Tensor] = None,
-        enc_frames: Optional[torch.Tensor] = None) -> Dict:
+        enc_frames: Optional[torch.Tensor] = None,
+        param_dtype: str = "float32") -> Dict:
     """Train ``steps`` steps from the latest checkpoint in ``ckpt`` (or
-    from step 0), saving every ``ckpt_every``.  ``memory`` (a model with
+    from step 0), saving every ``ckpt_every``, with parameters in
+    ``param_dtype`` (``"float32"``, ``repro``'s one-device choice, or
+    ``"bfloat16"``).  ``memory`` (a model with
     cross attention) or ``enc_frames`` (an encoder-decoder), [batch,
     cross_memory_len, d_model] on any device, go with every batch; without
     them such a model gets zeros.  Returns ``{"cfg", "tcfg",
@@ -74,9 +82,10 @@ def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,
     cfg = get_arch(arch)
     if smoke:
         cfg = reduced(cfg)
-    say(f"arch={cfg.name} device={dev} devices=1")
-    tcfg = train_config(cfg, batch, noise, clip)
-    cross = cross_inputs(cfg, batch, dev, memory, enc_frames)
+    say(f"arch={cfg.name} device={dev} devices=1 param_dtype={param_dtype}")
+    tcfg = train_config(cfg, batch, noise, clip, param_dtype)
+    cross = cross_inputs(cfg, batch, dev, memory, enc_frames,
+                         param_dtype_of(param_dtype))
     state = make_state(0, cfg, tcfg, device=dev)
     mgr = CheckpointManager(ckpt, keep_n=3, async_save=True)
     restored, at = mgr.restore(state)

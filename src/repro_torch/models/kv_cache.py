@@ -5,7 +5,7 @@ Cache layout (``repro``'s, per block):
 
   attn          {"k", "v"}: [B, Lc, KH, dh]            Lc = cache_len
   swa/local     {"k", "v"}: [B, min(window, Lc), ...]  ring buffer
-  rec           {"conv": [B, W-1, D], "h": [B, D]}     float32
+  rec           {"conv": [B, W-1, D], "h": [B, D]}     h float32
   mlstm         {"C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]}
   slstm         {"c", "n", "h", "m"}: [B, H, dh]       float32, dh = D/H
   xattn         {"xk", "xv"}: [B, Lm, KH, dh]          projected memory
@@ -40,6 +40,10 @@ runs its Hopper kernel on a CUDA tensor and its twin on a CPU tensor.  An
 step in the decode, an ``slstm`` block its scan (S steps, then one), as
 tensor code (:mod:`repro_torch.models.recurrent`).  All run under
 ``torch.no_grad``.
+
+The K/V entries and a ``rec`` block's ``conv`` take the model's
+parameter dtype (``repro`` writes ``k.astype(cache["k"].dtype)``), the
+xLSTM states and ``h`` stay float32.
 
 Where ``repro`` returns a new cache from each decode step, the port
 writes the step's key and value, or the recurrent block's new state,
@@ -84,24 +88,27 @@ def _cache_len_for(kind: str, cfg: ArchConfig, cache_len: int) -> int:
 
 @torch.no_grad()
 def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
-               cache_len: int, dtype=torch.float32, *, memory=None,
+               cache_len: int, dtype=None, *, memory=None,
                enc_frames=None) -> Cache:
-    """Zeroed cache, one entry per block (``{"k", "v"}`` in ``dtype``, or
-    a recurrent block's float32 state: ``rec`` ``{"conv", "h"}``,
-    ``mlstm`` ``{"C", "n", "m"}``, ``slstm`` ``{"c", "n", "h", "m"}``), on
-    the model's device.  A cross-attention block's ``{"xk", "xv"}`` are
-    projected from ``memory`` (or from the encoder's output over
-    ``enc_frames``), as ``repro`` precomputes them."""
+    """Zeroed cache, one entry per block (``{"k", "v"}`` in ``dtype``, by
+    default the model's parameter dtype, or a recurrent block's state:
+    ``rec`` ``{"conv", "h"}``, ``conv`` in ``dtype`` and ``h`` float32,
+    ``mlstm`` ``{"C", "n", "m"}`` and ``slstm`` ``{"c", "n", "h", "m"}``
+    float32), on the model's device.  A cross-attention block's ``{"xk",
+    "xv"}`` are projected from ``memory`` (or from the encoder's output
+    over ``enc_frames``), as ``repro`` precomputes them."""
     _check(params, cfg)
     memory = cross_memory(params, cfg, memory, enc_frames, _encoder_attend)
-    dev = params.flat.device
+    dev = params.device
+    dtype = params.dtype if dtype is None else dtype
     H = cfg.n_heads
     out = []
     for blk in params.blocks:
         kind = blk.kind
         if kind in _STATE:
             if kind == "rec":
-                state = R.rglru_init_state(batch, cfg.d_model, dev)
+                state = R.rglru_init_state(batch, cfg.d_model, dev,
+                                           dtype=dtype)
             elif kind == "mlstm":
                 state = R.mlstm_init_state(batch, H, cfg.d_model // H, dev)
             else:

@@ -7,7 +7,14 @@ Conventions (as in ``repro/models/layers.py``):
   * projections are ``x @ w`` with ``w`` stored ``[in, out]``; attention
     takes ``q [B, S, H, dh]`` and ``k, v [B, S, KH, dh]``.
   * norms and the softmax accumulate in float32; outputs take the input's
-    dtype.
+    dtype.  In a bfloat16 model the activations are bfloat16 and round
+    where ``repro``'s do: norms and RoPE compute in float32 and cast back,
+    each projection's product is rounded to bfloat16 (the LM head's too,
+    before ``.float()``), attention returns q's dtype.  Where ``repro``
+    multiplies a bfloat16 activation by a float32 leaf (the MoE router,
+    the mLSTM's gate projections), JAX promotes to float32; the port casts
+    the activation explicitly, since ``torch.matmul`` refuses mixed
+    operands.
   * training attention is chunked online-softmax, streaming over KV
     blocks, so the score tensor is ``[B, Sq, H, chunk]``, never ``[Sq,
     Skv]``.  It runs under autograd, as ``repro`` runs it under

@@ -15,8 +15,9 @@
      expert's capacity gets nothing from that expert (it passes through
      the residual);
   5. the gathered batch [E, C, D] (invalid slots zero) and the expert
-     products as ``torch.bmm`` in float32 (TF32 off): SwiGLU where the
-     experts have ``w_gate``, else tanh-GELU (``jax.nn.gelu``'s default);
+     products as ``torch.bmm`` in the banks' dtype (float32 with TF32 off,
+     or bfloat16, the router staying float32): SwiGLU where the experts
+     have ``w_gate``, else tanh-GELU (``jax.nn.gelu``'s default);
   6. the combine: each token's kept outputs, each times its gate, summed
      back to [T, D].
 

@@ -10,9 +10,12 @@ function; they differ only in rounding (the associative scan's by up to
 about 1e-6 of the largest |h|), so the block is held to ``repro`` in
 absolute terms scaled by its largest value.
 
-State of a block (``repro``'s decode state, float32 here): ``(conv [B,
-W-1, D], h [B, D])``, the last ``W - 1 = 3`` inputs of the causal
-convolution and the scan's last output.
+State of a block (``repro``'s decode state): ``(conv [B, W-1, D], h [B,
+D])``, the last ``W - 1 = 3`` inputs of the causal convolution, in the
+parameters' dtype, and the scan's last output, float32.  The scan's
+``a`` and ``b`` are float32 whatever the parameter dtype (``repro``'s
+``_rglru_coeffs`` casts before the scan), so the scan kernel and its
+backward take float32 only.
 
 The xLSTM blocks are ``repro``'s ``jnp`` code written in PyTorch tensor
 operations, in its operation order; ``repro`` has no Pallas kernel for
@@ -94,9 +97,12 @@ def rglru_block(x, params: Params, state: Optional[State] = None):
 
 
 def rglru_init_state(batch: int, d_rnn: int, device,
-                     conv_width: int = CONV_WIDTH) -> State:
-    """Zeroed decode state (float32) on ``device``."""
-    return (torch.zeros((batch, conv_width - 1, d_rnn), dtype=torch.float32,
+                     conv_width: int = CONV_WIDTH,
+                     dtype=torch.float32) -> State:
+    """Zeroed decode state on ``device``: the convolution's inputs in
+    ``dtype`` (the parameters'), ``h`` in float32 (``repro``'s
+    ``kv_cache.init_cache_slot``)."""
+    return (torch.zeros((batch, conv_width - 1, d_rnn), dtype=dtype,
                         device=device),
             torch.zeros((batch, d_rnn), dtype=torch.float32, device=device))
 

@@ -19,11 +19,19 @@ of blocks, in layer order (prefix, body group by group, suffix) -- whose
 ``nn.ParameterDict``s carry ``repro``'s names (``embed.table``,
 ``blocks.3.attn.wq``, ``blocks.4.gate_x``, ``blocks.1.moe.w_up``,
 ``final_norm.scale``, ``lm_head.w``, ``encoder.blocks.0.attn.wq``).
-Every parameter is a view into one flat float32 buffer, ``model.flat``,
-so DP code can read,
-write and difference a whole model as one vector without copying it
-piecewise.  The parameters are laid out on the meta device and the
-buffer is the one allocation, so a model that does not fit its device
+Every parameter is a view into one flat buffer of its dtype: a float32
+model has one, ``model.flat``, so DP code can read, write and difference
+a whole model as one vector without copying it piecewise.  A bfloat16
+model (``dtype=torch.bfloat16``) keeps ``repro``'s float32 leaves float32
+-- norm scales and biases, the RG-LRU's ``b_a``, ``b_i`` and ``lambda``,
+the mLSTM's ``w_i``, ``b_i``, ``w_f`` and ``b_f``, the sLSTM's ``b_in``
+and ``r``, the ``xattn`` gates and the MoE router -- and so holds two,
+``model.flats[torch.bfloat16]`` and ``model.flats[torch.float32]``;
+:func:`flat_delta` and :func:`add_flat_` read and write such a model as
+one float32 vector in parameter order.  The port's default is float32
+(``repro``'s is bfloat16): its one-device launchers, like ``repro``'s,
+run float32.  The parameters are laid out on the meta device and the
+buffers are the allocations, so a model that does not fit its device
 fails there, with its size in the message.
 
 ``remat`` trades memory for recompute and leaves values unchanged; at the
@@ -32,8 +40,10 @@ keeps every activation and ignores it.
 
 Entry points:
 
-  init_model(cfg, seed, device)     -> Transformer (random, torch.Generator)
-  params_from_jax(tree, cfg, device)-> Transformer holding repro's values
+  init_model(cfg, seed, device, dtype)
+                                    -> Transformer (random, torch.Generator)
+  params_from_jax(tree, cfg, device, dtype)
+                                    -> Transformer holding repro's values
   forward(params, tokens, cfg, memory=, enc_frames=)
                                     -> logits [B, S, vocab] (float32)
   encode(params, frames, cfg)       -> the encoder's output [B, Le, D]
@@ -81,10 +91,30 @@ def reads_memory(cfg: ArchConfig) -> bool:
     return any(kind in _CROSS for kind, _ in cfg.layer_specs())
 
 
-def _pdict(shapes: Dict[str, tuple], device) -> nn.ParameterDict:
+# Leaves ``repro`` keeps float32 whatever the parameter dtype, by the
+# owner's name in the block: the RG-LRU's gate biases and decay
+# (``recurrent.py:46-49``), the mLSTM's gate projections (``:119-122``),
+# the sLSTM's gate bias and recurrent weights (``:238-246``), the MoE
+# router (``moe.py:40``).  Norms (``layers.py:25, :55``, :func:`_norm`)
+# and the ``xattn`` gates (``transformer.py:76-77``) are float32 whole.
+_FLOAT32_LEAVES = {"rg": ("b_a", "b_i", "lambda"),
+                   "mlstm": ("w_i", "b_i", "w_f", "b_f"),
+                   "slstm": ("b_in", "r"), "moe": ("router",)}
+
+
+def _pdict(shapes: Dict[str, tuple], device, dtype=torch.float32,
+           keep32=()) -> nn.ParameterDict:
+    """Parameters of ``shapes`` in ``dtype``, those named in ``keep32`` in
+    float32."""
     return nn.ParameterDict({
-        k: nn.Parameter(torch.empty(s, dtype=torch.float32, device=device))
+        k: nn.Parameter(torch.empty(
+            s, dtype=torch.float32 if k in keep32 else dtype, device=device))
         for k, s in shapes.items()})
+
+
+def _norm(d: int, kind: str, device) -> nn.ParameterDict:
+    """A norm's leaves, float32 in any model."""
+    return _pdict(_norm_shapes(d, kind), device)
 
 
 def _norm_shapes(d: int, kind: str) -> Dict[str, tuple]:
@@ -143,37 +173,41 @@ class Block(nn.Module):
     first in its parameter order (and in ``model.flat``): a module lists
     its own parameters before its children's."""
 
-    def __init__(self, kind: str, use_moe: bool, cfg: ArchConfig, device):
+    def __init__(self, kind: str, use_moe: bool, cfg: ArchConfig, device,
+                 dtype=torch.float32):
         super().__init__()
         self.kind = kind
         self.use_moe = use_moe
         D, H = cfg.d_model, cfg.n_heads
         if kind != "xattn":
-            self.norm1 = _pdict(_norm_shapes(D, cfg.norm), device)
+            self.norm1 = _norm(D, cfg.norm, device)
         if kind in _XLSTM:
             shapes = R.mlstm_shapes if kind == "mlstm" else R.slstm_shapes
-            self.cell = _pdict(shapes(D, H), device)
+            self.cell = _pdict(shapes(D, H), device, dtype,
+                               _FLOAT32_LEAVES[kind])
             return
         if kind == "rec":
-            self.rg = _pdict(_rg_shapes(D), device)
+            self.rg = _pdict(_rg_shapes(D), device, dtype,
+                             _FLOAT32_LEAVES["rg"])
         elif kind != "xattn":
-            self.attn = _pdict(_attn_shapes(cfg), device)
+            self.attn = _pdict(_attn_shapes(cfg), device, dtype)
         if kind in _CROSS:
-            self.normx = _pdict(_norm_shapes(D, cfg.norm), device)
-            self.xattn = _pdict(_attn_shapes(cfg), device)
+            self.normx = _norm(D, cfg.norm, device)
+            self.xattn = _pdict(_attn_shapes(cfg), device, dtype)
         if kind == "xattn":
             for gate in ("gate_x", "gate_m"):
                 setattr(self, gate, nn.Parameter(torch.empty(
                     (), dtype=torch.float32, device=device)))
-        self.norm2 = _pdict(_norm_shapes(D, cfg.norm), device)
+        self.norm2 = _norm(D, cfg.norm, device)
         if not use_moe:
             self.mlp = _pdict(_mlp_shapes(cfg, cfg.dense_ff or cfg.d_ff),
-                              device)
+                              device, dtype)
             return
-        self.moe = _pdict(_moe_shapes(cfg), device)
+        self.moe = _pdict(_moe_shapes(cfg), device, dtype,
+                          _FLOAT32_LEAVES["moe"])
         if cfg.moe.n_shared:
             self.shared = _pdict(
-                _mlp_shapes(cfg, cfg.d_ff * cfg.moe.n_shared), device)
+                _mlp_shapes(cfg, cfg.d_ff * cfg.moe.n_shared), device, dtype)
 
     def forward(self, h, cfg: ArchConfig, positions, causal: bool = True,
                 memory=None):
@@ -186,12 +220,12 @@ class Encoder(nn.Module):
     """``whisper-medium``'s encoder: ``blocks`` (``attn`` blocks) and
     ``final_norm``, ``repro``'s ``params["encoder"]``."""
 
-    def __init__(self, cfg: ArchConfig, device):
+    def __init__(self, cfg: ArchConfig, device, dtype=torch.float32):
         super().__init__()
         self.blocks = nn.ModuleList(
-            Block("attn", False, cfg, device)
+            Block("attn", False, cfg, device, dtype)
             for _ in range(cfg.encoder.n_layers))
-        self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), device)
+        self.final_norm = _norm(cfg.d_model, cfg.norm, device)
 
 
 # (q, k, v, window) -> attention output [B, S, H, dh]
@@ -269,11 +303,11 @@ def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
     ``attn`` does, then cross attention, then the MLP, each pre-norm and
     added; the new state is ``(k, v, xk, xv)``.  Returns ``(h, new
     state)``."""
-    if kind == "xattn":
+    if kind == "xattn":   # gate x output in float32, rounded to h's dtype
         out, new = _cross(h, p, cfg, xattend)
-        h = h + torch.tanh(p.gate_x) * out
+        h = h + (torch.tanh(p.gate_x) * out.float()).to(h.dtype)
         ff = _ffn_apply(L.apply_norm(h, p.norm2, cfg.norm), p, cfg)
-        return h + torch.tanh(p.gate_m) * ff, new
+        return h + (torch.tanh(p.gate_m) * ff.float()).to(h.dtype), new
     x = L.apply_norm(h, p.norm1, cfg.norm)
     if kind == "mlstm":
         if state is not None and x.shape[1] == 1:
@@ -374,43 +408,77 @@ def logits_head(params: "Transformer", h):
 
 class Transformer(nn.Module):
     """The model's parameters (uninitialised: :func:`init_model` or
-    :func:`params_from_jax` fill them) and its training forward."""
+    :func:`params_from_jax` fill them) and its training forward.
+    ``dtype`` is the parameter dtype, float32 (the default) or bfloat16;
+    in a bfloat16 model ``repro``'s float32 leaves stay float32 (module
+    docstring), each dtype in its own flat buffer, ``flats[dtype]``."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", dtype=torch.float32):
         super().__init__()
         _check_ported(cfg)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"parameter dtype {dtype}: float32 or bfloat16")
         dev = resolve_device(device)
         self.cfg = cfg
-        meta = torch.device("meta")     # shapes only: flat is the storage
-        self.embed = _pdict({"table": (cfg.vocab, cfg.d_model)}, meta)
+        self.dtype = dtype
+        meta = torch.device("meta")     # shapes only: flats are the storage
+        self.embed = _pdict({"table": (cfg.vocab, cfg.d_model)}, meta, dtype)
         self.blocks = nn.ModuleList(
-            Block(kind, use_moe, cfg, meta)
+            Block(kind, use_moe, cfg, meta, dtype)
             for kind, use_moe in cfg.layer_specs())
-        self.final_norm = _pdict(_norm_shapes(cfg.d_model, cfg.norm), meta)
+        self.final_norm = _norm(cfg.d_model, cfg.norm, meta)
         if not cfg.tie_embeddings:
-            self.lm_head = _pdict({"w": (cfg.d_model, cfg.vocab)}, meta)
+            self.lm_head = _pdict({"w": (cfg.d_model, cfg.vocab)}, meta, dtype)
         if cfg.encoder is not None:
-            self.encoder = Encoder(cfg, meta)
-        # every parameter becomes a view of its slice of one flat buffer
+            self.encoder = Encoder(cfg, meta, dtype)
+        # every parameter becomes a view of its slice of its dtype's buffer
         params = list(self.named_parameters())
-        n = sum(p.numel() for _, p in params)
-        try:
-            self.flat = torch.empty(n, dtype=torch.float32, device=dev)
-        except RuntimeError as e:           # torch.OutOfMemoryError too
-            raise MemoryError(
-                f"{cfg.name} ({cfg.n_layers} layers, d_model "
-                f"{cfg.d_model}): its flat float32 buffer [{n}] "
-                f"({n * 4 / 1e9:.1f} GB) does not fit on {dev}: {e}") from e
-        off = 0
+        sizes: Dict[torch.dtype, int] = {}
+        for _, p in params:
+            sizes[p.dtype] = sizes.get(p.dtype, 0) + p.numel()
+        self.flats: Dict[torch.dtype, torch.Tensor] = {}
+        for dt in sorted(sizes, key=lambda d: d != dtype):  # dtype first
+            n = sizes[dt]
+            try:
+                self.flats[dt] = torch.empty(n, dtype=dt, device=dev)
+            except RuntimeError as e:       # torch.OutOfMemoryError too
+                gb = sum(k * d.itemsize for d, k in sizes.items()) / 1e9
+                raise MemoryError(
+                    f"{cfg.name} ({cfg.n_layers} layers, d_model "
+                    f"{cfg.d_model}): its flat {dt} buffer [{n}] (the model "
+                    f"{gb:.1f} GB in all) does not fit on {dev}: {e}") from e
+        offs = dict.fromkeys(sizes, 0)
         for name, p in params:
             owner, _, leaf = name.rpartition(".")
             owner = self.get_submodule(owner)
-            view = nn.Parameter(self.flat[off:off + p.numel()].view(p.shape))
+            off = offs[p.dtype]
+            view = nn.Parameter(
+                self.flats[p.dtype][off:off + p.numel()].view(p.shape))
             if isinstance(owner, nn.ParameterDict):
                 owner[leaf] = view
             else:
                 setattr(owner, leaf, view)
-            off += p.numel()
+            offs[p.dtype] += p.numel()
+
+    @property
+    def flat(self) -> torch.Tensor:
+        """The one flat buffer of a float32 model.  A bfloat16 model has
+        one per dtype (``flats``); :func:`flat_delta` and
+        :func:`add_flat_` read and write it as one vector."""
+        if len(self.flats) != 1:
+            raise ValueError(
+                f"a {self.dtype} model keeps one flat buffer per dtype "
+                f"({sorted(str(d) for d in self.flats)}): use model.flats, "
+                "flat_delta or add_flat_")
+        return next(iter(self.flats.values()))
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.flats.values())).device
+
+    @property
+    def n_params(self) -> int:
+        return sum(f.numel() for f in self.flats.values())
 
     def forward(self, tokens, memory=None, enc_frames=None):
         cfg = self.cfg
@@ -423,27 +491,59 @@ class Transformer(nn.Module):
 
 
 def clone_model(model: Transformer) -> Transformer:
-    """A new model of the same configuration and device holding a copy of
-    ``model``'s values."""
-    out = Transformer(model.cfg, device=model.flat.device)
+    """A new model of the same configuration, dtype and device holding a
+    copy of ``model``'s values."""
+    out = Transformer(model.cfg, device=model.device, dtype=model.dtype)
     with torch.no_grad():
-        out.flat.copy_(model.flat)
+        for dt, buf in out.flats.items():
+            buf.copy_(model.flats[dt])
     return out
 
 
 def unflatten(model: Transformer, vec: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
     """Views of a flat ``[P]`` vector as ``{name: tensor}``, laid out as
-    ``model``'s parameters."""
+    ``model``'s parameters (in parameter order, whatever their dtypes)."""
     out, off = {}, 0
     for name, p in model.named_parameters():
-        out[name] = vec[off:off + p.numel()].view_as(p)
+        out[name] = vec[off:off + p.numel()].view(p.shape)
         off += p.numel()
     return out
 
 
+def flat_delta(new: Transformer, old: Transformer,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``new - old`` as one float32 ``[P]`` vector in parameter order
+    (written into ``out`` when given): each leaf cast exactly to float32
+    and subtracted, as ``repro``'s ``fedavg.client_update``.  For a
+    float32 model, one subtraction of the flat buffers."""
+    if new.dtype == torch.float32:
+        return torch.sub(new.flat, old.flat, out=out)
+    if out is None:
+        out = torch.empty(new.n_params, dtype=torch.float32,
+                          device=new.device)
+    views = unflatten(new, out)
+    for (name, a), b in zip(new.named_parameters(), old.parameters()):
+        torch.sub(a.detach().float(), b.detach().float(), out=views[name])
+    return out
+
+
 @torch.no_grad()
-def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
+def add_flat_(model: Transformer, vec: torch.Tensor) -> None:
+    """``model += vec`` in place, ``vec`` a float32 ``[P]`` vector in
+    parameter order: each leaf added in float32 and rounded once to its
+    dtype (``repro``'s ``(p.astype(f32) + d).astype(p.dtype)``).  For a
+    float32 model, one addition to the flat buffer."""
+    if model.dtype == torch.float32:
+        model.flat.add_(vec)
+        return
+    for p, d in zip(model.parameters(), unflatten(model, vec).values()):
+        p.copy_(p.float() + d)
+
+
+@torch.no_grad()
+def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
+               dtype=torch.float32) -> Transformer:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``, with ``repro``'s scheme: dense weights
     ``N(0, 1/fan_in)``, embeddings and the RG-LRU's ``conv_w`` ``N(0,
@@ -455,9 +555,13 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     recurrent ``r`` [H, dh, 4 dh] ``0.3 N(0, 1/H)`` and the experts'
     banks [E, D, F] / [E, F, D] ``N(0, 1/E)`` (``repro`` takes the
     leading axis as the fan-in).  (``repro`` draws from ``jax.random``;
-    the values differ, the distribution does not.)"""
-    model = Transformer(cfg, device=device)
-    gen = torch.Generator(device=model.flat.device).manual_seed(seed)
+    the values differ, the distribution does not.)  ``dtype`` is the
+    parameter dtype (:class:`Transformer`; the port's default float32,
+    ``repro``'s bfloat16): a bfloat16 leaf is drawn and scaled in float32
+    and rounded once, as ``repro`` draws, so it holds the float32 model's
+    value of the same seed, rounded."""
+    model = Transformer(cfg, device=device, dtype=dtype)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
@@ -472,24 +576,42 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
             u = (u * (0.999 - 0.9) + 0.9) ** (1.0 / R._C_RGLRU)
             p.copy_(torch.log(u / (1.0 - u)))
         else:
-            p.normal_(generator=gen)
-            p.mul_(0.02 if leaf in ("table", "conv_w")
+            w = p if p.dtype == torch.float32 else torch.empty(
+                p.shape, dtype=torch.float32, device=p.device)
+            w.normal_(generator=gen)
+            w.mul_(0.02 if leaf in ("table", "conv_w")
                    else 1.0 / math.sqrt(p.shape[0]))
             if leaf == "r":
-                p.mul_(0.3)
+                w.mul_(0.3)
+            if w is not p:
+                p.copy_(w)
     return model
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor; ``repro``'s bfloat16 leaves (numpy arrays
+    whose ``dtype.name`` is ``"bfloat16"``, from ``ml_dtypes``, which the
+    port does not import) through their 16-bit pattern, bitwise."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
-                    device="cuda") -> Transformer:
-    """A model holding the values of ``repro``'s parameter pytree (numpy
-    arrays, e.g. from ``jax.device_get(init_model(...))``): ``prefix``
-    blocks, then the stacked ``body`` (``[n_groups, ...]`` per pattern
-    position, the ``xattn`` gates ``[n_groups]``) group by group, then
-    ``suffix``; the stacked ``encoder.body`` block by block.  Every leaf
-    of the model must be in the tree."""
-    model = Transformer(cfg, device=device)
+                    device="cuda", dtype=torch.float32) -> Transformer:
+    """A model of parameter dtype ``dtype`` holding the values of
+    ``repro``'s parameter pytree (numpy arrays, e.g. from
+    ``jax.device_get(init_model(...))``, float32 or bfloat16 leaves):
+    ``prefix`` blocks, then the stacked ``body`` (``[n_groups, ...]`` per
+    pattern position, the ``xattn`` gates ``[n_groups]``) group by group,
+    then ``suffix``; the stacked ``encoder.body`` block by block.  Every
+    leaf of the model must be in the tree.  A leaf is copied into its
+    parameter's dtype: bfloat16 into bfloat16 bitwise, bfloat16 into
+    float32 exactly."""
+    model = Transformer(cfg, device=device, dtype=dtype)
 
     def unstack(stack, g):
         return {k: unstack(x, g) if isinstance(x, dict) else np.asarray(x)[g]
@@ -514,10 +636,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
         a = src
         for key in name.split("."):
             a = a[int(key)] if key.isdigit() else a[key]
-        a = np.asarray(a, dtype=np.float32)
-        if a.shape != tuple(p.shape):
-            raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
-        p.copy_(torch.tensor(a))
+        t = _to_tensor(a)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(t)
     return model
 
 

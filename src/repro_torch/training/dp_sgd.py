@@ -1,7 +1,8 @@
 """DP-SGD gradient machinery: clip + noise, two granularities.
 
 * ``example`` mode -- true per-example clipping.  The per-example
-  gradients are written row by row into one float32 ``[B, P]`` matrix,
+  gradients are written row by row into one float32 ``[B, P]`` matrix
+  (a bfloat16 model's bfloat16 gradients cast exactly),
   and the flatten/clip/accumulate step is
   :func:`repro_torch.kernels.dp_clip_noise.dp_clip_accumulate`: the two
   Hopper kernels on the card, their twins on the CPU.
@@ -14,7 +15,9 @@ Noise is added once after aggregation: std = sigma * clip / n_units, drawn
 from a ``torch.Generator`` on the gradients' device.
 
 A gradient *tree* here is a ``{name: tensor}`` dict in the model's
-parameter order.
+parameter order.  A bfloat16 model's gradients are bfloat16 (its float32
+leaves' float32); norms, clipping, sums and noise are float32, as in
+``repro`` (``dp_sgd.py:25-37``).
 """
 from __future__ import annotations
 
@@ -74,13 +77,13 @@ def dp_gradients(
     B = next(iter(batch.values())).shape[0]
 
     if mode == "example":
-        G = torch.empty((B, params.flat.numel()), dtype=torch.float32,
-                        device=params.flat.device)
+        G = torch.empty((B, params.n_params), dtype=torch.float32,
+                        device=params.device)
         losses = []
         for b in range(B):
             loss = loss_fn(params, _slice(batch, b, b + 1))
             grads = torch.autograd.grad(loss, weights)
-            torch.cat([g.reshape(-1) for g in grads], out=G[b])
+            torch.cat([g.reshape(-1).float() for g in grads], out=G[b])
             losses.append(loss.detach())
         gsum, norms = dp_clip_accumulate(G, clip)
         gsum = unflatten(params, gsum)
@@ -90,7 +93,8 @@ def dp_gradients(
             raise ValueError(f"batch {B} is not a multiple of n_micro "
                              f"{n_micro}")
         m = B // n_micro
-        gsum = {k: torch.zeros_like(p) for k, p in params.named_parameters()}
+        gsum = {k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.named_parameters()}
         norms, losses = [], []
         for i in range(n_micro):
             loss = loss_fn(params, _slice(batch, i * m, (i + 1) * m))

@@ -25,8 +25,12 @@ them in).  ``aggregate`` clips and sums that matrix with
 clips each row by ``rownorms``' scales, quantizes each parameter's slice
 of a row on its own scale (``repro``'s per-leaf scale) and sums the
 dequantized rows with ``clip_accumulate`` at unit scales.  The model is
-updated in place (``model.flat += mean``) rather than copied: at
-``flaas-100m`` a copy is 0.5 GB per pipeline per round.
+updated in place (``model.flat += mean``; for a bfloat16 model each leaf
+is added in float32 and rounded once, ``transformer.add_flat_``) rather
+than copied: at ``flaas-100m`` a copy is 0.5 GB per pipeline per round.
+A bfloat16 client's local SGD steps round each leaf once a step, as
+``repro``'s ``_local_sgd_step``; its delta is the difference of the
+leaves cast exactly to float32.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ import torch
 
 from ..kernels.dp_clip_noise import (dp_accumulate, dp_clip_accumulate,
                                      dp_row_scales)
-from ..models.transformer import Transformer, clone_model
+from ..models.transformer import (Transformer, add_flat_, clone_model,
+                                  flat_delta)
 from ..privacy.accountant import RdpAccountant
 from .compression import compress_rows
 from .dp_sgd import add_noise
@@ -70,7 +75,7 @@ def client_update(params: Transformer, loss_fn, batches, lr: float,
             grads = torch.autograd.grad(loss_fn(work, b), weights)
             with torch.no_grad():
                 torch._foreach_sub_(weights, grads, alpha=lr)
-    return torch.sub(work.flat, params.flat, out=out)
+    return flat_delta(work, params, out=out)
 
 
 def _rows(x) -> torch.Tensor:
@@ -133,18 +138,17 @@ def fl_round(
     keep = max(1, int(np.ceil(cfg.deadline_frac * n_sel)))
     kept = [int(selected[i]) for i in order[:keep]]
 
-    deltas = torch.empty((keep, params.flat.numel()), dtype=torch.float32,
-                         device=params.flat.device)
+    deltas = torch.empty((keep, params.n_params), dtype=torch.float32,
+                         device=params.device)
     for row, dev in enumerate(kept):
         client_update(params, loss_fn, client_data[dev](), cfg.local_lr,
                       cfg.local_epochs, out=deltas[row])
 
-    gen = torch.Generator(device=params.flat.device).manual_seed(
+    gen = torch.Generator(device=params.device).manual_seed(
         cfg.seed * 7919 + round_idx)
     mean_delta, _ = aggregate(deltas, cfg.clip, sigma * cfg.clip, gen,
                               compress=cfg.compress, layout=params)
-    with torch.no_grad():
-        params.flat.add_(mean_delta)
+    add_flat_(params, mean_delta)
     if accountant is not None and sigma > 0:
         accountant.record_step(sigma)
     return params, {"cohort": keep, "stragglers_dropped": n_sel - keep,

@@ -4,9 +4,12 @@ Functional, as in ``repro``: ``init(params) -> state`` and
 ``update(grads, state, params) -> (new_params, new_state)``, with no
 tensor changed in place.  ``params`` is a tree or a model (its
 ``named_parameters()``).  Mixed precision: for low-precision (bfloat16)
-parameters AdamW and Adafactor keep a float32 master copy and cast each
-update back; for float32 parameters, all the port's models train, the
-master equals the parameters.  Adafactor's factored second moment (row
+parameters AdamW and Adafactor keep a float32 master copy
+(``keep_master``, ``repro``'s ``optimizer.py:24-28``) and cast each
+update back, rounding once; without it (``keep_master=False``, as
+``repro`` trains kimi) each update starts from the parameters cast to
+float32.  Gradients of any dtype are cast to float32 first.  For float32
+parameters the master equals the parameters.  Adafactor's factored second moment (row
 and column statistics of each matrix) is ``repro``'s memory-viable
 choice for the 1T-parameter MoE.
 """

@@ -51,24 +51,34 @@ class TrainConfig:
         return make_optimizer("sgd", lr=self.lr)
 
 
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def param_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``TrainConfig.param_dtype`` name."""
+    if name not in PARAM_DTYPES:
+        raise ValueError(f"param_dtype {name!r}: one of "
+                         f"{sorted(PARAM_DTYPES)}")
+    return PARAM_DTYPES[name]
+
+
 def make_state(seed: int, cfg: ArchConfig, tcfg: TrainConfig,
                device="cuda") -> Dict[str, Any]:
     """Parameters from :func:`repro_torch.models.init_model` (seeded
-    ``torch.Generator``), the optimizer's state, the step count and the
-    seed.  ``device`` defaults to CUDA and raises without it.  Only
-    ``param_dtype="float32"`` is in this slice.  A model with cross
-    attention trains on batches that carry its ``memory`` (or an
-    encoder-decoder's ``enc_frames``), [B, L, d_model] beside the
-    tokens."""
-    if tcfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"param_dtype {tcfg.param_dtype!r}: the port trains float32 "
-            "parameters only (ROADMAP.md, Queue 1)")
-    params = init_model(cfg, seed, device=device)
+    ``torch.Generator``) in ``tcfg.param_dtype`` (``"float32"`` or
+    ``"bfloat16"``; the dataclass's default is ``repro``'s, bfloat16), the
+    optimizer's state (for bfloat16 parameters with a float32 master
+    unless ``tcfg.keep_master`` is False, as ``repro`` trains kimi), the
+    step count and the seed.  ``device`` defaults to CUDA and raises
+    without it.  A model with cross attention trains on batches that
+    carry its ``memory`` (or an encoder-decoder's ``enc_frames``), [B, L,
+    d_model] in the parameter dtype, beside the tokens."""
+    params = init_model(cfg, seed, device=device,
+                        dtype=param_dtype(tcfg.param_dtype))
     opt = tcfg.make_optimizer().init(params)
     return {"params": params, "opt": opt,
             "step": torch.zeros((), dtype=torch.int32,
-                                device=params.flat.device),
+                                device=params.device),
             "seed": seed}
 
 
@@ -108,8 +118,7 @@ def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
     ``clip_frac``), device scalars.  ``remat`` is accepted and ignored
     (:mod:`repro_torch.models.transformer`)."""
     model = state["params"]
-    gen = step_generator(state["seed"], int(state["step"]),
-                         model.flat.device)
+    gen = step_generator(state["seed"], int(state["step"]), model.device)
     (grads, metrics), loss = _grads_with_loss(
         make_loss_fn(cfg, tcfg.remat), model, batch, gen, tcfg)
     new_params, new_opt = tcfg.make_optimizer().update(
@@ -125,7 +134,8 @@ def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
 def _grads_with_loss(loss_fn, params, batch, generator: torch.Generator,
                      tcfg: TrainConfig):
     """``((grads {name: float32 tensor}, metrics), loss)``: plain
-    gradients for DP mode ``none``, else :func:`dp_gradients`' noised
+    gradients (in the parameters' dtype, cast to float32 as ``repro``
+    casts them) for DP mode ``none``, else :func:`dp_gradients`' noised
     mean of clipped units (``microbatch`` or ``example``) and its mean
     unit loss."""
     dp = tcfg.dp

@@ -257,8 +257,14 @@ def test_aggregate_noise_std_and_reproducibility(n, sigma, clip):
 
 
 def test_make_state_is_float32_only():
-    with pytest.raises(NotImplementedError):
-        make_state(0, CFG, TrainConfig(), device="cpu")
+    """The float32 state as before; since bfloat16 parameters came to the
+    port, ``TrainConfig()``'s default (``repro``'s bfloat16) builds a
+    bfloat16 model with a float32 master, and any other dtype raises."""
+    st = make_state(0, CFG, TrainConfig(), device="cpu")
+    assert st["params"].dtype == torch.bfloat16
+    assert st["opt"]["master"]["embed.table"].dtype == torch.float32
+    with pytest.raises(ValueError):
+        make_state(0, CFG, TrainConfig(param_dtype="float16"), device="cpu")
     st = make_state(0, CFG, TrainConfig(param_dtype="float32"), device="cpu")
     assert st["params"].flat.dtype == torch.float32
     assert set(st["opt"]) == {"m", "v", "count", "master"}
