@@ -315,7 +315,27 @@ Phases (each raises on failure; nothing is caught):
      memory), one microbatch's gradients of the worker's cut card vs CPU
      within BF16_FACTOR x d plus half a bfloat16 ulp of the largest |g|;
      launch/train.run(param_dtype="bfloat16") on flaas-100m resumed from
-     its first checkpoint, bitwise the uninterrupted run.
+     its first checkpoint, bitwise the uninterrupted run;
+ 35. the sharded training step (repro_torch.launch.sharded_train, ranks
+     spawned after phase 21, beside no other phase): 4 Gloo
+     ranks sharing the card -- flaas-100m at launch/train.py's defaults
+     on (data 2, model 2), SHARD_STEPS steps, against the one-process
+     card run on rank 0 (gradients with noise off within RTOL_TRAIN of
+     each leaf's largest |g|, loss and grad_norm_mean within RTOL_TRAIN,
+     parameters after SHARD_COMPARE_AT steps within Adam's 2 lr), each
+     rank's bytes of parameters and optimizer state equal to the rules'
+     count, ms per step a rank (the 2-rank and NCCL worlds run beside
+     the 4 ranks); DP example mode one step (rownorms and
+     clip_accumulate once a rank, on its share of the parameter vector,
+     in a gradient pass with noise off and in the step; the gradients
+     within RTOL_TRAIN of each leaf's largest |g|, loss and
+     grad_norm_mean within RTOL_TRAIN);
+     recurrentgemma-2b at one group on (data 1, model 2) on 2 more Gloo
+     ranks, the scan and its backward on half the channels, exact
+     launches, gradients within GRAD_RTOL_TRAIN of the largest |g|;
+     pipeline_apply over flaas-100m's 12 blocks as 4 stages against the
+     sequential forward; one NCCL rank on a (1, 1) mesh beside the Gloo
+     ranks, bitwise the unsharded step.
 
 float32 matrix products run in full float32 (TF32 off, set and printed);
 bfloat16 products accumulate in float32 and round once
@@ -674,6 +694,17 @@ BF16_FACTOR, BF16_VACUOUS, BF16_HALF_ULP = 2.0, 5e-2, 2.0 ** -9
 BF16_TRAIN = (("qwen2.5-3b", 2), ("recurrentgemma-2b", 3))
 BF16_MB = (2, 64)
 BF16_LAUNCH_STEPS = 4
+# phase 35: the sharded training step across ranks sharing the card (Gloo;
+# every rank on cuda:0): flaas-100m at full width at launch/train.py's
+# defaults (B=8 x 128, two microbatches, AdamW, noise 0.2), SHARD_STEPS
+# steps on (data 2, model 2), parameters compared after the CPU tests' 2;
+# example mode one step; recurrentgemma-2b at full width cut to one group
+# (rec, rec, local) on (data 1, model 2), one gradient pass of B=4 x 128;
+# pipeline_apply over flaas-100m's 12 blocks as 4 stages of 3 (PIPE_X:
+# n_micro, B, S); one rank under NCCL on a (1, 1) mesh, bitwise
+SHARD_STEPS, SHARD_COMPARE_AT = 3, 2
+PIPE_X = (4, 2, 128)
+SHARD_TIMEOUT = 600
 
 
 T_START = time.perf_counter()
@@ -4832,6 +4863,159 @@ def phase_train_bf16(card):
     log(f"  phase 34 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _sharded_jobs():
+    """Phase 35's jobs (repro_torch.launch.sharded_train.jobs): for the 4
+    Gloo ranks sharing the card, for 2 more Gloo ranks (recurrentgemma-2b
+    on (data 1, model 2)) and for one rank under NCCL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import synth_tokens
+    from repro_torch.launch import train as launcher
+    from repro_torch.training import DPConfig, TrainConfig
+    cfg = get_arch("flaas-100m")
+    tcfg = launcher.train_config(cfg, 8, 0.2, 1.0, "float32")
+    batches = [synth_tokens(i, 8, 128, cfg.vocab) for i in range(SHARD_STEPS)]
+    mesh = ((2, 2), ("data", "model"))
+    example = dataclasses.replace(tcfg, dp=dataclasses.replace(
+        tcfg.dp, mode="example"))
+    rg = dataclasses.replace(get_arch("recurrentgemma-2b"),
+                             n_layers=RG_TRAIN["n_layers"])
+    rg_tcfg = TrainConfig(optimizer="sgd", param_dtype="float32",
+                          dp=DPConfig(clip=1.0, noise_multiplier=0.0,
+                                      n_micro=2))
+    gloo = [("train", dict(cfg=cfg, tcfg=tcfg, mesh=mesh, batches=batches,
+                           grads=True, gather_after=SHARD_COMPARE_AT,
+                           reference=True)),
+            ("train", dict(cfg=cfg, tcfg=example, mesh=mesh,
+                           batches=batches[:1], grads=True, gather=False,
+                           reference=True)),
+            ("pipeline", dict(n_stages=4, cfg=cfg, reference=True,
+                              x_shape=PIPE_X + (cfg.d_model,)))]
+    pair = [("train", dict(cfg=rg, tcfg=rg_tcfg,
+                           mesh=((1, 2), ("data", "model")),
+                           batches=[synth_tokens(0, RG_TRAIN["batch"],
+                                                 RG_TRAIN["seq"], rg.vocab)],
+                           steps=0, grads=True, gather=False,
+                           reference=True))]
+    nccl = [("bitwise", dict(cfg=cfg, tcfg=tcfg, batches=batches[:2],
+                             backend="nccl"))]
+    return gloo, pair, nccl, cfg, tcfg, rg
+
+
+def phase_sharded(smi):
+    """Phase 35, on its own after phase 21: three worlds at once on the
+    card -- 4 Gloo ranks, 2 Gloo ranks and one rank under NCCL."""
+    import concurrent.futures
+    from repro_torch.launch import sharded_train
+    from repro_torch.launch.sharded_service import spawn
+    t_phase = time.perf_counter()
+    log(f"[35] the sharded training step and pipeline_apply on ranks "
+        f"sharing the card; {smi}")
+    torch.cuda.empty_cache()
+    gloo, pair, nccl, cfg, tcfg, rg = _sharded_jobs()
+
+    def timed(n, backend, todo):
+        t0 = time.perf_counter()
+        out = spawn(sharded_train.jobs, n, backend=backend, device="cuda",
+                    args=(todo,), timeout=SHARD_TIMEOUT)
+        return out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        f_gloo = pool.submit(timed, 4, "gloo", gloo)
+        f_pair = pool.submit(timed, 2, "gloo", pair)
+        f_nccl = pool.submit(timed, 1, "nccl", nccl)
+        (res, secs), (act, secs2), (one, secs1) = (
+            f_gloo.result(), f_pair.result(), f_nccl.result())
+    log(f"  beside one another: 4 Gloo ranks ({secs:.1f} s with their "
+        f"start), 2 Gloo ranks ({secs2:.1f} s), one NCCL rank "
+        f"({secs1:.1f} s), all on the card")
+    flaas, example, pipe = ([r[j] for r in res] for j in range(3))
+    act = [r[0] for r in act]
+    lr2 = 2 * tcfg.lr
+    # (a) flaas-100m at the launcher's defaults on (data 2, model 2)
+    r0 = flaas[0]
+    for r in flaas:
+        assert r["bytes"] == r["rule_bytes"], (r["coords"], r["bytes"],
+                                               r["rule_bytes"])
+    assert r0["grad_err_per_leaf"] <= RTOL_TRAIN, r0["grad_err_per_leaf"]
+    assert max(r0["metric_rel_err"].values()) <= RTOL_TRAIN, \
+        r0["metric_rel_err"]
+    assert r0["param_err"] <= lr2, r0["param_err"]
+    log(f"  flaas-100m ({P_FLAAS} parameters), mesh (data 2, model 2), "
+        f"B=8 x 128, 2 microbatches, AdamW, noise 0.2, {SHARD_STEPS} steps: "
+        f"losses {[round(x['loss'], 5) for x in r0['records']]}; against "
+        f"the one-process card run: gradients (noise off) {r0['grad_err_per_leaf']:.3e} "
+        f"of each leaf's largest |g| (bound {RTOL_TRAIN}), loss / "
+        f"grad_norm_mean rel err {r0['metric_rel_err']['loss']:.3e} / "
+        f"{r0['metric_rel_err']['grad_norm_mean']:.3e} (bound "
+        f"{RTOL_TRAIN}), parameters after {SHARD_COMPARE_AT} steps "
+        f"{r0['param_err']:.3e} (bound 2 lr = {lr2:.1e})")
+    for r in flaas:
+        log(f"    rank {r['rank']} {r['coords']}: ms per step (host clock, "
+            f"4 ranks sharing one card and its host: no scale-out figure; "
+            f"{smi}) {[round(x['ms'], 1) for x in r['records']]}; parameters "
+            f"+ optimizer state {r['bytes']} bytes, the rules' count "
+            f"{r['rule_bytes']}")
+    # (b) example mode: rownorms / clip_accumulate on each rank's share
+    e0 = example[0]
+    assert e0["grad_err_per_leaf"] <= RTOL_TRAIN, e0["grad_err_per_leaf"]
+    assert max(e0["metric_rel_err"].values()) <= RTOL_TRAIN, \
+        e0["metric_rel_err"]
+    dp_launches = {k: [r["launches"][k] for r in example]
+                   for k in ("rownorms", "clip_accumulate")}
+    grad_launches = {k: [r["launches_grads"][k] for r in example]
+                     for k in ("rownorms", "clip_accumulate")}
+    assert all(v == [1] * 4 for v in dp_launches.values()), dp_launches
+    assert all(v == [1] * 4 for v in grad_launches.values()), grad_launches
+    log(f"  DP example mode, B=8, one step: the gradients (noise off; "
+        f"rownorms and clip_accumulate on each rank's share of the "
+        f"parameter vector) against the one-process card run "
+        f"{e0['grad_err_per_leaf']:.3e} of each leaf's largest |g| (bound "
+        f"{RTOL_TRAIN}); loss / grad_norm_mean rel err "
+        f"{e0['metric_rel_err']['loss']:.3e} / "
+        f"{e0['metric_rel_err']['grad_norm_mean']:.3e}; launches per rank "
+        f"in that gradient pass {grad_launches} and in the step "
+        f"{dp_launches}; ms {[round(r['records'][0]['ms'], 1) for r in example]}")
+    # (c) recurrentgemma-2b on (data 1, model 2): the scan on half the
+    # channels, its backward too
+    n_rec = [k for k, _ in rg.layer_specs()].count("rec")
+    rg_launches = {k: [r["launches_grads"][k] for r in act]
+                   for k in ("rglru_scan", "rglru_scan_bwd")}
+    assert all(v == [n_rec * 2] * 2 for v in rg_launches.values()), \
+        rg_launches
+    for r in act:
+        assert r["local_shapes"]["blocks.0.rg.w_x"] == (
+            rg.d_model, rg.d_model // 2), r["local_shapes"]["blocks.0.rg.w_x"]
+    g0 = act[0]
+    assert g0["grad_err"] <= GRAD_RTOL_TRAIN * g0["grad_max"], \
+        (g0["grad_err"], g0["grad_max"])
+    log(f"  recurrentgemma-2b, {rg.n_layers} layers, mesh (data 1, model "
+        f"2), B={RG_TRAIN['batch']} x {RG_TRAIN['seq']}, 2 microbatches: the "
+        f"scan and its backward on {rg.d_model // 2} of {rg.d_model} "
+        f"channels a rank, launches per rank {rg_launches}; gradients "
+        f"against the one-process card run max err {g0['grad_err']:.3e} "
+        f"of max|g| {g0['grad_max']:.3e} (bound {GRAD_RTOL_TRAIN} x "
+        f"max|g|)")
+    # (d) pipeline_apply: 12 blocks as 4 stages of 3
+    p0 = pipe[0]
+    assert p0["err"] <= 1e-5 * p0["y_max"], (p0["err"], p0["y_max"])
+    log(f"  pipeline_apply, flaas-100m's {cfg.n_layers} blocks as 4 stages "
+        f"of {cfg.n_layers // 4}, x {p0['shape']}: max |pipeline - "
+        f"sequential| {p0['err']:.3e} of max|y| {p0['y_max']:.3e} (bound "
+        f"1e-5 x max|y|); ms per rank {[round(r['ms'], 1) for r in pipe]}")
+    # (e) one rank under NCCL, (1, 1): bitwise the unsharded step
+    b = one[0][0]
+    assert b["bitwise"], b
+    log(f"  one rank under NCCL, mesh (1, 1), 2 steps of flaas-100m at "
+        f"the launcher's defaults: metrics, "
+        f"parameters and optimizer state bitwise the unsharded step")
+    log(f"  seconds per job on a world's rank 0 (the comparison with the "
+        f"one-process run included): flaas (2, 2) {flaas[0]['job_s']:.1f}, "
+        f"example mode {example[0]['job_s']:.1f}; recurrentgemma-2b "
+        f"{act[0]['job_s']:.1f}")
+    log(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s")
+    return {"dp": dp_launches, "rg": rg_launches}
+
+
 def main() -> int:
     name, smi = phase_device()
     with cpu_references():            # the worker starts beside the build
@@ -4869,6 +5053,7 @@ def _card_phases(name, smi) -> int:
                                            beam_row["max_abs_err"])
     service_launches = phase_service(smi)
     shard_launches = phase_checkpoint_shard(smi)
+    sharded_launches = phase_sharded(smi)
     bwd_row, per_train_step, bwd_launches = phase_train(smi)
     phase_train_new()
     phase_cross_attention(smi, att_rows)
@@ -4891,6 +5076,8 @@ def _card_phases(name, smi) -> int:
                     **rows[k]) for k in REPLACES]
     kernels += [dict(name=k, route="cuda", source=DP_SOURCE,
                      replaces=DP_REPLACES[k], launches=dp_launches[k],
+                     launches_sharded_example_per_rank=sharded_launches[
+                         "dp"][k],
                      **dp_rows[k]) for k in DP_REPLACES]
     kernels += [dict(name=k, route="cuda", source=ATT_SOURCE,
                      replaces=ATT_REPLACES[k], launches=att_launches[k],
@@ -4913,12 +5100,16 @@ def _card_phases(name, smi) -> int:
                         launches=rg_launches["rglru_scan"],
                         launches_long_serve=rg_long_launches["rglru_scan"],
                         launches_per_train_step=per_train_step["rglru_scan"],
+                        launches_sharded_grads_per_rank=sharded_launches[
+                            "rg"]["rglru_scan"],
                         **rg_row))
     kernels.append(dict(name="rglru_scan_bwd", route="cuda", source=RG_SOURCE,
                         replaces=RG_BWD_REPLACES, note=RG_BWD_NOTE,
                         launches=bwd_launches,
                         launches_per_train_step=per_train_step[
                             "rglru_scan_bwd"],
+                        launches_sharded_grads_per_rank=sharded_launches[
+                            "rg"]["rglru_scan_bwd"],
                         **bwd_row))
     assert len(kernels) == 12, [k["name"] for k in kernels]
     log(smi)

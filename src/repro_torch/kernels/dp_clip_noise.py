@@ -88,12 +88,17 @@ def clip_scales(norms: torch.Tensor, clip: float) -> torch.Tensor:
     return torch.clamp(torch.full_like(denom, clip) / denom, max=1.0)
 
 
+def dp_rownorms_sq(g: torch.Tensor) -> torch.Tensor:
+    """Each row's squared L2 norm ``[B]`` of ``g [B, P]`` float32: the twin
+    on a CPU tensor, ``rownorms`` on a CUDA tensor."""
+    return ref.rownorms_ref(g) if g.device.type == "cpu" else rownorms(g)
+
+
 def dp_row_scales(g: torch.Tensor, clip: float):
     """Each row's DP clip factor and norm, ``(scales [B], norms [B])``:
     ``scale_b = min(1, clip / max(||g_b||, 1e-12))``.  ``g [B, P]``
     float32; a CPU tensor runs the twin, a CUDA tensor ``rownorms``."""
-    cpu = g.device.type == "cpu"
-    norms = torch.sqrt(ref.rownorms_ref(g) if cpu else rownorms(g))
+    norms = torch.sqrt(dp_rownorms_sq(g))
     return clip_scales(norms, clip), norms
 
 

@@ -30,8 +30,13 @@ are as reproducible.
 
 ``n_groups`` > 1 splits the T tokens into that many dispatch groups, each
 routed on its own with ``capacity`` slots per expert, one after another
-(``repro`` vmaps them).  ``repro``'s expert-parallel sharding
-(``_expert_compute_sharding``) belongs to its mesh and is not ported.
+(``repro`` vmaps them).  Under a mesh the training step gathers the
+expert banks whole for the ``torch.bmm`` (stored expert- and
+FSDP-sharded by ``repro``'s rules:
+:mod:`repro_torch.distributed.tensor_parallel`), and a rank dispatches
+its own rows of a unit in its share of ``moe_dispatch_groups``;
+``repro``'s expert-parallel compute (``_expert_compute_sharding``, an
+all-to-all of tokens) is not ported.
 """
 from __future__ import annotations
 

@@ -45,10 +45,13 @@ _C_RGLRU = 8.0
 CONV_WIDTH = 4
 
 
-def _rglru_coeffs(x, params: Params):
-    """x [B, S, D] -> decay a and input b (float32)."""
-    r = torch.sigmoid((x @ params["w_a"]).float() + params["b_a"])
-    i = torch.sigmoid((x @ params["w_i"]).float() + params["b_i"])
+def _rglru_coeffs(x, params: Params, x_all=None):
+    """x [B, S, D] -> decay a and input b (float32).  ``x_all``, where
+    given, is every channel of x, which the gate projections read (a
+    tensor-parallel block holds only its channels in x)."""
+    xg = x if x_all is None else x_all
+    r = torch.sigmoid((xg @ params["w_a"]).float() + params["b_a"])
+    i = torch.sigmoid((xg @ params["w_i"]).float() + params["b_i"])
     log_a = -_C_RGLRU * F.softplus(params["lambda"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * x.float()
@@ -80,19 +83,27 @@ def causal_conv1d(x, w, b, state: Optional[torch.Tensor] = None):
     return y + b, xp[:, -(W - 1):]
 
 
-def rglru_block(x, params: Params, state: Optional[State] = None):
+def rglru_block(x, params: Params, state: Optional[State] = None, tp=None):
     """Griffin's recurrent core.  x [B, S, D] -> (out [B, S, D],
     (conv [B, W-1, D], h [B, D])); ``state`` is the decode state, None for
-    a sequence from its start."""
+    a sequence from its start.  ``tp`` (a sharded training step's block
+    hooks, :mod:`repro_torch.distributed.tensor_parallel`) runs the block
+    on this rank's channels, the scan included, and sums its output over
+    the 'model' slice."""
+    if tp is not None:
+        x = tp.enter(x)
     gate = F.gelu(x @ params["w_gate_br"], approximate="tanh")  # jax.nn.gelu
     xr = x @ params["w_x"]
     conv_state = None if state is None else state[0]
     xr, new_conv = causal_conv1d(xr, params["conv_w"], params["conv_b"],
                                  conv_state)
-    a, bcoef = _rglru_coeffs(xr, params)
+    a, bcoef = _rglru_coeffs(xr, params,
+                             None if tp is None else tp.gather_last(xr))
     h0 = None if state is None else state[1]
     h = linear_scan(a, bcoef, h0)                        # [B, S, D] float32
     out = (h.to(x.dtype) * gate) @ params["w_out"]
+    if tp is not None:
+        out = tp.leave(out)
     return out, (new_conv, h[:, -1])
 
 

@@ -171,7 +171,11 @@ class Block(nn.Module):
     ``mlp``; a dense block of a MoE model (kimi's prefix) keeps ``mlp`` at
     ``dense_ff``.  The gates are the block's own parameters, so they come
     first in its parameter order (and in ``model.flat``): a module lists
-    its own parameters before its children's."""
+    its own parameters before its children's.  ``tp`` holds the block's
+    tensor-parallel hooks in a sharded training step
+    (:mod:`repro_torch.distributed.tensor_parallel`), None elsewhere."""
+
+    tp = None
 
     def __init__(self, kind: str, use_moe: bool, cfg: ArchConfig, device,
                  dtype=torch.float32):
@@ -242,12 +246,12 @@ def xkv(p_attn, memory, cfg: ArchConfig):
     (``repro``'s ``kv_cache._xkv``, and the k/v of
     ``transformer._xattn_apply``): projected, biased where the config has
     QKV biases, no RoPE."""
-    B = memory.shape[0]
+    B, Lm = memory.shape[:2]
     k, v = memory @ p_attn["wk"], memory @ p_attn["wv"]
     if "bk" in p_attn:
         k, v = k + p_attn["bk"], v + p_attn["bv"]
-    return (k.reshape(B, -1, cfg.kv_heads, cfg.dh),
-            v.reshape(B, -1, cfg.kv_heads, cfg.dh))
+    # heads from the width: a tensor-parallel block holds its share
+    return (k.reshape(B, Lm, -1, cfg.dh), v.reshape(B, Lm, -1, cfg.dh))
 
 
 def _cross(h, p: Block, cfg: ArchConfig, xattend: CrossAttend):
@@ -255,12 +259,16 @@ def _cross(h, p: Block, cfg: ArchConfig, xattend: CrossAttend):
     that ``xattend`` holds: q with its bias and no RoPE, the output
     projected by ``wo``.  Returns ``(output [B, S, D], (xk, xv))``."""
     B, S, _ = h.shape
+    tp = p.tp if p.tp is not None and p.tp.plan.attn else None
     x = L.apply_norm(h, p.normx, cfg.norm)
+    if tp is not None:
+        x = tp.enter(x)
     q = x @ p.xattn["wq"]
     if "bq" in p.xattn:
         q = q + p.xattn["bq"]
-    out, kv = xattend(q.reshape(B, S, cfg.n_heads, cfg.dh), p.xattn)
-    return out.reshape(B, S, -1) @ p.xattn["wo"], kv
+    out, kv = xattend(q.reshape(B, S, -1, cfg.dh), p.xattn)
+    out = out.reshape(B, S, -1) @ p.xattn["wo"]
+    return (out if tp is None else tp.leave(out)), kv
 
 
 def _ffn_apply(h, p: Block, cfg: ArchConfig):
@@ -269,7 +277,7 @@ def _ffn_apply(h, p: Block, cfg: ArchConfig):
     groups, each with ``moe_capacity`` of its own tokens' slots per
     expert, plus the shared expert where there is one."""
     if not p.use_moe:
-        return L.mlp(h, p.mlp, cfg.act)
+        return _mlp_tp(h, p.mlp, cfg, p.tp, "mlp")
     B, S, D = h.shape
     spec, G = cfg.moe, cfg.moe_dispatch_groups
     cap = M.moe_capacity(B * S // G, spec.top_k, spec.n_experts,
@@ -278,8 +286,16 @@ def _ffn_apply(h, p: Block, cfg: ArchConfig):
                       capacity=cap, act=cfg.act, n_groups=G
                       ).reshape(B, S, D)
     if spec.n_shared:
-        out = out + L.mlp(h, p.shared, cfg.act)
+        out = out + _mlp_tp(h, p.shared, cfg, p.tp, "shared")
     return out
+
+
+def _mlp_tp(h, params, cfg: ArchConfig, tp, part: str):
+    """A dense MLP, on this rank's columns where ``tp`` keeps ``part``
+    local (its output summed over the 'model' slice)."""
+    if tp is None or not getattr(tp.plan, part):
+        return L.mlp(h, params, cfg.act)
+    return tp.leave(L.mlp(tp.enter(h), params, cfg.act))
 
 
 def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
@@ -319,16 +335,25 @@ def apply_block(h, p: Block, kind: str, cfg: ArchConfig, *, positions,
     if kind == "slstm":
         out, new = R.slstm_scan(x, p.cell, cfg.n_heads, state)
         return h + out, new
+    tp = p.tp
     if kind == "rec":
-        out, new = R.rglru_block(x, p.rg, state)
+        out, new = R.rglru_block(x, p.rg, state,
+                                 tp=tp if tp is not None and tp.plan.rg
+                                 else None)
     else:
         window = cfg.window if kind in ("swa", "local") else None
-        q, k, v = L.qkv_project(x, p.attn, cfg.n_heads, cfg.kv_heads,
-                                cfg.dh)
+        heads, kv_heads = cfg.n_heads, cfg.kv_heads
+        local = tp is not None and tp.plan.attn
+        if local:                   # this rank's heads
+            x = tp.enter(x)
+            heads, kv_heads = heads // tp.size, kv_heads // tp.size
+        q, k, v = L.qkv_project(x, p.attn, heads, kv_heads, cfg.dh)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         B, S = h.shape[:2]
         out = attend(q, k, v, window).reshape(B, S, -1) @ p.attn["wo"]
+        if local:
+            out = tp.leave(out)
         new = (k, v)
     h = h + out
     if kind == "encdec":
@@ -354,6 +379,8 @@ def apply_block_train(h, p: Block, kind: str, cfg: ArchConfig, *,
     :func:`repro_torch.models.layers.chunked_attention` (autograd) for
     self and cross attention (to ``memory``), a recurrent block from a
     zero state."""
+    if memory is not None and p.tp is not None and p.tp.plan.attn:
+        memory = p.tp.enter(memory)    # into the local k / v projections
     return apply_block(
         h, p, kind, cfg, positions=positions,
         attend=lambda q, k, v, window: L.chunked_attention(
@@ -413,7 +440,8 @@ class Transformer(nn.Module):
     in a bfloat16 model ``repro``'s float32 leaves stay float32 (module
     docstring), each dtype in its own flat buffer, ``flats[dtype]``."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: ArchConfig, device="cuda", dtype=torch.float32,
+                 shape_of: Optional[Callable[[str, tuple], tuple]] = None):
         super().__init__()
         _check_ported(cfg)
         if dtype not in (torch.float32, torch.bfloat16):
@@ -432,10 +460,16 @@ class Transformer(nn.Module):
         if cfg.encoder is not None:
             self.encoder = Encoder(cfg, meta, dtype)
         # every parameter becomes a view of its slice of its dtype's buffer
-        params = list(self.named_parameters())
+        # (of its shard's shape, ``shape_of(name, full shape)``, under a
+        # mesh: :mod:`repro_torch.distributed`)
+        self.full_shapes = {n: tuple(p.shape)
+                            for n, p in self.named_parameters()}
+        params = [(n, p.dtype, self.full_shapes[n] if shape_of is None
+                   else tuple(shape_of(n, self.full_shapes[n])))
+                  for n, p in self.named_parameters()]
         sizes: Dict[torch.dtype, int] = {}
-        for _, p in params:
-            sizes[p.dtype] = sizes.get(p.dtype, 0) + p.numel()
+        for _, dt, shape in params:
+            sizes[dt] = sizes.get(dt, 0) + math.prod(shape)
         self.flats: Dict[torch.dtype, torch.Tensor] = {}
         for dt in sorted(sizes, key=lambda d: d != dtype):  # dtype first
             n = sizes[dt]
@@ -448,17 +482,16 @@ class Transformer(nn.Module):
                     f"{cfg.d_model}): its flat {dt} buffer [{n}] (the model "
                     f"{gb:.1f} GB in all) does not fit on {dev}: {e}") from e
         offs = dict.fromkeys(sizes, 0)
-        for name, p in params:
+        for name, dt, shape in params:
             owner, _, leaf = name.rpartition(".")
             owner = self.get_submodule(owner)
-            off = offs[p.dtype]
-            view = nn.Parameter(
-                self.flats[p.dtype][off:off + p.numel()].view(p.shape))
+            off, n = offs[dt], math.prod(shape)
+            view = nn.Parameter(self.flats[dt][off:off + n].view(shape))
             if isinstance(owner, nn.ParameterDict):
                 owner[leaf] = view
             else:
                 setattr(owner, leaf, view)
-            offs[p.dtype] += p.numel()
+            offs[dt] += n
 
     @property
     def flat(self) -> torch.Tensor:
@@ -481,13 +514,21 @@ class Transformer(nn.Module):
         return sum(f.numel() for f in self.flats.values())
 
     def forward(self, tokens, memory=None, enc_frames=None):
-        cfg = self.cfg
-        memory = cross_memory(self, cfg, memory, enc_frames)
-        h = L.embed(tokens, self.embed)
-        pos = torch.arange(tokens.shape[1], device=h.device)
-        for blk in self.blocks:
-            h = blk(h, cfg, pos, memory=memory)
-        return logits_head(self, h)
+        return forward_with(self, tokens, self.cfg, memory=memory,
+                            enc_frames=enc_frames)
+
+
+def forward_with(params: Transformer, tokens, cfg: ArchConfig, *,
+                 memory=None, enc_frames=None):
+    """The training forward of ``params`` under ``cfg``, the model's own
+    configuration or one that differs from it only in how the step runs
+    it (a sharded step's MoE dispatch groups over its rows)."""
+    memory = cross_memory(params, cfg, memory, enc_frames)
+    h = L.embed(tokens, params.embed)
+    pos = torch.arange(tokens.shape[1], device=h.device)
+    for blk in params.blocks:
+        h = blk(h, cfg, pos, memory=memory)
+    return logits_head(params, h)
 
 
 def clone_model(model: Transformer) -> Transformer:
@@ -543,7 +584,10 @@ def add_flat_(model: Transformer, vec: torch.Tensor) -> None:
 
 @torch.no_grad()
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
-               dtype=torch.float32) -> Transformer:
+               dtype=torch.float32,
+               shape_of: Optional[Callable[[str, tuple], tuple]] = None,
+               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+               = None) -> Transformer:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``, with ``repro``'s scheme: dense weights
     ``N(0, 1/fan_in)``, embeddings and the RG-LRU's ``conv_w`` ``N(0,
@@ -559,11 +603,19 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
     parameter dtype (:class:`Transformer`; the port's default float32,
     ``repro``'s bfloat16): a bfloat16 leaf is drawn and scaled in float32
     and rounded once, as ``repro`` draws, so it holds the float32 model's
-    value of the same seed, rounded."""
-    model = Transformer(cfg, device=device, dtype=dtype)
+    value of the same seed, rounded.
+
+    With ``shape_of`` (a rank's shape of each leaf, as
+    :class:`Transformer` takes it) the model holds a rank's shards: each
+    leaf is drawn at its full shape, one leaf at a time in the same
+    order, and ``cut(name, full)`` keeps this rank's part, so a shard
+    holds the full model's values bitwise without the full model."""
+    model = Transformer(cfg, device=device, dtype=dtype, shape_of=shape_of)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        shape = model.full_shapes[name]
+        whole = tuple(p.shape) == shape
         if leaf == "scale":
             p.fill_(1.0)
         elif leaf in ("bias", "bq", "bk", "bv", "conv_b", "b_a", "b_i",
@@ -572,19 +624,20 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
         elif leaf == "b_f":
             p.fill_(3.0)
         elif leaf == "lambda":
-            u = torch.rand(p.shape, generator=gen, device=p.device)
+            u = torch.rand(shape, generator=gen, device=p.device)
             u = (u * (0.999 - 0.9) + 0.9) ** (1.0 / R._C_RGLRU)
-            p.copy_(torch.log(u / (1.0 - u)))
+            w = torch.log(u / (1.0 - u))
+            p.copy_(w if whole else cut(name, w))
         else:
-            w = p if p.dtype == torch.float32 else torch.empty(
-                p.shape, dtype=torch.float32, device=p.device)
+            w = p if p.dtype == torch.float32 and whole else torch.empty(
+                shape, dtype=torch.float32, device=p.device)
             w.normal_(generator=gen)
             w.mul_(0.02 if leaf in ("table", "conv_w")
-                   else 1.0 / math.sqrt(p.shape[0]))
+                   else 1.0 / math.sqrt(shape[0]))
             if leaf == "r":
                 w.mul_(0.3)
             if w is not p:
-                p.copy_(w)
+                p.copy_(w if whole else cut(name, w))
     return model
 
 
@@ -655,12 +708,21 @@ def forward(params: Transformer, tokens, cfg: Optional[ArchConfig] = None,
     return params(tokens, memory=memory, enc_frames=enc_frames)
 
 
-def lm_loss(logits, labels, mask=None):
-    """Mean token cross-entropy; logits float32 [B,S,V], labels [B,S]."""
+def lm_loss_parts(logits, labels, mask=None):
+    """:func:`lm_loss`'s numerator and denominator: the masked sum of
+    token cross-entropies and the mask's sum (a batch split across ranks
+    divides the sum of its parts' numerators by the sum of their
+    denominators)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def lm_loss(logits, labels, mask=None):
+    """Mean token cross-entropy; logits float32 [B,S,V], labels [B,S]."""
+    s, n = lm_loss_parts(logits, labels, mask)
+    return s / torch.clamp(n, min=1.0)

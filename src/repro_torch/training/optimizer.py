@@ -12,13 +12,26 @@ float32.  Gradients of any dtype are cast to float32 first.  For float32
 parameters the master equals the parameters.  Adafactor's factored second moment (row
 and column statistics of each matrix) is ``repro``'s memory-viable
 choice for the 1T-parameter MoE.
+
+Under a mesh (:mod:`repro_torch.distributed`) each optimizer's
+``update_sharded(grads, state, params, specs, mesh)`` takes this rank's
+shards: the parameters' and gradients' by ``specs["params"]``, the
+state's by ``specs["opt"]`` (ZeRO-1: ``m``, ``v``, ``master`` and
+Adafactor's ``stats`` split once more over 'data').  AdamW and SGD are
+elementwise: each rank updates its ZeRO slice and the parameter shard is
+gathered back over 'data'.  Adafactor's row and column means and its RMS
+clip sum over the ranks that hold a factored dimension's parts; its
+statistics are brought to the parameter shard's layout for the update
+and cut back to their own for storage.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..distributed import sharding as sh
 
 Tree = Dict[str, torch.Tensor]
 
@@ -26,6 +39,8 @@ Tree = Dict[str, torch.Tensor]
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
+    # (grads, state, params, specs, mesh): the same step on this rank's shards
+    update_sharded: Optional[Callable[..., Tuple[Any, Any]]] = None
 
 
 def _tree(params) -> Tree:
@@ -40,6 +55,26 @@ def _cast_like(src: Tree, ref: Tree) -> Tree:
 
 def _master(params: Tree) -> Tree:
     return {k: p.float().clone() for k, p in params.items()}
+
+
+def _zero_elementwise(update):
+    """``update_sharded`` of an elementwise optimizer: the step on this
+    rank's ZeRO-1 slice of every leaf, the new parameter slices gathered
+    back over the axes ZeRO-1 added."""
+    def update_sharded(grads, st, params, specs, mesh):
+        params = _tree(params)
+        zs = next((specs["opt"][k] for k in ("m", "master")
+                   if k in specs["opt"]), None)
+        if zs is None:              # no per-leaf state: the shards as they are
+            return update(grads, st, params)
+        ps = specs["params"]
+        gz = {k: sh.narrow_extra(g, ps[k], zs[k], mesh)
+              for k, g in grads.items()}
+        pz = {k: sh.narrow_extra(p, ps[k], zs[k], mesh)
+              for k, p in params.items()}
+        new_pz, new_st = update(gz, st, pz)
+        return sh.gather_extra(new_pz, ps, zs, mesh), new_st
+    return update_sharded
 
 
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -76,7 +111,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
             new_st["master"] = new_master
         return new_params, new_st
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, _zero_elementwise(update))
 
 
 def sgd(lr: float = 0.1) -> Optimizer:
@@ -90,7 +125,7 @@ def sgd(lr: float = 0.1) -> Optimizer:
                       for k, p in params.items()}
         return new_params, {"count": st["count"] + 1}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, _zero_elementwise(update))
 
 
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
@@ -117,32 +152,28 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             st["master"] = _master(params)
         return st
 
-    def update(grads, st, params):
-        params = _tree(params)
-        c = st["count"] + 1
-        beta = 1.0 - torch.pow(c.float(), -decay)
+    def upd(g, s, p, beta, mean=_mean, mean_all=torch.mean):
+        """One leaf's clipped update and new statistics.  ``mean(x,
+        dim, pdim, keepdim)`` averages x over its dim ``dim`` (the
+        parameter's dim ``pdim``), ``mean_all`` over every element."""
+        g = g.float()
+        g2 = g * g + eps
+        if p.dim() >= 2:
+            n = p.dim()
+            vr = beta * s["vr"] + (1 - beta) * mean(g2, -1, n - 1)
+            vc = beta * s["vc"] + (1 - beta) * mean(g2, -2, n - 2)
+            denom = torch.clamp(mean(vr, -1, n - 2, keepdim=True), min=eps)
+            prec = (vr[..., None] / denom[..., None]) * vc[..., None, :]
+            u = g * torch.rsqrt(torch.clamp(prec, min=eps))
+            news = {"vr": vr, "vc": vc}
+        else:
+            v = beta * s["v"] + (1 - beta) * g2
+            u = g * torch.rsqrt(torch.clamp(v, min=eps))
+            news = {"v": v}
+        rms = torch.sqrt(mean_all(u * u) + 1e-12)
+        return u / torch.clamp(rms / clip_threshold, min=1.0), news
 
-        def upd(g, s, p):
-            g = g.float()
-            g2 = g * g + eps
-            if p.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                    min=eps)
-                prec = (vr[..., None] / denom[..., None]) * vc[..., None, :]
-                u = g * torch.rsqrt(torch.clamp(prec, min=eps))
-                news = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g * torch.rsqrt(torch.clamp(v, min=eps))
-                news = {"v": v}
-            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
-            return u / torch.clamp(rms / clip_threshold, min=1.0), news
-
-        ups, stats = {}, {}
-        for k, p in params.items():
-            ups[k], stats[k] = upd(grads[k], st["stats"][k], p)
+    def finish(ups, stats, st, params, c):
         base = st.get("master", _master(params))
         new_master = {k: b - lr * ups[k] for k, b in base.items()}
         new_params = _cast_like(new_master, params)
@@ -151,7 +182,77 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             new_st["master"] = new_master
         return new_params, new_st
 
-    return Optimizer(init, update)
+    def update(grads, st, params):
+        params = _tree(params)
+        c = st["count"] + 1
+        beta = 1.0 - torch.pow(c.float(), -decay)
+        ups, stats = {}, {}
+        for k, p in params.items():
+            ups[k], stats[k] = upd(grads[k], st["stats"][k], p, beta)
+        return finish(ups, stats, st, params, c)
+
+    def update_sharded(grads, st, params, specs, mesh):
+        params = _tree(params)
+        c = st["count"] + 1
+        beta = 1.0 - torch.pow(c.float(), -decay)
+        ps, ss = specs["params"], specs["opt"]["stats"]
+        ups, stats = {}, {}
+        for k, p in params.items():
+            spec = sh.layout(ps[k]) + (None,) * (p.dim() - len(ps[k]))
+            views = _stat_views(spec, p.dim())
+            s = {n: sh.narrow_to(sh.gather(t, ss[k][n], mesh), views[n], mesh)
+                 for n, t in st["stats"][k].items()}
+            u, new = upd(grads[k], s, p, beta, _sharded_mean(spec, mesh),
+                         _sharded_mean_all(spec, mesh))
+            ups[k] = u
+            stats[k] = {n: sh.shard(sh.gather(t, views[n], mesh),
+                                    ss[k][n], mesh) for n, t in new.items()}
+        if "master" not in st:
+            return finish(ups, stats, st, params, c)
+        zs = specs["opt"]["master"]
+        uz = {k: sh.narrow_extra(u, ps[k], zs[k], mesh)
+              for k, u in ups.items()}
+        pz = {k: sh.narrow_extra(p, ps[k], zs[k], mesh)
+              for k, p in params.items()}
+        new_pz, new_st = finish(uz, stats, st, pz, c)
+        return sh.gather_extra(new_pz, ps, zs, mesh), new_st
+
+    return Optimizer(init, update, update_sharded)
+
+
+def _mean(x, dim, pdim, keepdim=False):
+    return torch.mean(x, dim=dim, keepdim=keepdim)
+
+
+def _stat_views(spec, ndim):
+    """The specs of a leaf's statistics laid out as its shard (``vr``
+    drops the last dim, ``vc`` the second-to-last)."""
+    if ndim >= 2:
+        return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+    return {"v": spec}
+
+
+def _sharded_mean(spec, mesh):
+    """``mean(x, dim, pdim)`` over a dimension the parameter's ``spec``
+    may split: the local sum added over the ranks holding its parts."""
+    def mean(x, dim, pdim, keepdim=False):
+        axes = sh.axes_of(spec[pdim])
+        if mesh.n(axes) == 1:
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        total = mesh.all_reduce(torch.sum(x, dim=dim, keepdim=keepdim), axes)
+        return total / (x.shape[dim] * mesh.n(axes))
+    return mean
+
+
+def _sharded_mean_all(spec, mesh):
+    axes = sh.spec_axes(spec)
+
+    def mean_all(x):
+        if mesh.n(axes) == 1:
+            return torch.mean(x)
+        return mesh.all_reduce(torch.sum(x), axes) / (x.numel() *
+                                                      mesh.n(axes))
+    return mean_all
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

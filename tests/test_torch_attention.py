@@ -30,6 +30,18 @@ DECODE_SHAPES = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (2, 8, 8, 64, 16),
                  (1, 10, 1, 128, 256)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     jnp = pytest.importorskip("jax.numpy")

@@ -69,6 +69,18 @@ B, PROMPT, STEPS = 3, 9, 5
 BUMPED = ("scale", "bias", "bq", "bk", "bv", "gate_x", "gate_m")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cut(cfg, name):
     """``name`` is ``arch`` or ``arch:kind``: the reduced config, or that
     config cut to one block of ``kind``."""

@@ -38,6 +38,18 @@ ARCHS_X = ("llama-3.2-vision-11b", "whisper-medium")
 BT, SEQ = 4, 12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=ARCHS_X)
 def setup(request):
     cfg = jreduced(jget_arch(request.param))

@@ -52,6 +52,18 @@ ATOL_CACHE = 2e-5
 B, PROMPT, GEN = 2, 9, 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(name):
     H, KH = HEADS[name]
     return dataclasses.replace(jreduced(jget_arch(name)), n_heads=H,

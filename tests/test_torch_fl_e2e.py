@@ -41,6 +41,18 @@ from repro.training import fedavg as jfedavg  # noqa: E402
 ROUNDS, DEVICES, ANALYSTS, PIPES, SEQ = 4, 4, 2, 2, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_params(seed, cfg):
     return jax.device_get(jinit(jax.random.PRNGKey(seed), cfg,
                                 dtype=jnp.float32))

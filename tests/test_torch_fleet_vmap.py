@@ -56,6 +56,18 @@ RUNS = [("dpbalance", False), ("dpbalance", True)] + [(n, False)
                                                       for n in NAMES[1:]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bitwise(a, b, what):
     assert a.dtype == b.dtype and a.shape == b.shape, what
     if a.is_floating_point():

@@ -40,6 +40,18 @@ BIASED = 3                       # the expert the biased router favours
 NEAR_TIES = {("kimi", True, 0): 1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(E, act, seed=0):
     tree = JM.init_moe(jax.random.PRNGKey(seed), D, F, E, act,
                        dtype=jnp.float32)

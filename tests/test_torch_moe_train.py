@@ -32,6 +32,18 @@ __all__ = ["setup"]           # the reduced models, one per config
 _REPRO_GRADS = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _repro_grads(cfg, tree, mode):
     """``repro``'s ``_grads_with_loss`` on ``_batch(cfg, 1)``, clip 0.05, no
     noise, two microbatches: ``((grads, metrics), loss)``, computed once

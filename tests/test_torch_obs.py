@@ -36,6 +36,18 @@ SIZE = dict(n_devices=4, pipelines_per_analyst=6)
 RING, TICKS, CHUNK = 80, 40, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def trace_pair(pattern="bursty", seed=3, ticks=TICKS):
     return (js.make_trace("paper_default", pattern, seed=seed,
                           **SIZE).precompute(ticks),

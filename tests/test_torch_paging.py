@@ -33,6 +33,18 @@ RING, WRAP_TICKS, CHUNK = 80, 90, 5
 DISCRETE = ("n_allocated", "selected", "expired")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def stress_traces(ticks=WRAP_TICKS, seed=3):
     return (js.make_trace("paper_default", "bursty", seed=seed,
                           **SIZE).precompute(ticks),

@@ -66,6 +66,18 @@ NEAR_TIE_SP1 = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def round_arrays(ep, r=0, warm=False):
     """Round ``r`` of a ``repro`` episode as numpy arrays, with every block
     created so far at full capacity (``run_episode``'s first round)."""

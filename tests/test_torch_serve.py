@@ -42,6 +42,18 @@ RTOL_LOGITS = 1e-4
 ATOL_CACHE = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(name, seed=0):
     cfg = CONFIGS[name]
     tree = jax.device_get(jinit(jax.random.PRNGKey(seed), cfg,

@@ -42,6 +42,18 @@ RTOL_STATE = 1e-5                # of each cache entry's largest |value|
 B, PROMPT, GEN = 2, 8, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     tree = jax.device_get(jinit(jax.random.PRNGKey(0), CFG,

@@ -25,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.service as js
 from repro.core import SchedulerConfig as JSched
@@ -37,6 +38,18 @@ ROOT = Path(__file__).resolve().parents[1]
 # small geometry: 4 devices x 2 blocks/tick = 8 blocks per tick
 SIZE = dict(n_devices=4, pipelines_per_analyst=6)
 DISCRETE = ("n_allocated", "selected", "expired")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def traces(pattern="poisson", seed=2, **extra):

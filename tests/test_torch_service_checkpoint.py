@@ -48,6 +48,18 @@ GEOMETRY = dict(analyst_slots=3, pipeline_slots=6, block_slots=RING,
                 chunk_ticks=4, admit_batch=8, max_pending=64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_service(scheduler="dpbalance", *, paged=True, seed=2, **over):
     trace = make_trace("paper_default", "poisson", seed=seed, **SIZE)
     cfg = ServiceConfig(scheduler=scheduler, sched=SchedulerConfig(beta=2.2),

@@ -41,6 +41,18 @@ TCFG = TrainConfig(optimizer="adamw", lr=1e-3, param_dtype="float32",
                    dp=DPConfig(clip=1.0, noise_multiplier=0.1, n_micro=2))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(i):
     t = np.random.default_rng(i).integers(0, CFG.vocab, (4, 17))
     return {"tokens": torch.from_numpy(t[:, :-1]),
@@ -135,9 +147,23 @@ def test_launcher_resume_is_bitwise(tmp_path):
 
 
 def test_launcher_raises_where_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-pod"):
-        launcher.run(smoke=True, device="cpu", multi_pod=True,
-                     ckpt=str(tmp_path), log=None)
+    """The production mesh needs its 256 / 512 ranks; one process takes
+    repro's host mesh under --multi-pod, float32, bitwise the unsharded
+    run (one step)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    for multi_pod in (False, True):
+        with pytest.raises(ValueError, match="ranks"):
+            make_production_mesh(multi_pod=multi_pod)
+    kw = dict(smoke=True, device="cpu", steps=1, ckpt_every=1, log=None)
+    host = launcher.run(multi_pod=True, ckpt=str(tmp_path / "h"), **kw)
+    plain = launcher.run(ckpt=str(tmp_path / "p"), **kw)
+    assert host["tcfg"].param_dtype == "float32"
+    assert [{k: v for k, v in r.items() if k != "wall_s"}
+            for r in host["records"]] == \
+        [{k: v for k, v in r.items() if k != "wall_s"}
+         for r in plain["records"]]
+    assert torch.equal(host["state"]["params"].flat,
+                       plain["state"]["params"].flat)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             launcher.run(smoke=True, ckpt=str(tmp_path), log=None)

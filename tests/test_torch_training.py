@@ -19,6 +19,8 @@ tested on their own.
 """
 import dataclasses
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +47,18 @@ GQA = dataclasses.replace(CFG, kv_heads=2, window=4,
                           pattern=(("swa", False), ("attn", False)),
                           n_layers=3)
 SEQ = 12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tree(cfg, seed=0):
@@ -83,7 +97,8 @@ def test_gradients_match_jax_grad(cfg):
     tree = _tree(cfg)
     model = params_from_jax(tree, cfg, device="cpu")
     tok, lab = _batch(1, B=3)
-    jl, jg = jax.value_and_grad(jmake_loss(cfg))(tree, _jb(tok, lab))
+    jl, jg = jax.jit(jax.value_and_grad(jmake_loss(cfg)))(tree,
+                                                           _jb(tok, lab))
     loss = make_loss_fn(cfg)(model, _tb(tok, lab))
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
@@ -111,15 +126,24 @@ def test_optimizer_steps_match_repro(name):
     assert int(ts["count"]) == int(js["count"]) == 3
 
 
+@functools.lru_cache(maxsize=None)
+def _jit_dp_gradients(mode, n_micro):
+    """``repro``'s ``dp_gradients`` jitted once per mode, the clip an
+    argument (one compile for both clips)."""
+    def fn(tree, batch, key, clip):
+        return jdp_gradients(jmake_loss(CFG), tree, batch, key, clip=clip,
+                             mode=mode, n_micro=n_micro)
+    return jax.jit(fn)
+
+
 @pytest.mark.parametrize("mode,n_micro", [("example", 1), ("microbatch", 2)])
 @pytest.mark.parametrize("clip", [0.05, 100.0])
 def test_dp_gradients_match_repro(mode, n_micro, clip):
     tree = _tree(CFG)
     model = params_from_jax(tree, CFG, device="cpu")
     tok, lab = _batch(3, B=4)
-    jg, jm = jdp_gradients(jmake_loss(CFG), tree, _jb(tok, lab),
-                           jax.random.PRNGKey(0), clip=clip, mode=mode,
-                           n_micro=n_micro)
+    jg, jm = _jit_dp_gradients(mode, n_micro)(
+        tree, _jb(tok, lab), jax.random.PRNGKey(0), clip)
     gen = torch.Generator().manual_seed(0)
     tg, tm = dp_gradients(make_loss_fn(CFG), model, _tb(tok, lab), gen,
                           clip=clip, mode=mode, n_micro=n_micro)

@@ -54,6 +54,18 @@ CONFIGS = {"reduced": jreduced(jget_arch(ARCH)),
                                            cross_memory_len=37)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def setup(request):
     cfg = CONFIGS[request.param]

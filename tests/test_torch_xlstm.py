@@ -23,6 +23,7 @@ conditioning, not the port.  The logits (1e-4) are held through the
 whole model.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -58,6 +59,18 @@ B, PROMPT, GEN = 2, 13, 6
 D, H = 64, 4
 DH = D // H
 NAMES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: its CPU work here is small,
+    and the test runner runs several workers at once, each of whose
+    thread pools would otherwise oversubscribe the cores (as
+    ``tests/test_torch_bf16_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _close(got, want, rtol_max):
@@ -460,6 +473,14 @@ def group():
     return tree, params_from_jax(tree, GROUP, device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _jit_value_and_grad(cfg):
+    """``jax.value_and_grad`` of ``repro``'s loss, jitted once for every
+    case of the module (as ``repro``'s training step runs it)."""
+    from repro.training.train_loop import make_loss_fn as jmake_loss
+    return jax.jit(jax.value_and_grad(jmake_loss(cfg)))
+
+
 def _flat(tree, cfg):
     """``repro`` tree (parameters or gradients) -> the port's flat
     layout."""
@@ -486,11 +507,10 @@ def test_gradients_match_jax_grad(group, seed):
     leaf's gradient (each cell's, the norms', the embedding's and the
     head's) against ``jax.grad`` of ``repro``'s loss, within 1e-4 of that
     leaf's largest |g|; a ragged last chunk (13 tokens, chunk 8)."""
-    from repro.training.train_loop import make_loss_fn as jmake_loss
     from repro_torch.training import make_loss_fn
     tree, model = group
     tok, lab = _prompts(PROMPT, seed=seed), _prompts(PROMPT, seed=seed + 1)
-    jl, jg = jax.value_and_grad(jmake_loss(GROUP))(
+    jl, jg = _jit_value_and_grad(GROUP)(
         tree, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)})
     loss = make_loss_fn(GROUP)(model, {"tokens": torch.from_numpy(tok),
                                        "labels": torch.from_numpy(lab)})
@@ -547,10 +567,11 @@ def test_dp_gradients_match_repro(group, mode, n_micro):
     rng = np.random.default_rng(8)
     tok = rng.integers(0, CFG.vocab, (4, PROMPT + 1)).astype(np.int32)
     tok, lab = tok[:, :-1], tok[:, 1:]
-    jg, jm = jdp_gradients(
-        jmake_loss(GROUP), tree,
-        {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)},
-        jax.random.PRNGKey(0), clip=1.0, mode=mode, n_micro=n_micro)
+    jg, jm = jax.jit(functools.partial(
+        jdp_gradients, jmake_loss(GROUP), clip=1.0, mode=mode,
+        n_micro=n_micro))(
+        tree, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)},
+        jax.random.PRNGKey(0))
     tg, tm = dp_gradients(
         make_loss_fn(GROUP), model,
         {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)},
@@ -571,13 +592,14 @@ def test_whole_model_gradients_as_close_to_exact_as_repros(setup):
     ratio is heavy-tailed either way: a rounding can put a position on
     the other side of a stabiliser's max); ``repro``'s gradient within 5%
     of the exact one on each batch (it is 4e-5 to 9e-3 here), so the
-    float64 run computes ``repro``'s function."""
-    from repro.training.train_loop import make_loss_fn as jmake_loss
+    float64 run computes ``repro``'s function.  ``repro``'s gradient is
+    jitted once for the 4 batches, as its training step runs it."""
     from repro_torch.fp import float64
     from repro_torch.training import make_loss_fn
     tree, model = setup
     loss_fn = make_loss_fn(CFG)
     exact_model = params_from_jax(tree, CFG, device="cpu").double()
+    jgrad = _jit_value_and_grad(CFG)
     ours = theirs = 0.0
     for seed in range(4):
         tok = np.random.default_rng(20 + seed).integers(
@@ -585,8 +607,8 @@ def test_whole_model_gradients_as_close_to_exact_as_repros(setup):
         tok, lab = tok[:, :-1], tok[:, 1:]
         batch = {"tokens": torch.from_numpy(tok),
                  "labels": torch.from_numpy(lab)}
-        _, jg = jax.value_and_grad(jmake_loss(CFG))(
-            tree, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)})
+        _, jg = jgrad(tree, {"tokens": jnp.asarray(tok),
+                             "labels": jnp.asarray(lab)})
         want = _flat(jg, CFG).double()
         got = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
             loss_fn(model, batch), list(model.parameters()))]).double()
