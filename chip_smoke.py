@@ -335,7 +335,24 @@ Phases (each raises on failure; nothing is caught):
      launches, gradients within GRAD_RTOL_TRAIN of the largest |g|;
      pipeline_apply over flaas-100m's 12 blocks as 4 stages against the
      sequential forward; one NCCL rank on a (1, 1) mesh beside the Gloo
-     ranks, bitwise the unsharded step.
+     ranks, bitwise the unsharded step;
+ 36. serving under a mesh (repro_torch.launch.sharded_serve's jobs, run
+     by phase 35's worlds after their training jobs): qwen2.5-3b whole
+     on the 4 Gloo ranks at (data 2, model 2) at serve.run's defaults in
+     bfloat16 (the launcher's rule), held to the one-process card run in
+     bfloat16 within BF16_FACTOR x d (d: that run from its float32 run),
+     and cut to MESH_SERVE_CUT layers at full width in float32 within
+     RTOL_SERVE of max|logit|; recurrentgemma-2b whole on the 2 Gloo
+     ranks at (data 1, model 2) in bfloat16 (the scan on 1280 of 2560
+     channels, its local attention whole); every cache entry as bound,
+     tokens past near-ties, exact launches per rank, each rank's
+     parameter shards, working parameters and cache bytes the rules'
+     count (printed beside what cache_pspecs alone gives), prefill and
+     decode ms per rank; flaas-100m on the NCCL rank's (1, 1) mesh
+     bitwise the unsharded serve; then att_flash and att_decode at a
+     qwen rank's heads (MESH_RANK_HEADS) in float32 and bfloat16 and
+     rglru_scan at a recurrentgemma rank's channels (MESH_RANK_SCANS)
+     against their twins.
 
 float32 matrix products run in full float32 (TF32 off, set and printed);
 bfloat16 products accumulate in float32 and round once
@@ -705,6 +722,21 @@ BF16_LAUNCH_STEPS = 4
 SHARD_STEPS, SHARD_COMPARE_AT = 3, 2
 PIPE_X = (4, 2, 128)
 SHARD_TIMEOUT = 600
+# phase 36: serving under a mesh, in phase 35's worlds, at serve.run's
+# defaults (B=4, prompt 32, gen 16): qwen2.5-3b whole on (data 2, model
+# 2) in bfloat16 (the launcher's rule at 4 ranks), held to the one-process
+# card run in bfloat16 within BF16_FACTOR x d, and cut to MESH_SERVE_CUT
+# layers at full width in float32 within RTOL_SERVE of max|logit|;
+# recurrentgemma-2b whole on (data 1, model 2) (bfloat16 by the rule at 2
+# ranks); flaas-100m on the NCCL rank's (1, 1) mesh, bitwise the
+# unsharded serve
+MESH_SERVE_CUT = 4
+# the kernels at a rank's shapes in those serves: qwen2.5-3b's heads on
+# 'model' 2 (H, KH, dh), recurrentgemma-2b's scan on half its channels
+# (label, B, S, D, h0) in the prefill and a decode step
+MESH_RANK_HEADS = (8, 1, 128)
+MESH_RANK_SCANS = (("mesh-rank", 4, 32, 1280, False),
+                   ("mesh-rank-step", 4, 1, 1280, True))
 
 
 T_START = time.perf_counter()
@@ -2347,56 +2379,64 @@ def phase_serve_trace():
         + ", ".join(f"{k} {v * 1e3 / steps:.3f}" for k, v in spans.items()))
 
 
-def phase_rglru(card, att_rows):
-    log("[14] rglru_scan against its twin on the card; attention at "
-        "recurrentgemma-2b's heads")
+def _rglru_case(card, row, label, B, S, D, with_h0, floor):
+    """rglru_scan at one shape against its twin (bitwise, and bitwise from
+    launch to launch), timed beside the twin and the bound; its numbers
+    go to ``row["by_shape"][label]`` (and ``row`` itself for "2k")."""
     from repro_torch.kernels import ref, rg_lru
     from repro_torch.kernels.decode_attention import SMS
     gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.499 + 0.5
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    h0 = torch.randn((B, D), generator=gen, device="cuda") \
+        if with_h0 else None
+    got = rg_lru.rglru_scan_cuda(a, b, h0)
+    again = rg_lru.rglru_scan_cuda(a, b, h0)
+    want = ref.rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    shape = f"B={B} S={S} D={D} h0={with_h0} ({label})"
+    if not torch.equal(got, again):
+        raise AssertionError(f"rglru_scan {shape}: not bitwise stable "
+                             "from launch to launch")
+    err = check("rglru_scan " + shape, got, want, True)
+    del want
+    ms = time_ms(lambda: rg_lru.rglru_scan_cuda(a, b, h0), 20)
+    plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, 3)
+    nbytes = 4 * (3 * B * S * D + (B * D if with_h0 else 0))
+    bnd, by = bound_ms(nbytes, 2 * B * S * D)
+    channels = rg_lru.SCAN_CHANNELS
+    stage = rg_lru.scan_geometry(B, S, D)   # fresh, so 16-byte aligned
+    ring = rg_lru.SCAN_STAGES * stage
+    flight = (rg_lru.SCAN_STAGES - 1) * stage * 8 * B * D
+    blocks = B * -(-D // channels)
+    geo = (f"ring of {ring} steps ({flight} B in flight by design), "
+           f"{channels} channels a block, at most "
+           f"{-(-blocks // SMS) * channels} channels an SM"
+           if stage else
+           f"direct path (no ring), {channels} channels a block")
+    log(f"  rglru_scan       {shape}: bitwise, stable  kernel "
+        f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
+        f"{card}), share {bnd / ms:.3f}; {geo}"
+        + (f"; launch floor {floor:.4f} ms" if S == 1 else "")
+        + "; no single PyTorch call computes it")
+    nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, shape=shape)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["by_shape"][label] = nums
+    if label == "2k":                  # the JSON line's shape
+        row.update(nums)
+    del a, b, h0, got, again
+    torch.cuda.empty_cache()
+
+
+def phase_rglru(card, att_rows):
+    log("[14] rglru_scan against its twin on the card; attention at "
+        "recurrentgemma-2b's heads")
+    from repro_torch.kernels import rg_lru
     row = {"max_abs_err": 0.0, "by_shape": {}}
     floor = time_ms(lambda: torch.cuda._sleep(1), 100)
     for label, B, S, D, with_h0 in RG_CASES:
-        a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.499 + 0.5
-        b = torch.randn((B, S, D), generator=gen, device="cuda")
-        h0 = torch.randn((B, D), generator=gen, device="cuda") \
-            if with_h0 else None
-        got = rg_lru.rglru_scan_cuda(a, b, h0)
-        again = rg_lru.rglru_scan_cuda(a, b, h0)
-        want = ref.rglru_scan_ref(a, b, h0)
-        torch.cuda.synchronize()
-        shape = f"B={B} S={S} D={D} h0={with_h0} ({label})"
-        if not torch.equal(got, again):
-            raise AssertionError(f"rglru_scan {shape}: not bitwise stable "
-                                 "from launch to launch")
-        err = check("rglru_scan " + shape, got, want, True)
-        del want
-        ms = time_ms(lambda: rg_lru.rglru_scan_cuda(a, b, h0), 20)
-        plain = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 1, 3)
-        nbytes = 4 * (3 * B * S * D + (B * D if with_h0 else 0))
-        bnd, by = bound_ms(nbytes, 2 * B * S * D)
-        channels = rg_lru.SCAN_CHANNELS
-        stage = rg_lru.scan_geometry(B, S, D)   # fresh, so 16-byte aligned
-        ring = rg_lru.SCAN_STAGES * stage
-        flight = (rg_lru.SCAN_STAGES - 1) * stage * 8 * B * D
-        blocks = B * -(-D // channels)
-        geo = (f"ring of {ring} steps ({flight} B in flight by design), "
-               f"{channels} channels a block, at most "
-               f"{-(-blocks // SMS) * channels} channels an SM"
-               if stage else
-               f"direct path (no ring), {channels} channels a block")
-        log(f"  rglru_scan       {shape}: bitwise, stable  kernel "
-            f"{ms:.4f} ms  twin {plain:.4f} ms  bound {bnd:.6f} ms ({by}, "
-            f"{card}), share {bnd / ms:.3f}; {geo}"
-            + (f"; launch floor {floor:.4f} ms" if S == 1 else "")
-            + "; no single PyTorch call computes it")
-        nums = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                    library_ms=None, shape=shape)
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["by_shape"][label] = nums
-        if label == "2k":                  # the JSON line's shape
-            row.update(nums)
-        del a, b, h0, got, again
-        torch.cuda.empty_cache()
+        _rglru_case(card, row, label, B, S, D, with_h0, floor)
     rg_lru.reset_launches()
     _attention_cases(card, RG_HEADS, RG_FLASH_CASES, RG_DECODE_CASES,
                      att_rows)
@@ -4195,22 +4235,6 @@ def _cross_launches(cfg, gen):
             "rglru_scan": 0}
 
 
-def _seed_nonzero(model, seed):
-    """What repro's init leaves zero or one, seeded so that a wrong index
-    shows: every norm scale and bias and QKV bias moved by 0.1 N(0, 1),
-    the xattn gates set to 0.5 and -0.7 plus 0.1 N(0, 1) (at zero a
-    cross-attention block adds nothing).  Drawn on the CPU."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("scale", "bias", "bq", "bk", "bv"):
-                p.add_(0.1 * torch.randn(p.shape, generator=gen).to(p.device))
-            elif leaf in ("gate_x", "gate_m"):
-                base = 0.5 if leaf == "gate_x" else -0.7
-                p.fill_(base + 0.1 * float(torch.randn((), generator=gen)))
-
-
 def phase_cross_attention(card, att_rows):
     log("[27] attention kernels at the cross-attention configs' shapes")
     from repro_torch.configs import get_arch
@@ -4230,6 +4254,7 @@ def phase_cross_attention(card, att_rows):
 def phase_serve_cross():
     log("[28] serve llama-3.2-vision-11b and whisper-medium through "
         "repro_torch.launch.serve")
+    from repro_torch.launch.sharded_serve import seed_nonzero
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import init_model
@@ -4244,7 +4269,7 @@ def phase_serve_cross():
         torch.cuda.synchronize()
         draw_s = time.perf_counter() - t0
         assert model.flat.numel() == P_CROSS[name], model.flat.numel()
-        _seed_nonzero(model, 1)
+        seed_nonzero(model, 1)
         kind = "enc_frames" if cfg.encoder is not None else "memory"
         cross = {kind: 0.1 * torch.randn(
             (4, cfg.cross_memory_len, cfg.d_model),
@@ -4432,6 +4457,7 @@ def _kimi_moe_apply(card):
 def phase_serve_moe(card):
     log("[30] serve mixtral-8x22b (4 of 56 layers, full width) and "
         "kimi-k2-1t-a32b (reduced) through repro_torch.launch.serve")
+    from repro_torch.launch.sharded_serve import seed_nonzero
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import init_model
     t_phase = time.perf_counter()
@@ -4443,7 +4469,7 @@ def phase_serve_moe(card):
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     assert model.flat.numel() == P_MIX[MIX_LAYERS], model.flat.numel()
-    _seed_nonzero(model, 1)
+    seed_nonzero(model, 1)
     log(f"  {MIXTRAL}: {cfg.n_layers} of {full.n_layers} layers, "
         f"{model.flat.numel()} float32 parameters "
         f"({model.flat.numel() * 4 / 1e9:.1f} GB), drawn on the card by "
@@ -4467,7 +4493,7 @@ def phase_serve_moe(card):
 
     kcfg = reduced(get_arch(KIMI))
     kimi = init_model(kcfg, 0, device="cuda")
-    _seed_nonzero(kimi, 2)
+    seed_nonzero(kimi, 2)
     _serve_card_vs_cpu_moe(f"{KIMI} reduced ({kcfg.n_layers} layers: "
                            f"dense prefix, {kcfg.moe.n_experts} experts "
                            f"top {kcfg.moe.top_k} + shared)", kimi,
@@ -4539,13 +4565,14 @@ def _train_cross(name):
 
 
 def _seeded_state(seed, cfg, tcfg, nonzero, count=None):
-    """``make_state`` on the card with ``_seed_nonzero``'s values (the
+    """``make_state`` on the card with ``seed_nonzero``'s values (the
     optimizer's master copy too)."""
+    from repro_torch.launch.sharded_serve import seed_nonzero
     from repro_torch.training import make_state
     state = make_state(seed, cfg, tcfg, device="cuda")
     if count is not None:
         assert state["params"].flat.numel() == count
-    _seed_nonzero(state["params"], nonzero)
+    seed_nonzero(state["params"], nonzero)
     with torch.no_grad():
         for k, t in state["opt"]["master"].items():
             t.copy_(state["params"].get_parameter(k))
@@ -4898,6 +4925,21 @@ def _sharded_jobs():
                            reference=True))]
     nccl = [("bitwise", dict(cfg=cfg, tcfg=tcfg, batches=batches[:2],
                              backend="nccl"))]
+    # phase 36's serve jobs, after phase 35's in the same worlds; the 4
+    # ranks' serves wait for the pair's jobs to end (both worlds' serves
+    # with their one-process references at once overfill the card)
+    pair_done = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                             "pair_done")
+    gloo += [("await", dict(path=pair_done, timeout=SHARD_TIMEOUT)),
+             ("serve", dict(cfg=dataclasses.replace(
+                 get_arch("qwen2.5-3b"), n_layers=MESH_SERVE_CUT),
+                 mesh=mesh, param_dtype="float32", rtol=RTOL_SERVE,
+                 reference=True)),
+             ("serve", dict(arch="qwen2.5-3b", mesh=mesh, reference=True))]
+    pair += [("serve", dict(arch="recurrentgemma-2b", reference=True,
+                            mesh=((1, 2), ("data", "model")))),
+             ("mark", dict(path=pair_done))]
+    nccl += [("serve_bitwise", dict(arch="flaas-100m", backend="nccl"))]
     return gloo, pair, nccl, cfg, tcfg, rg
 
 
@@ -4929,7 +4971,7 @@ def phase_sharded(smi):
         f"start), 2 Gloo ranks ({secs2:.1f} s), one NCCL rank "
         f"({secs1:.1f} s), all on the card")
     flaas, example, pipe = ([r[j] for r in res] for j in range(3))
-    act = [r[0] for r in act]
+    res2, act = act, [r[0] for r in act]
     lr2 = 2 * tcfg.lr
     # (a) flaas-100m at the launcher's defaults on (data 2, model 2)
     r0 = flaas[0]
@@ -5012,8 +5054,98 @@ def phase_sharded(smi):
         f"one-process run included): flaas (2, 2) {flaas[0]['job_s']:.1f}, "
         f"example mode {example[0]['job_s']:.1f}; recurrentgemma-2b "
         f"{act[0]['job_s']:.1f}")
-    log(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s")
-    return {"dp": dp_launches, "rg": rg_launches}
+    log(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s (phase "
+        f"36's serve jobs included)")
+    log(f"  the 4 ranks waited {res[0][3]['waited_s']:.1f} s for the 2 "
+        f"ranks' jobs before phase 36's serves")
+    serves = {f"qwen2.5-3b {MESH_SERVE_CUT} layers (2, 2) float32":
+              [r[4] for r in res],
+              "qwen2.5-3b (2, 2) bfloat16": [r[5] for r in res],
+              "recurrentgemma-2b (1, 2) bfloat16": [r[1] for r in res2],
+              "flaas-100m (1, 1) NCCL": [one[0][1]]}
+    return {"dp": dp_launches, "rg": rg_launches}, serves
+
+
+def _mesh_serve_expect(cfg, gen=16):
+    kinds = [k for k, _ in cfg.layer_specs()]
+    n_att = len(kinds) - kinds.count("rec")
+    return {"flash_attention": n_att, "decode_attention": n_att * (gen - 1),
+            "rglru_scan": kinds.count("rec") * gen}
+
+
+def phase_sharded_serve(smi, serves, att_rows, rg_row):
+    """Phase 36: the serve jobs phase 35's worlds ran after their training
+    jobs (no spawn of their own): each rank's checks and figures; then
+    the kernels at a rank's shapes against their twins."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rg_lru
+    log(f"[36] serving under a mesh (repro_torch.launch.sharded_serve, in "
+        f"phase 35's worlds): the sharded prefill and decode; {smi}")
+    launches = {}
+    for label, ranks in serves.items():
+        r0 = ranks[0]
+        if "bitwise" in r0:
+            assert r0["bitwise"], r0
+            cfg = get_arch("flaas-100m")
+            assert r0["launches"] == _mesh_serve_expect(cfg), r0["launches"]
+            launches[label] = [r0["launches"]]
+            log(f"  {label}: serve.run on a (1, 1) mesh bitwise the "
+                f"unsharded serve of the same model (tokens, prefill and "
+                f"decode logits, the cache after the prefill and the last "
+                f"step); launches {r0['launches']}")
+            continue
+        cfg = r0["cfg"]
+        want = _mesh_serve_expect(cfg)
+        for r in ranks:
+            b = r["bytes"]
+            assert r["launches"] == want, (label, r["rank"], r["launches"])
+            assert b["shards"] == b["shards_rule"], (label, r["rank"], b)
+            assert b["params"] == b["params_rule"], (label, r["rank"], b)
+            assert b["cache"] == b["cache_layout"], (label, r["rank"], b)
+        launches[label] = [r["launches"] for r in ranks]
+        c = r0["vs_one_rank"]
+        assert r0["one_rank"]["launches"] == want, r0["one_rank"]
+        bound = (f"{BF16_FACTOR} x d = {c['bound']:.3e}, d = the one-process "
+                 f"bfloat16 run from its float32 run = "
+                 f"{r0['d'] / r0['d_scale']:.3e} of max|logit| "
+                 f"{r0['d_scale']:.3f}" if "d" in r0 else
+                 f"{RTOL_SERVE} x max|logit| = {c['bound']:.3e}")
+        log(f"  {label} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.kv_heads} heads), B=4, prompt 32, gen 16, "
+            f"against the one-process card run: prefill logits max err "
+            f"{c['errs']['prefill']:.3e}, decode (teacher-forced with the "
+            f"mesh's tokens) {c['errs']['decode']:.3e} (bound {bound}); "
+            f"the cache entries' largest error {c['errs']['cache_share']:.3e}"
+            f" of its bound; {c['tokens_differ']} tokens differ, at "
+            f"{c['near_ties']} near-ties; launches per rank "
+            f"{r0['launches']}; one process: prefill "
+            f"{r0['one_rank']['prefill_ms']:.2f} ms, decode "
+            f"{statistics.median(r0['one_rank']['step_ms']):.3f} ms/step "
+            f"(median); job {r0['job_s']:.1f} s on rank 0")
+        for r in ranks:
+            b = r["bytes"]
+            log(f"    rank {r['rank']} {r['coords']} rows {r['rows']}: "
+                f"parameter shards {b['shards']} bytes (rules "
+                f"{b['shards_rule']}), working parameters {b['params']} "
+                f"(rules {b['params_rule']}), cache {b['cache']} (layout "
+                f"{b['cache_layout']}; cache_pspecs alone {b['cache_pspecs']}"
+                f"); peak {r['peak_bytes'] / 2**30:.2f} GiB allocated; "
+                f"prefill {r['prefill_ms']:.2f} ms, decode "
+                f"{statistics.median(r['step_ms']):.3f} ms/step (median; "
+                f"ranks share one card and its host under Gloo: no "
+                f"scale-out figure)")
+    # the kernels at a rank's shapes: qwen2.5-3b's 8 of 16 query heads
+    # over 1 of 2 kv heads (G 8, as whole), B=2 rows, in both dtypes;
+    # recurrentgemma-2b's scan on 1280 of 2560 channels
+    for dtype, label in ((torch.float32, "mesh-rank"),
+                         (torch.bfloat16, "mesh-rank-bf16")):
+        _attention_cases(smi, MESH_RANK_HEADS, [(label, 2, 32, True, None)],
+                         [(label, 2, 48, 33)], att_rows, dtype=dtype)
+    floor = time_ms(lambda: torch.cuda._sleep(1), 100)
+    for label, B, S, D, with_h0 in MESH_RANK_SCANS:
+        _rglru_case(smi, rg_row, label, B, S, D, with_h0, floor)
+    rg_lru.reset_launches()
+    return launches
 
 
 def main() -> int:
@@ -5053,7 +5185,8 @@ def _card_phases(name, smi) -> int:
                                            beam_row["max_abs_err"])
     service_launches = phase_service(smi)
     shard_launches = phase_checkpoint_shard(smi)
-    sharded_launches = phase_sharded(smi)
+    sharded_launches, serves = phase_sharded(smi)
+    mesh_serve = phase_sharded_serve(smi, serves, att_rows, rg_row)
     bwd_row, per_train_step, bwd_launches = phase_train(smi)
     phase_train_new()
     phase_cross_attention(smi, att_rows)
@@ -5094,6 +5227,9 @@ def _card_phases(name, smi) -> int:
                      launches_bf16_serve={
                          n: {r: c[k] for r, c in runs.items()}
                          for n, runs in bf16_launches.items()},
+                     launches_mesh_serve_per_rank={
+                         n: [c[k] for c in runs]
+                         for n, runs in mesh_serve.items()},
                      **att_rows[k]) for k in ATT_REPLACES]
     kernels.append(dict(name="rglru_scan", route="cuda", source=RG_SOURCE,
                         replaces=RG_REPLACES,
@@ -5102,6 +5238,9 @@ def _card_phases(name, smi) -> int:
                         launches_per_train_step=per_train_step["rglru_scan"],
                         launches_sharded_grads_per_rank=sharded_launches[
                             "rg"]["rglru_scan"],
+                        launches_mesh_serve_per_rank={
+                            n: [c["rglru_scan"] for c in runs]
+                            for n, runs in mesh_serve.items()},
                         **rg_row))
     kernels.append(dict(name="rglru_scan_bwd", route="cuda", source=RG_SOURCE,
                         replaces=RG_BWD_REPLACES, note=RG_BWD_NOTE,

@@ -32,7 +32,7 @@ follow :func:`layout`, which keeps an axis at its first dimension only.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,6 +171,14 @@ def param_pspecs(params, cfg: ArchConfig, mesh) -> Dict[str, Spec]:
     return out
 
 
+def rule_bytes(model, specs: Dict[str, Spec], mesh) -> int:
+    """Bytes of a rank's leaves of ``model`` (a ``Transformer``; a
+    ``meta`` one will do) under ``specs``: each leaf's local shape of its
+    full shape, times its dtype's size."""
+    return sum(math.prod(local_shape(model.full_shapes[n], specs[n], mesh))
+               * p.dtype.itemsize for n, p in model.named_parameters())
+
+
 # -------------------------------------------------------- batch/cache rules
 def _dp_entry(mesh):
     """The DP axes as one spec entry (a lone axis by its name, as a
@@ -217,6 +225,84 @@ def cache_pspecs(cache_tree, mesh, batch_size: int):
         return tuple(spec)
 
     return _tree_map(fn, cache_tree)
+
+
+class CacheLeaf(NamedTuple):
+    """One cache leaf of a serve on a mesh (:func:`cache_layout`)."""
+    spec: Spec          # ``repro``'s, ``cache_pspecs``
+    layout: Spec        # the shard this rank holds
+    shape: Tuple[int, ...]     # the whole leaf
+    dtype: torch.dtype
+
+
+def _tp_dim(kind: str, name: str, plan) -> Optional[int]:
+    """The dimension of a cache leaf that a tensor-parallel block splits
+    over 'model': the KV heads of attention on local heads, the channels
+    of an RG-LRU on local channels; xLSTM cells run whole."""
+    if name in ("k", "v", "xk", "xv") and plan.attn:
+        return 2
+    if kind == "rec" and plan.rg:
+        return {"conv": 2, "h": 1}[name]
+    return None
+
+
+def cache_layout(cfg: ArchConfig, mesh, batch: int, cache_len: int,
+                 dtype=torch.float32) -> List[Dict[str, CacheLeaf]]:
+    """Every leaf of the decode cache of a serve of ``batch`` rows and
+    ``cache_len`` positions on ``mesh``, block by block: ``repro``'s spec
+    (:func:`cache_pspecs`: the batch over the DP axes where it divides,
+    else whole), the layout this rank holds, the whole shape and the
+    dtype (a model in ``dtype``).  The rank's rows are the spec's; where
+    a block runs tensor-parallel (:func:`repro_torch.distributed.
+    tensor_parallel.tp_plan`) its KV heads, or a ``rec`` block's ``conv``
+    and ``h`` channels, are also split over 'model'.  ``repro`` keeps the
+    cache whole across 'model' (its out-shardings); a rank here holds
+    only what its heads and channels read."""
+    from ..models.kv_cache import meta_cache
+    from .tensor_parallel import tp_plan
+    cache = meta_cache(cfg, batch, cache_len, dtype=dtype)
+    specs = cache_pspecs(cache, mesh, batch)
+    plan = tp_plan(cfg, tp_size(mesh))
+    out = []
+    for (kind, _), entry, spec in zip(cfg.layer_specs(), cache, specs):
+        leaves = {}
+        for name, t in entry.items():
+            lay = list(spec[name])
+            d = _tp_dim(kind, name, plan)
+            if d is not None and plan.size > 1:
+                lay[d] = "model"
+            leaves[name] = CacheLeaf(spec[name], tuple(lay), tuple(t.shape),
+                                     t.dtype)
+        out.append(leaves)
+    return out
+
+
+def cache_bytes(layout: List[Dict[str, CacheLeaf]], mesh) -> Tuple[int, int]:
+    """Bytes of a :func:`cache_layout` on a rank: what the rank holds, and
+    what ``repro``'s ``cache_pspecs`` alone would give it."""
+    held = implied = 0
+    for entry in layout:
+        for leaf in entry.values():
+            size = leaf.dtype.itemsize
+            held += size * math.prod(local_shape(leaf.shape, leaf.layout,
+                                                 mesh))
+            implied += size * math.prod(local_shape(leaf.shape, leaf.spec,
+                                                    mesh))
+    return held, implied
+
+
+def gather_cache(cache, layout: List[Dict[str, CacheLeaf]], mesh,
+                 device=None) -> List[Dict[str, torch.Tensor]]:
+    """The whole cache from every rank's entries under ``layout`` (a
+    collective: every rank of the mesh calls it), copied to ``device``
+    (default: the entries'), so later decode steps leave it as it is."""
+    names = [(i, n) for i, entry in enumerate(layout) for n in entry]
+    full = gather_many([cache[i][n] for i, n in names],
+                       [layout[i][n].layout for i, n in names], mesh)
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in layout]
+    for (i, n), t in zip(names, full):
+        out[i][n] = t.to(t.device if device is None else device, copy=True)
+    return out
 
 
 def _tree_map(fn, tree):

@@ -1,5 +1,6 @@
 """Tensor-parallel blocks over a mesh's 'model' axis, and the working
-model a sharded training step computes with.
+model a sharded training step computes with and a sharded serve serves
+(:func:`serving_model`).
 
 Where ``repro``'s rules put a leaf's output dimension on 'model', the
 leaf is column-parallel (``wq`` / ``wk`` / ``wv`` / ``bq`` / ``bk`` /
@@ -31,7 +32,8 @@ from typing import Dict
 import torch
 
 from ..configs.base import ArchConfig
-from .sharding import Spec, axes_of, gather_many, layout, local_shape
+from .sharding import (Spec, axes_of, gather_many, layout, local_shape,
+                       param_pspecs, rule_bytes, shard, tp_size)
 
 
 class _Enter(torch.autograd.Function):
@@ -161,3 +163,48 @@ def working_model(model, specs: Dict[str, Spec], mesh, plan: TPPlan):
             w.copy_(t)
     attach(work, mesh, plan)
     return work
+
+
+@torch.no_grad()
+def serving_model(cfg: ArchConfig, seed: int, device, dtype, mesh,
+                  whole=None):
+    """The model a serve on ``mesh`` runs, built once for the run: this
+    rank's shards of ``init_model(cfg, seed, device, dtype)`` by
+    ``repro``'s rules (each leaf drawn whole on ``device`` and cut, as a
+    sharded training state is drawn), then the working model of
+    :func:`working_model` -- a leaf at its 'model' shard where the plan
+    keeps it local, else gathered whole -- so no decode step gathers a
+    parameter.  The shards are dropped once the working model holds
+    them.  With ``whole`` (the whole model, ``cfg``'s leaves, on this
+    rank) the shards are cut from it instead of drawn.  Returns
+    ``(model, bytes)``: ``bytes`` the rank's ``shards``
+    and working ``params`` as allocated, each beside the rules' count
+    (``shards_rule``, ``params_rule``)."""
+    from ..models.transformer import Transformer, init_model
+    meta = Transformer(cfg, device="meta", dtype=dtype)
+    specs = param_pspecs(meta, cfg, mesh)
+    plan = tp_plan(cfg, tp_size(mesh))
+    shape_of = lambda n, s: local_shape(s, specs[n], mesh)  # noqa: E731
+    if whole is None:
+        shards = init_model(cfg, seed, device=device, dtype=dtype,
+                            shape_of=shape_of,
+                            cut=lambda n, w: shard(w, specs[n], mesh))
+    else:
+        shards = Transformer(cfg, device=whole.device, dtype=whole.dtype,
+                             shape_of=shape_of)
+        for (n, p), q in zip(whole.named_parameters(), shards.parameters()):
+            q.copy_(shard(p.detach(), specs[n], mesh))
+    if shards.device.type == "cuda":     # the whole leaves' draws
+        torch.cuda.empty_cache()
+    nbytes = {"shards": _allocated(shards),
+              "shards_rule": rule_bytes(meta, specs, mesh)}
+    work = working_model(shards, specs, mesh, plan)
+    del shards
+    nbytes["params"] = _allocated(work)
+    nbytes["params_rule"] = rule_bytes(
+        meta, {n: working_spec(n, s, plan) for n, s in specs.items()}, mesh)
+    return work, nbytes
+
+
+def _allocated(model) -> int:
+    return sum(f.numel() * f.element_size() for f in model.flats.values())

@@ -197,10 +197,9 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """(data 16, model 16), or with ``multi_pod`` (pod 2, data 16, model
     16): the world must have exactly that many ranks."""
-    import torch.distributed as dist
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    world = dist.get_world_size() if dist.is_initialized() else 1
+    world = _world()
     if world != math.prod(shape):
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
                          f"needs {math.prod(shape)} ranks; the world has "
@@ -211,3 +210,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_host_mesh() -> Mesh:
     """The degenerate (1, 1) mesh: every rank a mesh of its own."""
     return make_mesh((1, 1), ("data", "model"))
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def launch_mesh(multi_pod: bool = False) -> Mesh:
+    """``repro``'s launchers' mesh by the world's size (``launch/train.py``
+    and ``launch/serve.py`` alike): the production mesh at 256 ranks or
+    more, else the host mesh."""
+    return make_production_mesh(multi_pod=multi_pod) if _world() >= 256 \
+        else make_host_mesh()
+
+
+def launch_dtype() -> str:
+    """``repro``'s launchers' parameter dtype: float32 on one rank,
+    bfloat16 on more."""
+    return "float32" if _world() == 1 else "bfloat16"

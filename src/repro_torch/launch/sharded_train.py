@@ -17,7 +17,9 @@ ranks: one process per rank of a mesh.
 Rank 0 prints each step's metrics (and, with ``--pipeline``, the
 largest difference from the sequential forward).  The rank functions
 here (:func:`jobs` over :func:`train_job`, :func:`launcher_job`,
-:func:`pipeline_job`) run under :func:`repro_torch.launch.sharded_service.spawn` and return
+:func:`pipeline_job`, and the serving jobs of
+:mod:`repro_torch.launch.sharded_serve`) run under
+:func:`repro_torch.launch.sharded_service.spawn` and return
 what their callers compare: the tests against the one-rank port and
 ``repro``, ``chip_smoke.py`` against the one-process card run.  They
 import ``repro_torch`` only.
@@ -43,6 +45,7 @@ from ..training.train_loop import (_grads_with_loss, gather_state,
                                    sharded_gradients, sharded_opt_init,
                                    state_layout, step_generator)
 from .mesh import make_mesh
+from .sharded_serve import serve_bitwise_job, serve_job
 
 
 def _launches() -> dict:
@@ -336,7 +339,7 @@ def sequential_blocks(cfg, x, seed=0, device="cpu") -> torch.Tensor:
 def rule_job(rank: int, world: int, device, job: dict) -> dict:
     """``repro``'s launcher rule in this world: the mesh and dtype the
     launcher picks."""
-    from .train import launch_dtype, launch_mesh
+    from .mesh import launch_dtype, launch_mesh
     return {"mesh": launch_mesh(job.get("multi_pod", False)).shape,
             "param_dtype": launch_dtype()}
 
@@ -388,19 +391,49 @@ def init_job(rank: int, world: int, device, job: dict) -> dict:
     return {"bitwise": bool(same), "keys": sorted(a["opt"])}
 
 
+def mark_job(rank: int, world: int, device, job: dict) -> dict:
+    """Leave the file ``job["path"]``: worlds sharing one card order
+    their heavy jobs by it (:func:`await_job`)."""
+    with open(job["path"], "a"):
+        pass
+    return {}
+
+
+def await_job(rank: int, world: int, device, job: dict) -> dict:
+    """Wait until the file ``job["path"]`` exists (another world's
+    :func:`mark_job`), at most ``job["timeout"]`` seconds (default 600):
+    the seconds waited."""
+    import os
+    t0 = time.perf_counter()
+    while not os.path.exists(job["path"]):
+        if time.perf_counter() - t0 > job.get("timeout", 600):
+            raise TimeoutError(f"no {job['path']} after "
+                               f"{job.get('timeout', 600)} s")
+        time.sleep(0.1)
+    return {"waited_s": time.perf_counter() - t0}
+
+
 KINDS = {"train": train_job, "init": init_job, "launcher": launcher_job,
-         "pipeline": pipeline_job, "rule": rule_job, "bitwise": bitwise_job}
+         "pipeline": pipeline_job, "rule": rule_job, "bitwise": bitwise_job,
+         "serve": serve_job, "serve_bitwise": serve_bitwise_job,
+         "mark": mark_job, "await": await_job}
 
 
 def jobs(rank: int, world: int, device, todo: list) -> list:
     """Each ``(kind, job)`` of ``todo`` in turn (:data:`KINDS`), in one
-    world: the results in order.  Ranks on the CPU take one intra-op
+    world: the results in order; on the card each job's cached blocks
+    go back before the next.  Ranks on the CPU take one intra-op
     thread each: the models here are small and a world's ranks share the
     host's cores (4 ranks of 8 threads ran the CPU tests' cases 3x
     slower)."""
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)
-    return [KINDS[kind](rank, world, device, job) for kind, job in todo]
+    out = []
+    for kind, job in todo:
+        out.append(KINDS[kind](rank, world, device, job))
+        if torch.device(device).type == "cuda":   # to the next job's ranks
+            torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------- CLI

@@ -56,7 +56,7 @@ from ..training import DPConfig, TrainConfig, make_state, train_step
 from ..training.train_loop import gather_state, shard_state
 from ..training.train_loop import param_dtype as param_dtype_of
 from .inputs import cross_inputs
-from .mesh import make_host_mesh, make_production_mesh
+from .mesh import launch_dtype, launch_mesh
 
 DEFAULT_CKPT = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
 
@@ -70,23 +70,6 @@ def train_config(cfg, batch: int, noise: float, clip: float,
         param_dtype=param_dtype,
         dp=DPConfig(clip=clip, noise_multiplier=noise,
                     n_micro=2 if batch % 2 == 0 else 1))
-
-
-def launch_mesh(multi_pod: bool = False):
-    """``repro``'s launcher's mesh by the world's size: the production
-    mesh at 256 ranks or more, else the host mesh."""
-    import torch.distributed as dist
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    return make_production_mesh(multi_pod=multi_pod) if world >= 256 \
-        else make_host_mesh()
-
-
-def launch_dtype() -> str:
-    """``repro``'s launcher's parameter dtype: float32 on one rank,
-    bfloat16 on more."""
-    import torch.distributed as dist
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    return "float32" if world == 1 else "bfloat16"
 
 
 def run(arch: str = "flaas-100m", steps: int = 20, batch: int = 8,

@@ -45,6 +45,18 @@ The K/V entries and a ``rec`` block's ``conv`` take the model's
 parameter dtype (``repro`` writes ``k.astype(cache["k"].dtype)``), the
 xLSTM states and ``h`` stay float32.
 
+Under a mesh (``launch/serve.py``'s ``run(mesh=)``) a block's
+tensor-parallel hooks (``blk.tp``) run attention on the rank's heads and
+the RG-LRU on its channels, so its cache entry holds the rank's rows and
+``kv_heads / tp`` KV heads, or ``d_model / tp`` channels of ``conv`` and
+``h`` (:func:`local_widths`; the layout:
+:func:`repro_torch.distributed.sharding.cache_layout`); the decode
+kernel's group G = H / KH is unchanged, both counts being divided.
+Cross attention's ``xk`` / ``xv`` are projected by the rank's ``wk`` /
+``wv`` columns from the whole memory (or the encoder's output, which
+every rank of the 'model' slice computes whole).  xLSTM cells run whole
+on the rank's rows.
+
 Where ``repro`` returns a new cache from each decode step, the port
 writes the step's key and value, or the recurrent block's new state,
 into the cache in place (saving a copy of the cache per token) and
@@ -55,6 +67,7 @@ different assignments.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -65,7 +78,7 @@ from ..kernels.flash_attention import flash_attention
 from . import layers as L
 from . import recurrent as R
 from .transformer import (_CROSS, Transformer, _check_ported, apply_block,
-                          cross_memory, logits_head, xkv)
+                          cross_memory, logits_head, reads_memory, xkv)
 
 Cache = List[Dict[str, torch.Tensor]]
 _RING = ("swa", "local")
@@ -86,6 +99,20 @@ def _cache_len_for(kind: str, cfg: ArchConfig, cache_len: int) -> int:
     return cache_len
 
 
+def local_widths(blk, cfg: ArchConfig):
+    """The block's KV heads and RG-LRU channels on this rank: the 'model'
+    slice's share where the block's tensor-parallel hooks (``blk.tp``)
+    run attention on local heads or the RG-LRU on local channels, else
+    the config's."""
+    tp = blk.tp
+    kv_heads, width = cfg.kv_heads, cfg.d_model
+    if tp is not None and tp.plan.attn:
+        kv_heads //= tp.size
+    if tp is not None and tp.plan.rg:
+        width //= tp.size
+    return kv_heads, width
+
+
 @torch.no_grad()
 def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
                cache_len: int, dtype=None, *, memory=None,
@@ -96,19 +123,28 @@ def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
     ``mlstm`` ``{"C", "n", "m"}`` and ``slstm`` ``{"c", "n", "h", "m"}``
     float32), on the model's device.  A cross-attention block's ``{"xk",
     "xv"}`` are projected from ``memory`` (or from the encoder's output
-    over ``enc_frames``), as ``repro`` precomputes them."""
+    over ``enc_frames``), as ``repro`` precomputes them.  A block that
+    runs tensor-parallel holds its rank's KV heads or RG-LRU channels
+    (:func:`local_widths`).  On the ``meta`` device nothing is computed:
+    the encoder's output takes its frames' shape."""
     _check(params, cfg)
-    memory = cross_memory(params, cfg, memory, enc_frames, _encoder_attend)
     dev = params.device
+    if dev.type == "meta" and cfg.encoder is not None:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} encodes enc_frames [B, Le, D]; "
+                             "none were given")
+        memory, enc_frames = enc_frames, None
+        cfg = dataclasses.replace(cfg, encoder=None)
+    memory = cross_memory(params, cfg, memory, enc_frames, _encoder_attend)
     dtype = params.dtype if dtype is None else dtype
     H = cfg.n_heads
     out = []
     for blk in params.blocks:
         kind = blk.kind
+        kv_heads, width = local_widths(blk, cfg)
         if kind in _STATE:
             if kind == "rec":
-                state = R.rglru_init_state(batch, cfg.d_model, dev,
-                                           dtype=dtype)
+                state = R.rglru_init_state(batch, width, dev, dtype=dtype)
             elif kind == "mlstm":
                 state = R.mlstm_init_state(batch, H, cfg.d_model // H, dev)
             else:
@@ -118,13 +154,31 @@ def init_cache(params: Transformer, cfg: ArchConfig, batch: int,
         entry = {}
         if kind != "xattn":
             shape = (batch, _cache_len_for(kind, cfg, cache_len),
-                     cfg.kv_heads, cfg.dh)
+                     kv_heads, cfg.dh)
             entry = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
         if kind in _CROSS:
             entry["xk"], entry["xv"] = xkv(blk.xattn, memory, cfg)
         out.append(entry)
     return out
+
+
+def meta_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               memory_len: Optional[int] = None,
+               dtype=torch.bfloat16) -> Cache:
+    """:func:`init_cache` of a ``meta`` model of ``cfg`` in ``dtype``:
+    every entry's shape and dtype, nothing drawn or allocated.  A model
+    with cross attention reads a memory (an encoder-decoder, frames) of
+    ``memory_len`` rows (default ``cfg.cross_memory_len``)."""
+    model = Transformer(cfg, device="meta", dtype=dtype)
+    rows = cfg.cross_memory_len if memory_len is None else memory_len
+    x = torch.empty((batch, rows, cfg.d_model), dtype=dtype, device="meta")
+    kw = {}
+    if cfg.encoder is not None:
+        kw["enc_frames"] = x
+    elif reads_memory(cfg):
+        kw["memory"] = x
+    return init_cache(model, cfg, batch, cache_len, **kw)
 
 
 def _fit(x, Lc: int, ring: bool):

@@ -86,10 +86,12 @@ def causal_conv1d(x, w, b, state: Optional[torch.Tensor] = None):
 def rglru_block(x, params: Params, state: Optional[State] = None, tp=None):
     """Griffin's recurrent core.  x [B, S, D] -> (out [B, S, D],
     (conv [B, W-1, D], h [B, D])); ``state`` is the decode state, None for
-    a sequence from its start.  ``tp`` (a sharded training step's block
+    a sequence from its start.  ``tp`` (a sharded step's or serve's block
     hooks, :mod:`repro_torch.distributed.tensor_parallel`) runs the block
-    on this rank's channels, the scan included, and sums its output over
-    the 'model' slice."""
+    on this rank's D / tp channels, the scan included (S steps in the
+    prefill, one from the cached ``h`` in a decode step), and sums its
+    output over the 'model' slice; the state is then the rank's
+    channels', ``(conv [B, W-1, D / tp], h [B, D / tp])``."""
     if tp is not None:
         x = tp.enter(x)
     gate = F.gelu(x @ params["w_gate_br"], approximate="tanh")  # jax.nn.gelu
@@ -110,8 +112,9 @@ def rglru_block(x, params: Params, state: Optional[State] = None, tp=None):
 def rglru_init_state(batch: int, d_rnn: int, device,
                      conv_width: int = CONV_WIDTH,
                      dtype=torch.float32) -> State:
-    """Zeroed decode state on ``device``: the convolution's inputs in
-    ``dtype`` (the parameters'), ``h`` in float32 (``repro``'s
+    """Zeroed decode state of ``d_rnn`` channels (a tensor-parallel
+    block's share: ``d_model / tp``) on ``device``: the convolution's
+    inputs in ``dtype`` (the parameters'), ``h`` in float32 (``repro``'s
     ``kv_cache.init_cache_slot``)."""
     return (torch.zeros((batch, conv_width - 1, d_rnn), dtype=dtype,
                         device=device),

@@ -337,7 +337,8 @@ def _grads_with_loss(loss_fn, params, batch, generator: torch.Generator,
 
 def serve_step(params, token, cache, pos: int, cfg: ArchConfig,
                temperature: float = 0.0,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int, int]] = None):
     """One decode step and sampling.  Returns ``(next_token [B, 1],
     logits [B, 1, vocab], cache)``.
 
@@ -345,7 +346,11 @@ def serve_step(params, token, cache, pos: int, cfg: ArchConfig,
     ``jnp.argmax``).  Otherwise the token is drawn by the Gumbel-max rule
     of ``jax.random.categorical`` from ``generator``, a ``torch.Generator``
     on the logits' device: reproducible from its seed, but not the same
-    draws as ``repro``'s ``jax.random`` key."""
+    draws as ``repro``'s ``jax.random`` key.  ``rows`` ``(lo, hi,
+    batch)`` says the call's rows are rows ``[lo, hi)`` of a batch of
+    ``batch`` (a rank's share under a mesh): the draw is the whole
+    batch's, cut to those rows, so every rank samples what one rank
+    serving the whole batch samples."""
     logits, cache = decode_step(params, token, cache, pos, cfg)
     last = logits[:, -1]
     if temperature <= 0.0:
@@ -353,7 +358,10 @@ def serve_step(params, token, cache, pos: int, cfg: ArchConfig,
     else:
         if generator is None:
             raise ValueError("sampling (temperature > 0) needs a generator")
-        u = torch.rand(last.shape, generator=generator, device=last.device)
+        lo, hi, n = (0, last.shape[0], last.shape[0]) if rows is None \
+            else rows
+        u = torch.rand((n, last.shape[1]), generator=generator,
+                       device=last.device)[lo:hi]
         tiny = torch.finfo(torch.float32).tiny
         gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
         nxt = torch.argmax(last / temperature + gumbel, dim=-1)
